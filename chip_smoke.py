@@ -23,13 +23,34 @@ line and raises on any failure:
    (18 images in 3 colour groups, 200 images, the 18 again with
    ``?async=1``), then ``/api/result``, ``/api/view``, ``/api/image`` and
    ``/healthz``;
-5. ``cli run`` (``Pipeline.run_paths``) on 4000 BMPs in a temp directory.
+5. ``cli run`` on 4000 BMPs in a temp directory (below ``exact_limit``);
+6. K3 (``merge_update_argmin_batched``) against its twin on the card: C in
+   {1, 8, 261} buckets of B in {128, 512}, random and integer-grid
+   matrices, mixed ``do_update``, ``absorb_min`` -1 and 3, an all-infeasible
+   bucket; bit-identical (D, dmin, bhi, blo) required; times at C = 261,
+   B = 512 (a 100,000-image job's one chunk);
+7. K2 (``merge_loop_whole``) against its twin and against the K3 lockstep
+   loop under Lance-Williams: C in {3, 64, 256}, B in {128, 512}, counts
+   mixing 0.75 B, 37, 5 and 0, absorb on and off, integer-grid and normal
+   features; identical log, step, births, sizes and active required; times
+   at C = 256, B = 512 with 384 items a bucket;
+8. the bucketed engine (``constrained_ward_bucketed``) at n = 100,000,
+   d = 1000 on seeded normal features, Lance-Williams (K2) and centroid
+   (K3), each also with the kernels swapped for their twins: identical
+   merge logs and clusters, sizes in [3, 6], no image lost;
+9. ``cli run`` on 6000 BMPs (above ``exact_limit``): streamed ingest, the
+   bucketed engine on K2, the report;
+10. ``Pipeline.run_stream`` on 16,384 images made on the card as CUDA
+    ``uint8`` chunks.
 
-The K1 launch counter is set to 0 just before phases 3, 4 and 5 and read
-just after each: every job's launches must lie in [merges, merges + K],
+Each launch counter is set to 0 just before the job that reads it and read
+just after. K1: every exact job's launches lie in [merges, merges + K],
 K = ``FOUND_READ_EVERY`` (the gated no-op steps the merge loop may run
-before its next host read of ``found``). The line before the last is the
-``{"kernels": [...]}`` summary; the last line is
+before its next host read of ``found``). K2: one launch per chunk the
+bucket dispatcher formed. K3: each lockstep phase launches between its
+iterations and its iterations + K - 1 times. The line before the last is
+the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
+and K3's from the 100,000-image engine runs); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -61,6 +82,14 @@ DEVICE = "cuda"
 ENGINE_N = 4096     # phase 3: the exact engine's largest padded size
 CLI_GROUPS = 800    # phase 5: 800 groups x 5 = 4000 images (< exact_limit)
 SERVER_GROUPS = 40  # phase 4: 40 groups x 5 = 200 images in one request
+BIG_N, BIG_D = 100_000, 1000  # phase 8: the bucketed engine's job
+BIG_CLI_GROUPS = 1200  # phase 9: 1200 groups x 5 = 6000 images
+STREAM_N = 16_384      # phase 10
+FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
+# K2 scan, per (row, column) pair of active slots: bounds, diagonal and
+# activity tests, a size add and compare, the absorb test, two birth loads,
+# max, min and the lexicographic compare (csrc/merge_loop_whole.cu)
+K2_OPS_PER_PAIR = 12
 
 
 def emit(obj) -> None:
@@ -512,6 +541,396 @@ def phase_cli(card: str):
           "output": os.path.relpath(OUT / "cli_result.json", REPO)})
 
 
+# -- the scale path (phases 6-10) ----------------------------------------------
+
+def _zero_counters():
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    mk.launches = mk.batched_launches = bk.launches = 0
+    sharded.chunks_dispatched = 0
+    sharded.lockstep_iterations = sharded.lockstep_phases = 0
+
+
+def _counters() -> dict:
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    return {"k1": mk.launches, "k2": bk.launches, "k3": mk.batched_launches,
+            "chunks": sharded.chunks_dispatched,
+            "lockstep_iterations": sharded.lockstep_iterations,
+            "lockstep_phases": sharded.lockstep_phases}
+
+
+def _check_scale_launches(what: str, c: dict, rule: str) -> None:
+    """K2: one launch per chunk. K3: each lockstep phase launches between
+    its iterations and its iterations + K - 1 times."""
+    from imageclust_tpu_torch.cluster.ward import FOUND_READ_EVERY
+
+    if rule == "lance_williams":
+        ok = c["k2"] == c["chunks"] > 0 and c["k3"] == 0
+    else:
+        hi = c["lockstep_iterations"] + (FOUND_READ_EVERY - 1) * c[
+            "lockstep_phases"]
+        ok = (c["k2"] == 0 and c["chunks"] > 0
+              and c["lockstep_iterations"] <= c["k3"] <= hi)
+    if not ok:
+        raise AssertionError(f"{what}: launch counts {c} for {rule}")
+
+
+def _same_bits(a, b) -> bool:
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
+
+
+def _k3_state(gen, C, B, dev, integer_grid, frac_active=0.8):
+    import torch
+
+    if integer_grid:
+        d = torch.randint(0, 5, (C, B, B), generator=gen).float()
+        dvec = torch.randint(0, 5, (C, B), generator=gen).float()
+    else:
+        d = torch.rand((C, B, B), generator=gen)
+        dvec = torch.rand((C, B), generator=gen)
+    d = ((d + d.transpose(1, 2)) / 2).contiguous()
+    births = torch.stack([torch.randperm(2 * B, generator=gen)[:B]
+                          for _ in range(C)]).to(torch.int32)
+    sizes = torch.randint(1, 4, (C, B), generator=gen).to(torch.int32)
+    active = (torch.rand((C, B), generator=gen) < frac_active).to(
+        torch.int32)
+    active[:, :2] = 1
+    if C > 1 and frac_active < 1:
+        active[-1] = 0  # a bucket where every pair is infeasible
+    sa = torch.randint(0, B, (C,), generator=gen).to(torch.int32)
+    do = torch.randint(0, 2, (C,), generator=gen).to(torch.int32)
+    return [t.to(dev) for t in (d, dvec, sa, do, births, sizes, active)]
+
+
+def phase_k3(card: str):
+    import torch
+
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(6)
+    cases = 0
+    for C in (1, 8, 261):
+        for B in (128, 512):
+            for grid in (False, True):
+                D, dvec, sa, do, births, sizes, active = _k3_state(
+                    gen, C, B, dev, grid)
+                for amin in (-1, 3):
+                    for max_size in (0, 6):  # 0: all infeasible
+                        dk, dp = D.clone(), D.clone()
+                        args = (dvec, sa, do, births, sizes, active,
+                                max_size, amin)
+                        got = mk.merge_update_argmin_batched(dk, *args)
+                        want = mk.merge_update_argmin_batched_plain(dp, *args)
+                        torch.cuda.synchronize()
+                        if not all(_same_bits(g, w)
+                                   for g, w in zip(got, want)):
+                            raise AssertionError(
+                                f"K3 != twin at C={C} B={B} grid={grid} "
+                                f"amin={amin} max={max_size}")
+                        if max_size == 0 and not bool(
+                                torch.isinf(got[1]).all()):
+                            raise AssertionError("K3 all-infeasible case "
+                                                 "found a pair")
+                        if C > 1 and not bool(torch.isinf(got[1][-1])):
+                            raise AssertionError("K3 infeasible bucket")
+                        cases += 1
+    emit({"phase": "k3_parity", "cases": cases, "parity": "bit-identical",
+          "max_abs_err": 0.0})
+
+    # a 100,000-image job's one chunk: every slot active, updates pending
+    C, B = 261, 512
+    D, dvec, sa, do, births, sizes, active = _k3_state(gen, C, B, dev, False,
+                                                       1.0)
+    do = torch.ones_like(do)
+    args = (dvec, sa, do, births, sizes, active, 6, -1)
+    call = lambda: mk.merge_update_argmin_batched(D, *args)  # noqa: E731
+    plain = lambda: mk.merge_update_argmin_batched_plain(D, *args)  # noqa
+    call_ms = cuda_ms(call)
+    plain_ms = cuda_ms(plain)
+    dev_ms = device_ms(call, ("batched_step_rows", "reduce_bucket_partials"))
+    plain_dev_ms = device_ms(plain)
+    n_act = int(active.sum())
+    # each active row of every D read once, one row + one column written per
+    # bucket, dvec/births/sizes/active read once, sa/do and outputs
+    bytes_moved = n_act * B * 4 + C * 2 * B * 4 + 4 * C * B * 4 + 5 * C * 4
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "k3_time", "card": card, "C": C, "B": B,
+          "device_ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+          "plain_device_ms": plain_dev_ms, "bound_ms": bound_ms,
+          "bound_by": "bytes", "bytes": bytes_moved,
+          "timing": f"call_ms/plain_ms: CUDA events, median of {TIMING_REPS} "
+                    "warm calls; *device_ms: torch.profiler kernel time, mean "
+                    f"of {TIMING_REPS}"})
+    return 0.0, {"ms": dev_ms or call_ms, "call_ms": call_ms,
+                 "plain_ms": plain_dev_ms or plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "bytes"}
+
+
+def _k2_inputs(gen, C, B, grid, d=16, counts=None):
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.cluster import sharded
+
+    if grid:
+        x = torch.randint(-3, 4, (C * B, d), generator=gen).float()
+    else:
+        x = torch.randn((C * B, d), generator=gen)
+    if counts is None:
+        counts = np.resize([int(0.75 * B), 37, 5, 0], C)
+    counts = np.asarray(counts, np.int32)
+    targets = np.array([sharded._bucket_target(int(c), 3, 6) if c else 0
+                        for c in counts], np.int32)
+    dev = torch.device(DEVICE)
+    bidx = torch.arange(C * B, dtype=torch.int32).reshape(C, B).to(dev)
+    return (x.to(dev), bidx, torch.from_numpy(counts).to(dev),
+            torch.from_numpy(targets).to(dev))
+
+
+def phase_k2(card: str):
+    import torch
+
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+
+    gen = torch.Generator().manual_seed(7)
+    cases = 0
+    for C in (3, 64, 256):
+        for B in (128, 512):
+            for grid in (False, True):
+                x, bidx, ct, tg = _k2_inputs(gen, C, B, grid)
+                D = sharded.pairwise_ward_singleton(
+                    sharded._gather_buckets(x, bidx))
+                for amin in (0, 3):
+                    got = bk.merge_loop_whole(D.clone(), ct, tg, 6, amin)
+                    want = bk.merge_loop_whole_plain(D.clone(), ct, tg, 6,
+                                                     amin)
+                    lock = sharded._bucket_chunk_fused(
+                        x, bidx, ct, tg, 6, 3, "lance_williams",
+                        absorb=amin > 0)
+                    torch.cuda.synchronize()
+                    if not all(_same_bits(g, w) and _same_bits(g, k)
+                               for g, w, k in zip(got, want, lock)):
+                        raise AssertionError(
+                            f"K2 / twin / K3 loop differ at C={C} B={B} "
+                            f"grid={grid} absorb={amin}")
+                    if int(got[1].sum()) == 0:
+                        raise AssertionError("K2 case merged nothing")
+                    cases += 1
+    emit({"phase": "k2_parity", "cases": cases,
+          "parity": "bit-identical (K2, twin, K3 lockstep loop)",
+          "max_abs_err": 0.0})
+
+    C, B, per = 256, 512, 384
+    x, bidx, ct, tg = _k2_inputs(gen, C, B, False, d=64, counts=[per] * C)
+    D0 = sharded.pairwise_ward_singleton(sharded._gather_buckets(x, bidx))
+    reps, warm = TIMING_REPS, 3
+    pool = [D0.clone() for _ in range(2 * (reps + warm) + 2)]
+    call = lambda: bk.merge_loop_whole(pool.pop(), ct, tg, 6, 3)  # noqa
+    call_ms = cuda_ms(call, reps, warm)
+    dev_ms = device_ms(call, ("merge_loop_whole_kernel",), reps)
+    plain_reps = 3
+    plain_ms = cuda_ms(
+        lambda: bk.merge_loop_whole_plain(D0.clone(), ct, tg, 6, 3),
+        plain_reps, 1)
+    log, step, *_ = bk.merge_loop_whole(D0.clone(), ct, tg, 6, 3)
+    steps = step.cpu().numpy().astype(int)
+    # the scans this run made: every merge scans active^2 pairs
+    pairs = sum(sum((per - j) ** 2 for j in range(s)) for s in steps)
+    ops = pairs * K2_OPS_PER_PAIR
+    bytes_moved = (C * B * B * 4 + C * (B - 1) * 3 * 4 + C * 4
+                   + 3 * C * B * 4 + 2 * C * 4)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+    emit({"phase": "k2_time", "card": card, "C": C, "B": B,
+          "items_per_bucket": per, "merges": int(steps.sum()),
+          "device_ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+          "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+          "bytes": bytes_moved, "bytes_ms": bytes_ms,
+          "pairs_scanned": pairs, "ops_per_pair": K2_OPS_PER_PAIR,
+          "ops_ms": ops_ms,
+          "timing": f"call_ms: CUDA events, median of {reps} warm calls; "
+                    f"plain_ms: the same, {plain_reps} calls; device_ms: "
+                    f"torch.profiler kernel time, mean of {reps}; "
+                    f"ops at {FP32_OPS_PER_S:.3g}/s"})
+    return 0.0, {"ms": dev_ms or call_ms, "call_ms": call_ms,
+                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def _twins():
+    """The bucketed engine with K2 and K3 swapped for their plain twins on
+    the card, to hold the kernel run against."""
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    saved = sharded.merge_loop_whole, sharded.merge_update_argmin_batched
+    sharded.merge_loop_whole = bk.merge_loop_whole_plain
+    sharded.merge_update_argmin_batched = mk.merge_update_argmin_batched_plain
+    try:
+        yield
+    finally:
+        sharded.merge_loop_whole, sharded.merge_update_argmin_batched = saved
+
+
+def _check_columnar(what: str, res, n: int, lo: int = 3, hi: int = 6):
+    import numpy as np
+
+    sizes = np.diff(res._offsets)
+    if len(sizes) and not (sizes.min() >= lo and sizes.max() <= hi):
+        raise AssertionError(f"{what}: cluster sizes {sizes.min()}.."
+                             f"{sizes.max()}")
+    if int(sizes.sum()) + len(res._dropped_idx) != n:
+        raise AssertionError(f"{what}: images lost")
+    return sizes
+
+
+def phase_engine_100k(card: str):
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.cluster import constrained_ward_bucketed
+
+    os.environ["IMAGECLUST_CLUSTER_PROFILE"] = "1"  # the phase timer
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    x = torch.randn((BIG_N, BIG_D), generator=gen, device=DEVICE)
+    launches = {}
+    for rule in ("lance_williams", "centroid"):
+        kw = dict(min_size=3, max_size=6, update_rule=rule, device=DEVICE)
+        _zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = constrained_ward_bucketed(x, **kw)
+        wall_s = time.perf_counter() - t0
+        c = _counters()
+        _check_scale_launches(f"engine {rule}", c, rule)
+        launches["k2" if rule == "lance_williams" else "k3"] = c[
+            "k2" if rule == "lance_williams" else "k3"]
+        sizes = _check_columnar(f"engine {rule}", res, BIG_N)
+        with _twins():
+            t0 = time.perf_counter()
+            ref = constrained_ward_bucketed(x, **kw)
+            twin_s = time.perf_counter() - t0
+        if not (np.array_equal(res.merges, ref.merges)
+                and np.array_equal(res._members, ref._members)
+                and np.array_equal(res._offsets, ref._offsets)
+                and list(res._dropped_idx) == list(ref._dropped_idx)):
+            raise AssertionError(f"engine {rule}: kernel run != twin run")
+        emit({"phase": "bucketed_engine", "card": card, "n": BIG_N,
+              "d": BIG_D, "update_rule": rule, "wall_s": wall_s,
+              "phases_s": res.phases_s, "twin_wall_s": twin_s,
+              "twin_phases_s": ref.phases_s, "host_paths": res.host_paths,
+              "buckets": res.n_buckets,
+              "clusters": int(len(sizes)), "dropped": len(res._dropped_idx),
+              "merges": int(len(res.merges)),
+              "size_histogram": np.bincount(sizes).tolist(),
+              "launches": c, "logs_identical_to_twin_run": True})
+    del os.environ["IMAGECLUST_CLUSTER_PROFILE"]
+    return launches
+
+
+def phase_cli_big(card: str):
+    import numpy as np
+
+    from imageclust_tpu_torch import cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_cli_big_"))
+    try:
+        rng = np.random.default_rng(9)
+        names, blobs, _ = group_images(rng, BIG_CLI_GROUPS, 5, "s")
+        img_dir = tmp / "images"
+        img_dir.mkdir()
+        for name, blob in zip(names, blobs):
+            (img_dir / name).write_bytes(blob)
+        del blobs
+        out = io.StringIO()
+        _zero_counters()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(["run", "--images", str(img_dir), "--device",
+                           DEVICE, "--out", str(tmp / "work")])
+        wall_s = time.perf_counter() - t0
+        c = _counters()
+        if rc != 0:
+            raise AssertionError(f"cli run exited {rc}")
+        result = json.loads(out.getvalue())
+        OUT.mkdir(parents=True, exist_ok=True)
+        (OUT / "cli_big_result.json").write_text(out.getvalue())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _check_sizes(result["clusters"])
+    _check_scale_launches("cli big", c, "lance_williams")
+    n = len(names)
+    placed = sum(len(cl["images"]) for cl in result["clusters"].values())
+    if placed + len(result["dropped"]) != n:
+        raise AssertionError("cli big: images lost")
+    emit({"phase": "cli_run_big", "card": card, "images": n,
+          "wall_s": wall_s, "stages_s": result["metrics"]["stages_s"],
+          "embed_images_per_s": result["metrics"].get("images_per_sec_embed"),
+          "clusters": len(result["clusters"]),
+          "dropped": len(result["dropped"]), "launches": c,
+          "output": os.path.relpath(OUT / "cli_big_result.json", REPO)})
+
+
+def phase_stream(card: str):
+    import torch
+
+    from imageclust_tpu_torch.config import AppConfig, LabelConfig
+    from imageclust_tpu_torch.pipeline import Pipeline
+
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    dev = torch.device(DEVICE)
+    groups = STREAM_N // 4
+    bases = torch.randint(0, 256, (groups, 3), generator=gen, device=dev)
+
+    def chunks(batch):
+        for s in range(0, STREAM_N, batch):
+            e = min(s + batch, STREAM_N)
+            g = torch.arange(s, e, device=dev) // 4
+            noise = torch.randint(0, 21, (e - s, 224, 224, 3), generator=gen,
+                                  device=dev, dtype=torch.int16)
+            img = bases[g][:, None, None, :] - 10 + noise
+            yield img.clamp(0, 255).to(torch.uint8)
+
+    cfg = AppConfig(labels=LabelConfig(backend="none"))
+    work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_"))
+    try:
+        pipeline = Pipeline(cfg, device=DEVICE)
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = pipeline.run_stream(chunks(pipeline.embedder.batch_size),
+                                  STREAM_N, str(work))
+        wall_s = time.perf_counter() - t0
+        c = _counters()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _check_scale_launches("run_stream", c, "lance_williams")
+    sizes = [len(d.images) for d in res.clusters.values()]
+    if not all(3 <= s <= 6 for s in sizes):
+        raise AssertionError("run_stream: cluster sizes out of bounds")
+    if sum(sizes) + len(res.dropped) != STREAM_N:
+        raise AssertionError("run_stream: images lost")
+    metrics = res.metrics.to_dict()
+    emit({"phase": "run_stream", "card": card, "images": STREAM_N,
+          "wall_s": wall_s, "stages_s": metrics["stages_s"],
+          "embed_images_per_s": metrics.get("images_per_sec_embed"),
+          "clusters": len(sizes), "dropped": len(res.dropped),
+          "launches": c})
+
+
 def main() -> int:
     try:
         import torch
@@ -535,6 +954,11 @@ def main() -> int:
     phase_engine(card)
     launches = phase_server(card)
     phase_cli(card)
+    k3_err, k3_t = phase_k3(card)
+    k2_err, k2_t = phase_k2(card)
+    big_launches = phase_engine_100k(card)
+    phase_cli_big(card)
+    phase_stream(card)
     t = timings[4096]
     emit({"kernels": [{
         "name": "merge_update_argmin",
@@ -550,6 +974,28 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
         "shape": "n=4096",
+        "parity": "bit-identical",
+    }, {
+        "name": "merge_loop_whole",
+        "route": "cuda",
+        "source": "imageclust_tpu_torch/csrc/merge_loop_whole.cu",
+        "replaces": "imageclust_tpu/ops/pallas_kernels.py:491",
+        "launches": big_launches["k2"],
+        "max_abs_err": k2_err,
+        **k2_t,
+        "library_ms": None,
+        "shape": "C=256, B=512, 384 items a bucket (the 100k job's chunk)",
+        "parity": "bit-identical",
+    }, {
+        "name": "merge_update_argmin_batched",
+        "route": "cuda",
+        "source": "imageclust_tpu_torch/csrc/merge_update_argmin_batched.cu",
+        "replaces": "imageclust_tpu/ops/pallas_kernels.py:270",
+        "launches": big_launches["k3"],
+        "max_abs_err": k3_err,
+        **k3_t,
+        "library_ms": None,
+        "shape": "C=261, B=512",
         "parity": "bit-identical",
     }]})
     emit({"ok": True, "device": {"platform": "gpu",

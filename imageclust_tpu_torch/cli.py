@@ -1,8 +1,10 @@
 """Command-line interface of the PyTorch port.
 
 ``python -m imageclust_tpu_torch.cli run --images DIR --min 3 --max 6``
-clusters a directory offline (``Pipeline.run_paths``) and prints the result
-JSON; ``serve`` starts the REST service. Both take ``--device`` (default
+clusters a directory offline and prints the result JSON: above
+``cluster.exact_limit`` images (or with ``--stream``) it streams the files
+from disk through ``Pipeline.run_paths``, below it reads them as uploads
+into ``Pipeline.run``. ``serve`` starts the REST service. Both take ``--device`` (default
 ``cuda``; ``cpu`` runs without a card). The JAX CLI's other subcommands
 (train, bank, export, verify, models, bench) are not ported yet.
 """
@@ -94,10 +96,25 @@ def cmd_run(args) -> int:
     work_dir = args.out or os.path.join(args.images, ".imageclust")
     os.makedirs(work_dir, exist_ok=True)
     pipeline = Pipeline(config, device=args.device)
-    result = pipeline.run_paths(
-        paths, work_dir, min_size=args.min, max_size=args.max,
-        profile_dir=args.profile or None,
-    )
+    if args.stream or len(paths) > config.cluster.exact_limit:
+        # big directories stream from disk with bounded host memory: no
+        # file, and no (N, 224, 224, 3) pixel array, is held all at once
+        result = pipeline.run_paths(
+            paths, work_dir, min_size=args.min, max_size=args.max,
+            profile_dir=args.profile or None,
+        )
+    else:
+        from imageclust_tpu_torch.types import UploadedImage
+
+        uploads = []
+        for path in paths:
+            with open(path, "rb") as fh:
+                uploads.append(UploadedImage(os.path.basename(path),
+                                             fh.read()))
+        result = pipeline.run(
+            uploads, work_dir, min_size=args.min, max_size=args.max,
+            profile_dir=args.profile or None,
+        )
     print(json.dumps(result.to_dict(), indent=2))
     print(f"report: {result.html_path}", file=sys.stderr)
     return 0
@@ -130,6 +147,9 @@ def build_parser() -> argparse.ArgumentParser:
     p_run.add_argument("--out", default="", help="work/output dir")
     p_run.add_argument("--profile", default="",
                        help="torch.profiler trace output dir")
+    p_run.add_argument("--stream", action="store_true",
+                       help="stream images from disk in bounded chunks "
+                            "(automatic above cluster.exact_limit)")
     _add_common(p_run)
     p_run.set_defaults(fn=cmd_run)
 

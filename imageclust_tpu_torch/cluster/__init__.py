@@ -1,3 +1,4 @@
+from imageclust_tpu_torch.cluster.sharded import constrained_ward_bucketed
 from imageclust_tpu_torch.cluster.ward import (
     ClusterResult,
     ConstraintError,
@@ -10,4 +11,5 @@ __all__ = [
     "ConstraintError",
     "calculate_optimal_clusters",
     "constrained_ward",
+    "constrained_ward_bucketed",
 ]

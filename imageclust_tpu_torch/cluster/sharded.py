@@ -1,0 +1,1308 @@
+"""Scalable constrained Ward on PyTorch: k-means buckets, then each bucket's
+exact merge loop on the card (K2 or K3).
+
+Counterpart of ``imageclust_tpu/cluster/sharded.py`` for one device, with
+the same observable semantics:
+
+1. **Bucketing.** A few Lloyd iterations of k-means over the embeddings
+   (distances as matmuls over (block, k) tiles, centroid sums as one-hot
+   matmuls so they add in a fixed order), then a host-side capacity repair
+   so every bucket holds between ``min_size`` and ``bucket_size`` items.
+   Only per-item summaries (assigned bucket, rank in it, preference rows of
+   the items repair can read) leave the device.
+2. **Per-bucket exact Ward.** The buckets' rows are gathered on the device,
+   chunk by chunk, into (C, B, B) Ward matrices, and every bucket runs the
+   reference's merge loop (same tie-breaks, same maxSize mask) followed by
+   the absorb phase that merges under-min clusters instead of dropping
+   them. Lance-Williams runs the whole loop per bucket in one launch of K2
+   (:mod:`imageclust_tpu_torch.ops.bucket_kernels`); the centroid rule runs
+   the lockstep loop whose step is K3
+   (:func:`imageclust_tpu_torch.ops.merge_kernels.merge_update_argmin_batched`).
+   A CUDA tensor runs the kernels, a CPU tensor their plain twins.
+3. **Host tail.** Merge logs are re-stamped into one dendrogram, members
+   expanded (the native ``ic_reconstruct_members`` when
+   ``native/libicnative.so`` is built, else the Python walk), and items of
+   clusters still under ``min_size`` spill into the nearest cluster with
+   room, first inside their bucket, then anywhere.
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): the
+device mesh, bf16/int8 feature residency, the need-only preference mode
+(n * k >= 2**36) and, on CUDA, k >= 4096 buckets (the fused preference
+kernel K4's domain). On the CPU, k >= 4096 runs the tile path, as the JAX
+package does off a TPU.
+
+The k-means seeding draws from ``torch.Generator(seed)``, not ``jax.random``,
+so the port's buckets differ from the JAX package's for the same seed; the
+tests inject JAX's indices through :func:`_kmeans_init` and
+:func:`_kmeans_subsample` to compare stage by stage.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from imageclust_tpu_torch.cluster.ward import (
+    FOUND_READ_EVERY,
+    ClusterResult,
+    DefaultIds,
+    _leaf_indices,
+    calculate_optimal_clusters,
+    constrained_ward,
+    pairwise_ward_singleton,
+    ward_update_vector,
+)
+from imageclust_tpu_torch.device import resolve_device
+from imageclust_tpu_torch.ops.bucket_kernels import merge_loop_whole
+from imageclust_tpu_torch.ops.merge_kernels import (
+    merge_update_argmin_batched,
+)
+
+__all__ = ["constrained_ward_bucketed", "kmeans"]
+
+log = logging.getLogger(__name__)
+
+_BIG_I32 = 2**31 - 1
+_ROADMAP = "ROADMAP.md, queue 1"
+
+# Chunks dispatched by _all_buckets (one K2 launch, or one K3 lockstep loop,
+# each), and the K3 loop's iterations in which some bucket still ran, with
+# the number of loop phases: a phase launches K3 between its iterations and
+# its iterations + FOUND_READ_EVERY - 1 times.
+chunks_dispatched = 0
+lockstep_iterations = 0
+lockstep_phases = 0
+
+
+class _PhaseTimer:
+    """Per-phase wall seconds of one engine run (``phases``), opt-in with
+    IMAGECLUST_CLUSTER_PROFILE=1: each tick synchronises the card first, so
+    the phase boundary is real, which costs pipelining."""
+
+    def __init__(self, device: torch.device):
+        self.on = bool(os.environ.get("IMAGECLUST_CLUSTER_PROFILE"))
+        self.device = device
+        self.phases: dict[str, float] = {}
+        self.t = time.perf_counter()
+
+    def tick(self, label: str) -> None:
+        if not self.on:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        now = time.perf_counter()
+        self.phases[label] = now - self.t
+        log.info("cluster phase %-16s %7.2fs", label, now - self.t)
+        self.t = now
+
+
+_TOP_PREF = 8  # per-item bucket preferences exported to the host
+
+# need-only preference computation above this n * n_buckets product (not
+# ported: NotImplementedError)
+_PREF_NEED_ONLY_MIN_WORK = 1 << 36
+
+# fused preference kernel K4 runs at k >= this many buckets (not ported)
+_PREF_FUSED_MIN_K = 4096
+
+_KMEANS_BLOCK = 1 << 16  # rows per assignment block
+
+
+def _kmeans_block(n_real: int, k: int, block: int) -> int:
+    block = min(block, 1 << (max(n_real - 1, 1)).bit_length())
+    # cap the (block, k) distance tile at ~1.5 GB
+    while block > 2048 and block * k * 4 > (3 << 29):
+        block //= 2
+    return block
+
+
+def _sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(m, k) squared distances: max(|x|^2 + |y|^2 - 2 x.y, 0) in f32."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    xx = torch.sum(x * x, dim=1)[:, None]
+    yy = torch.sum(y * y, dim=1)[None, :]
+    g = torch.matmul(x, y.T)
+    return torch.clamp_min(xx + yy - 2.0 * g, 0.0)
+
+
+def _sqdist_tile(rows: torch.Tensor, cents: torch.Tensor,
+                 cent_norms: torch.Tensor | None = None) -> torch.Tensor:
+    """(block, k) squared distances for bucket assignment, f32 features.
+    ``cent_norms`` (precomputed (k,) squared norms of ``cents``) skips the
+    per-tile norm pass with the same values."""
+    if cent_norms is None:
+        return _sqdist(rows, cents)
+    x = rows.to(torch.float32)
+    xx = torch.sum(x * x, dim=1)[:, None]
+    g = torch.matmul(x, cents.to(torch.float32).T)
+    return torch.clamp_min(xx + cent_norms[None, :] - 2.0 * g, 0.0)
+
+
+def _generator(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(int(seed))
+
+
+def _kmeans_init(x: torch.Tensor, k: int, seed) -> torch.Tensor:
+    """(k, d) f32 initial centroids: k rows drawn without replacement."""
+    idx = torch.randperm(x.shape[0], generator=_generator(seed))[:k]
+    return x[idx.to(x.device)].to(torch.float32)
+
+
+def _kmeans_subsample(x: torch.Tensor, m: int, seed) -> torch.Tensor:
+    """m rows drawn without replacement, for the Lloyd fit."""
+    idx = torch.randperm(x.shape[0], generator=_generator(int(seed) + 1))[:m]
+    return x[idx.to(x.device)]
+
+
+def _blocks(n: int, block: int):
+    for s in range(0, n, block):
+        yield s, min(s + block, n)
+
+
+def _kmeans_iter(x: torch.Tensor, cents: torch.Tensor, k: int,
+                 block: int) -> torch.Tensor:
+    """One Lloyd iteration. Centroid sums are one-hot matmuls, block by
+    block (sharded.py:232-239): a fixed order of additions, so the result
+    is the same on every run (an atomic scatter-add would not be)."""
+    d = x.shape[1]
+    dev = x.device
+    sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
+    counts = torch.zeros(k, dtype=torch.float32, device=dev)
+    for s, e in _blocks(x.shape[0], block):
+        rows = x[s:e].to(torch.float32)
+        assign = torch.argmin(_sqdist_tile(rows, cents), dim=1)
+        onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
+        counts = counts + torch.sum(onehot, dim=0)
+        sums = sums + torch.matmul(onehot.T, rows)
+    new = sums / torch.clamp_min(counts, 1.0)[:, None]
+    return torch.where(counts[:, None] > 0, new, cents)
+
+
+def _kmeans_summarize(x: torch.Tensor, cents: torch.Tensor, kk: int,
+                      block: int):
+    """Full-data pass: per-item assignment, own-centroid distance and the
+    (n, kk) preference matrix (nearest buckets first, ties by ascending
+    bucket index, as ``lax.top_k`` orders them: a stable sort)."""
+    assign, own, pref = [], [], []
+    for s, e in _blocks(x.shape[0], block):
+        d2 = _sqdist_tile(x[s:e], cents)
+        a = torch.argmin(d2, dim=1)
+        assign.append(a)
+        own.append(torch.gather(d2, 1, a[:, None])[:, 0])
+        pref.append(torch.sort(d2, dim=1, stable=True)[1][:, :kk])
+    return (torch.cat(assign).to(torch.int32), torch.cat(own),
+            torch.cat(pref).to(torch.int32))
+
+
+# Lloyd fit on a subsample of fit_per_center * k rows above this n
+_KMEANS_FIT_PER_CENTER = 32
+_KMEANS_SUBSAMPLE_MIN_N = 1 << 20
+
+
+def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
+           top_k: int = _TOP_PREF, block: int = _KMEANS_BLOCK,
+           fit_per_center: int = _KMEANS_FIT_PER_CENTER):
+    """Lloyd's k-means on ``x``'s device, block by block over rows.
+    Returns (centroids (k, d) f32, assign (n,) int32, own_d (n,) f32,
+    top_pref (n, min(top_k, k)) int32)."""
+    n_real = x.shape[0]
+    fit_x = x
+    m = fit_per_center * k
+    if (fit_per_center and m >= k
+            and n_real > max(2 * m, _KMEANS_SUBSAMPLE_MIN_N)):
+        fit_x = _kmeans_subsample(x, m, seed)
+    fit_block = _kmeans_block(fit_x.shape[0], k, block)
+    cents = _kmeans_init(fit_x, k, seed)
+    for _ in range(iters):
+        cents = _kmeans_iter(fit_x, cents, k, fit_block)
+    del fit_x
+    kk = min(top_k, k)
+    block = _kmeans_block(n_real, k, block)
+    assign, own_d, top_pref = _kmeans_summarize(x, cents, kk, block)
+    return cents, assign, own_d, top_pref
+
+
+# -- per-bucket merge loops -------------------------------------------------
+
+def _gather_buckets(feats, bucket_idx):
+    return feats[bucket_idx.to(torch.int64)].to(torch.float32)
+
+
+def _bucket_chunk_whole(feats, bucket_idx, counts, targets, max_size: int,
+                        min_size: int, absorb: bool = True):
+    """One chunk through K2: gather the buckets' rows, build their Ward
+    matrices, run every bucket's whole Lance-Williams loop in one launch
+    (sharded.py:791-812)."""
+    D = pairwise_ward_singleton(_gather_buckets(feats, bucket_idx))
+    return merge_loop_whole(D, counts, targets, max_size,
+                            min_size if absorb else 0)
+
+
+class _Lockstep:
+    """The carry of the K3 lockstep loop (sharded.py:681-702), as tensors."""
+
+    def __init__(self, xs, counts, update_rule):
+        C, B, _ = xs.shape
+        dev = xs.device
+        i32 = torch.int32
+        self.C, self.B = C, B
+        self.rule = update_rule
+        self.col = torch.arange(B, dtype=i32, device=dev)[None, :]
+        self.ar = torch.arange(C, device=dev)
+        active0 = self.col < counts[:, None]
+        self.D = pairwise_ward_singleton(xs)
+        self.sizes = active0.to(i32)
+        self.births = torch.where(active0, self.col,
+                                  _BIG_I32 - B + self.col).to(i32)
+        self.cents = xs
+        self.active = active0.to(i32)
+        self.counter = counts.clone()
+        self.num_active = counts.clone()
+        self.n_log = max(B - 1, 1)
+        self.log = torch.zeros((C, self.n_log, 3), dtype=i32, device=dev)
+        self.step = torch.zeros(C, dtype=i32, device=dev)
+        self.found = torch.ones(C, dtype=torch.bool, device=dev)
+        self.p_sa = torch.zeros(C, dtype=i32, device=dev)
+        self.p_dvec = torch.zeros((C, B), dtype=torch.float32, device=dev)
+        self.p_do = torch.zeros(C, dtype=i32, device=dev)
+
+    def body(self, run, max_size: int, amin: int) -> None:
+        """One lockstep iteration (sharded.py:705-765): K3 applies every
+        bucket's pending update and finds its next pair; the small state
+        updates where the bucket ran and found a pair."""
+        f32, i32 = torch.float32, torch.int32
+        C, ar, col = self.C, self.ar, self.col
+        self.D, dmin, m1, m2 = merge_update_argmin_batched(
+            self.D, self.p_dvec, self.p_sa, self.p_do, self.births,
+            self.sizes, self.active, max_size, amin)
+        fin = torch.isfinite(dmin)
+        proceed = run & fin
+        pro = proceed[:, None]
+        sa = torch.argmax((self.births == m1[:, None]).to(i32), dim=1)
+        sb = torch.argmax((self.births == m2[:, None]).to(i32), dim=1)
+        s_a = self.sizes[ar, sa]
+        s_b = self.sizes[ar, sb]
+        s_new = s_a + s_b
+        c_a = self.cents[ar, sa]
+        c_new = ((s_a.to(f32)[:, None] * c_a
+                  + s_b.to(f32)[:, None] * self.cents[ar, sb])
+                 / s_new.to(f32)[:, None])
+        d_a = self.D[ar, sa]
+        dvec = ward_update_vector(
+            self.rule, sizes_f=self.sizes.to(f32),
+            s_a_f=s_a.to(f32)[:, None], s_b_f=s_b.to(f32)[:, None],
+            s_new_f=s_new.to(f32)[:, None], d_a=d_a, d_b=self.D[ar, sb],
+            d_ab=d_a[ar, sb][:, None], cents=self.cents, c_new=c_new)
+        is_sa = col == sa[:, None]
+        is_sb = col == sb[:, None]
+        dvec = torch.where(is_sa, 0.0, dvec)
+
+        self.sizes = torch.where(pro & is_sa, s_new[:, None],
+                                 torch.where(pro & is_sb, 0, self.sizes))
+        self.births = torch.where(pro & is_sa, self.counter[:, None],
+                                  self.births)
+        if self.rule == "centroid":  # LW never reads cents
+            self.cents[ar, sa] = torch.where(pro, c_new, c_a)
+        self.active = torch.where(pro & is_sb, 0, self.active)
+        row = self.step.clamp(max=self.n_log - 1).to(torch.int64)
+        triple = torch.stack([m1, m2, self.counter], dim=1)
+        self.log[ar, row] = torch.where(pro, triple, self.log[ar, row])
+        step1 = proceed.to(i32)
+        self.counter = self.counter + step1
+        self.num_active = self.num_active - step1
+        self.step = self.step + step1
+        self.found = torch.where(run, fin, self.found)
+        self.p_sa = torch.where(proceed, sa.to(i32), self.p_sa)
+        self.p_dvec = torch.where(pro, dvec, self.p_dvec)
+        self.p_do = torch.where(run, fin.to(i32), self.p_do)
+
+    def loop(self, run_fn, max_size: int, amin: int) -> None:
+        """One phase: JAX's ``while_loop(any(run), body)``. The host reads
+        ``any(run)`` every FOUND_READ_EVERY iterations; the iterations in
+        between after the last bucket stopped are gated no-ops (K3 re-applies
+        each frozen bucket's last pending update, which writes the same
+        values)."""
+        global lockstep_iterations, lockstep_phases
+        ran = torch.zeros((), dtype=torch.int64, device=self.D.device)
+        for k in range(self.B):
+            run = run_fn()
+            if k % FOUND_READ_EVERY == 0 and not bool(run.any()):
+                break
+            ran += run.any().to(torch.int64)
+            self.body(run, max_size, amin)
+        lockstep_iterations += int(ran)
+        lockstep_phases += 1
+
+
+def _bucket_chunk_fused(feats, bucket_idx, counts, targets, max_size: int,
+                        min_size: int, update_rule: str = "lance_williams",
+                        absorb: bool = True):
+    """One chunk through the lockstep loop on K3 (sharded.py:665-788):
+    every iteration streams every bucket matrix once through K3, which
+    applies the previous iteration's pending update and finds the next
+    pair. Identical results to the whole loop (K2) under Lance-Williams."""
+    st = _Lockstep(_gather_buckets(feats, bucket_idx), counts, update_rule)
+    st.loop(lambda: st.found & (st.num_active > targets), max_size, -1)
+    if absorb:
+        st.found = torch.ones_like(st.found)
+        st.loop(lambda: st.found & torch.any(
+            (st.active > 0) & (st.sizes < min_size), dim=1),
+            max_size, min_size)
+    return st.log, st.step, st.births, st.sizes, st.active > 0
+
+
+def _chunk_width(bucket_size: int, d: int) -> int:
+    """Buckets per lockstep chunk: the gathered rows plus matrices stay
+    ~<= 2 GB; as wide as that allows, since the loop runs ~B iterations per
+    chunk whatever its width."""
+    per_bucket = bucket_size * 4 * max(d, bucket_size)
+    cap = max(1, (2 << 30) // max(1, per_bucket))
+    return min(4096, 1 << (cap.bit_length() - 1))
+
+
+def _chunk_width_whole(bucket_size: int, d: int) -> int:
+    """Buckets per K2 launch: the launch's working set (gathered rows,
+    matrices and log) stays ~<= 1 GB."""
+    per_bucket = bucket_size * 4 * (d + bucket_size + 128)
+    cap = max(1, (1 << 30) // max(1, per_bucket))
+    return min(1024, 1 << (cap.bit_length() - 1))
+
+
+def _all_buckets(feats, bucket_idx: np.ndarray, counts: np.ndarray,
+                 targets: np.ndarray, max_size: int, min_size: int,
+                 update_rule: str = "lance_williams", absorb: bool = True):
+    """Single-device bucket engine, chunked over the bucket axis
+    (sharded.py:844-925). Lance-Williams runs K2, the centroid rule the K3
+    lockstep loop; any bucket width goes to the kernels. Buckets are sorted
+    by count (descending) so a chunk's buckets need similar numbers of
+    merges; outputs come back in the caller's order as host arrays (log,
+    step, births, sizes, active)."""
+    global chunks_dispatched
+    B = int(bucket_idx.shape[1])
+    d_feat = int(feats.shape[1])
+    if update_rule == "lance_williams":
+        chunk_w = _chunk_width_whole(B, d_feat)
+
+        def chunk(bi, ct, tg):
+            return _bucket_chunk_whole(feats, bi, ct, tg, max_size,
+                                       min_size, absorb)
+    elif update_rule == "centroid":
+        chunk_w = _chunk_width(B, d_feat)
+
+        def chunk(bi, ct, tg):
+            return _bucket_chunk_fused(feats, bi, ct, tg, max_size,
+                                       min_size, update_rule, absorb)
+    else:
+        raise ValueError(f"unknown update_rule: {update_rule}")
+    nb = bucket_idx.shape[0]
+    order = np.argsort(-counts, kind="stable")
+    dev = feats.device
+    outs = []
+    for s in range(0, nb, chunk_w):
+        sel = order[s:s + chunk_w]
+        out = chunk(*(torch.from_numpy(np.ascontiguousarray(a[sel])).to(dev)
+                      for a in (bucket_idx, counts, targets)))
+        chunks_dispatched += 1
+        outs.append([o.cpu().numpy() for o in out])
+    inv = np.empty_like(order)
+    inv[order] = np.arange(nb)
+    return tuple(np.concatenate([o[i] for o in outs])[inv]
+                 for i in range(len(outs[0])))
+
+
+# -- capacity repair ---------------------------------------------------------
+
+def _repair_buckets(assign: np.ndarray, own_d: np.ndarray,
+                    top_pref: np.ndarray, n_buckets: int, capacity: int,
+                    min_size: int) -> list[list[int]]:
+    """Host-side capacity repair over per-item summaries: every bucket ends
+    with min_size <= len <= capacity; spilled items go to the nearest
+    preferred bucket with space. Computes counts and each item's rank in its
+    bucket (by own distance, ties by item id) on the host; the oracle that
+    :func:`_repair_buckets_device` is held against."""
+    n = len(assign)
+    counts0 = np.bincount(assign, minlength=n_buckets)
+    perm = np.lexsort((own_d, assign))
+    offs0 = np.concatenate([[0], np.cumsum(counts0[:-1])])
+    rank = np.empty(n, np.int64)
+    rank[perm] = np.arange(n) - np.repeat(offs0, counts0)
+    return _repair_from_summaries(assign, rank, counts0, top_pref,
+                                  n_buckets, capacity, min_size)
+
+
+def _repair_from_summaries(assign: np.ndarray, rank: np.ndarray,
+                           counts0: np.ndarray, top_pref, n_buckets: int,
+                           capacity: int, min_size: int) -> list[list[int]]:
+    """Capacity repair from (assign, rank-in-bucket, counts) summaries, with
+    list bookkeeping (sharded.py:1060-1270). ``top_pref`` needs only
+    ``__getitem__`` over spill items and members of under-min buckets."""
+    order = np.argsort(assign, kind="stable")
+    buckets: list[list[int]] = [
+        s.tolist() for s in np.split(order, np.cumsum(counts0)[:-1])]
+
+    # Spill overflow: keep the `capacity` closest items, re-home the rest
+    # (first preferred bucket with room, else a monotone cursor over the
+    # buckets; buckets only fill in this phase).
+    over_b = np.flatnonzero(counts0 > capacity)
+    spill_sorted: dict[int, np.ndarray] = {}
+    if len(over_b):
+        offs = np.concatenate([[0], np.cumsum(counts0)])
+        mem_all = np.concatenate(
+            [order[offs[b]:offs[b + 1]] for b in over_b])
+        bid_all = np.repeat(over_b, counts0[over_b])
+        perm = np.lexsort((rank[mem_all], bid_all))
+        srt_all = mem_all[perm]
+        bounds = np.concatenate([[0], np.cumsum(counts0[over_b])])
+        for z, b in enumerate(over_b):
+            spill_sorted[int(b)] = srt_all[bounds[z]:bounds[z + 1]]
+    cnt = counts0.astype(np.int64)
+    cnt[over_b] = capacity
+    placed_items: list[np.ndarray] = []
+    placed_into: list[np.ndarray] = []
+    cursor = 0
+    CH = 8192
+
+    spills = [spill_sorted[int(b)][capacity:] for b in over_b]
+    for b in over_b:
+        buckets[int(b)] = spill_sorted[int(b)][:capacity].tolist()
+    native_res = None
+    if spills and sum(len(s) for s in spills):
+        from imageclust_tpu_torch.data.native import native_spill_place
+
+        spill_all = np.concatenate(spills)
+        src_all = np.repeat(over_b.astype(np.int32),
+                            [len(s) for s in spills])
+        native_res = native_spill_place(
+            top_pref[spill_all], src_all, cnt, capacity, cursor)
+    if native_res is not None:
+        placed_items.append(spill_all)
+        placed_into.append(native_res[0].astype(np.int64))
+        cursor = native_res[1]
+
+    def _bulk_try(b: int, chunk: np.ndarray) -> bool:
+        # a chunk applies at once iff every row finds an eligible preference
+        # and no chosen bucket fills within the chunk
+        prefs = top_pref[chunk]
+        elig = (prefs != b) & (cnt[prefs] < capacity)
+        if not elig.any(axis=1).all():
+            return False
+        j = np.argmax(elig, axis=1)
+        chosen = prefs[np.arange(len(chunk)), j]
+        hot, dem = np.unique(chosen, return_counts=True)
+        if (dem > capacity - cnt[hot]).any():
+            return False
+        placed_items.append(chunk)
+        placed_into.append(chosen.astype(np.int64))
+        cnt[hot] += dem
+        return True
+
+    def _place(b: int, chunk: np.ndarray) -> None:
+        nonlocal cursor
+        if _bulk_try(b, chunk):
+            return
+        if len(chunk) > 128:  # bisect: only the offending tail replays
+            h = len(chunk) // 2
+            _place(b, chunk[:h])
+            _place(b, chunk[h:])
+            return
+        seq_i: list[int] = []
+        seq_t: list[int] = []
+        for i in chunk:
+            i = int(i)
+            placed = False
+            for nb in top_pref[i]:
+                nb = int(nb)
+                if nb != b and cnt[nb] < capacity:
+                    seq_i.append(i)
+                    seq_t.append(nb)
+                    cnt[nb] += 1
+                    placed = True
+                    break
+            if not placed:
+                while cursor < n_buckets and cnt[cursor] >= capacity:
+                    cursor += 1
+                nb = cursor if cursor < n_buckets else b
+                seq_i.append(i)
+                seq_t.append(nb)
+                cnt[nb] += 1
+        placed_items.append(np.asarray(seq_i, dtype=np.int64))
+        placed_into.append(np.asarray(seq_t, dtype=np.int64))
+
+    if native_res is None:
+        for z, b in enumerate(over_b):
+            spill = spills[z]
+            for s in range(0, len(spill), CH):
+                _place(int(b), spill[s:s + CH])
+    if placed_items:
+        items_all = np.concatenate(placed_items)
+        into_all = np.concatenate(placed_into)
+        o2 = np.argsort(into_all, kind="stable")
+        tgt, starts = np.unique(into_all[o2], return_index=True)
+        ends = np.append(starts[1:], len(o2))
+        srt_items = items_all[o2]
+        for t, s0, s1 in zip(tgt.tolist(), starts.tolist(), ends.tolist()):
+            buckets[t].extend(srt_items[s0:s1].tolist())
+
+    # Dissolve under-min buckets into the members' preferred buckets, to a
+    # fixpoint; the fallback only targets viable buckets, then any nonempty
+    # one with room, never an emptied one.
+    lens = np.fromiter((len(x) for x in buckets), np.int64, n_buckets)
+
+    def place(i: int, avoid: int, lo: int) -> bool:
+        for nb in top_pref[i]:
+            nb = int(nb)
+            if nb != avoid and lo <= lens[nb] < capacity:
+                buckets[nb].append(i)
+                lens[nb] += 1
+                return True
+        mask = (lens >= lo) & (lens < capacity)
+        mask[avoid] = False
+        nb = int(np.argmax(mask))
+        if mask[nb]:
+            buckets[nb].append(i)
+            lens[nb] += 1
+            return True
+        return False
+
+    for _ in range(n_buckets):
+        changed = False
+        for b in range(n_buckets):
+            if 0 < lens[b] < min_size:
+                members, buckets[b] = buckets[b], []
+                lens[b] = 0
+                for i in members:
+                    if not place(i, b, min_size):
+                        if not place(i, b, 1):
+                            buckets[b].append(i)  # nowhere viable: keep
+                            lens[b] += 1
+                if not lens[b]:
+                    changed = True
+        if not changed:
+            break
+    return [b for b in buckets if b]
+
+
+def _repair_from_summaries_fast(assign: np.ndarray, rank: np.ndarray,
+                                counts0: np.ndarray, top_pref,
+                                n_buckets: int, capacity: int,
+                                min_size: int) -> list[np.ndarray] | None:
+    """Array-based capacity repair, placement-identical to
+    :func:`_repair_from_summaries` (sharded.py:1273-1473, without the
+    device-placement inputs). Needs the native placement loop; returns None
+    when ``native/libicnative.so`` is not built."""
+    from imageclust_tpu_torch.data.native import available, native_spill_place
+
+    if not available():
+        return None
+    counts0 = counts0.astype(np.int64)
+    order = np.argsort(assign, kind="stable")
+    offs = np.concatenate([[0], np.cumsum(counts0)])
+    segs = np.split(order, offs[1:-1])
+
+    over_b = np.flatnonzero(counts0 > capacity)
+    cnt = counts0.copy()
+    keeps: dict[int, np.ndarray] = {}
+    spill_all = np.empty(0, np.int64)
+    src_all = np.empty(0, np.int32)
+    if len(over_b):
+        # (bucket, rank) order with one scatter: rank is unique per bucket
+        mem_all = np.concatenate([segs[b] for b in over_b])
+        oc = counts0[over_b]
+        bounds = np.concatenate([[0], np.cumsum(oc)])
+        grp = np.repeat(np.arange(len(over_b)), oc)
+        srt_all = np.empty(len(mem_all), mem_all.dtype)
+        srt_all[bounds[grp] + rank[mem_all]] = mem_all
+        keep_mask = rank[srt_all] < capacity
+        keeps_all = srt_all[keep_mask]
+        for z, blk in enumerate(
+                np.split(keeps_all, capacity * np.arange(1, len(over_b)))):
+            keeps[int(over_b[z])] = blk
+        spill_all = srt_all[~keep_mask]
+        src_all = np.repeat(over_b, oc)[~keep_mask].astype(np.int32)
+        cnt[over_b] = capacity
+
+    placed_by_tgt: dict[int, np.ndarray] = {}
+    if len(spill_all):
+        res = native_spill_place(top_pref[spill_all], src_all, cnt,
+                                 capacity, 0)
+        if res is None:
+            return None
+        into, _ = res  # cnt now equals the live bucket lengths
+        o2 = np.argsort(into, kind="stable")
+        tgt, starts = np.unique(into[o2], return_index=True)
+        ends = np.append(starts[1:], len(o2))
+        srt_items = spill_all[o2]
+        for t, s0, s1 in zip(tgt.tolist(), starts.tolist(), ends.tolist()):
+            placed_by_tgt[t] = srt_items[s0:s1]
+
+    # Dissolve under-min buckets, as the oracle does; membership is
+    # materialized only for the buckets that dissolve. ``lens`` IS ``cnt``.
+    lens = cnt
+    appends: dict[int, list] = {}
+    dissolved = np.zeros(n_buckets, bool)
+
+    def members_of(b: int) -> np.ndarray:
+        parts = []
+        if not dissolved[b]:
+            parts.append(keeps[b] if b in keeps else segs[b])
+            if b in placed_by_tgt:
+                parts.append(placed_by_tgt[b])
+        ap = appends.get(b)
+        if ap:
+            parts.append(np.asarray(ap, np.int64))
+        if not parts:
+            return np.empty(0, np.int64)
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    def place(i: int, avoid: int, lo: int) -> bool:
+        for nb in top_pref[i]:
+            nb = int(nb)
+            if nb != avoid and lo <= lens[nb] < capacity:
+                appends.setdefault(nb, []).append(i)
+                lens[nb] += 1
+                return True
+        mask = (lens >= lo) & (lens < capacity)
+        mask[avoid] = False
+        nb = int(np.argmax(mask))
+        if mask[nb]:
+            appends.setdefault(nb, []).append(i)
+            lens[nb] += 1
+            return True
+        return False
+
+    # appends never push a bucket under min_size and dissolves zero it, so
+    # the ascending sweep of the under-min snapshot visits exactly the
+    # buckets the oracle's full sweep would
+    for _ in range(n_buckets):
+        changed = False
+        for b in np.flatnonzero((lens > 0) & (lens < min_size)).tolist():
+            if not 0 < lens[b] < min_size:
+                continue
+            members = members_of(b)
+            dissolved[b] = True
+            appends[b] = []
+            lens[b] = 0
+            for i in members:
+                i = int(i)
+                if not place(i, b, min_size):
+                    if not place(i, b, 1):
+                        appends[b].append(i)  # nowhere viable: keep
+                        lens[b] += 1
+            if not lens[b]:
+                changed = True
+        if not changed:
+            break
+    return [members_of(b) for b in range(n_buckets) if lens[b] > 0]
+
+
+def _repair_summaries(assign, own_d, nb: int, capacity: int, min_size: int):
+    """On-device repair summaries (sharded.py:1474-1497): bucket counts,
+    each item's rank in its bucket ordered by (own distance, item id), the
+    need mask (items whose preference rows repair may read: spilled members
+    of over-capacity buckets, members of under-min buckets) and its count.
+    ``jnp.lexsort((own_d, assign))`` is two stable sorts."""
+    n = assign.shape[0]
+    dev = assign.device
+    a = assign.to(torch.int64)
+    counts = torch.bincount(a, minlength=nb).to(torch.int32)
+    offs = torch.cumsum(counts, 0) - counts
+    by_d = torch.sort(own_d, stable=True)[1]
+    perm = by_d[torch.sort(a[by_d], stable=True)[1]]
+    rank_vals = (torch.arange(n, device=dev, dtype=torch.int32)
+                 - torch.repeat_interleave(offs, counts.to(torch.int64),
+                                           output_size=n))
+    rank = torch.empty(n, dtype=torch.int32, device=dev)
+    rank[perm] = rank_vals.to(torch.int32)
+    ca = counts[a]
+    need = ((ca > capacity) & (rank >= capacity)) | (ca < min_size)
+    return counts, rank, need, torch.sum(need, dtype=torch.int32)
+
+
+def _need_idx(mask):
+    """Ascending indices of the need mask (the device twin of the host's
+    ``np.flatnonzero``; no padding: torch compiles no shapes)."""
+    return torch.nonzero(mask)[:, 0]
+
+
+def _gather_pref_rows(pref, idx, as_u16: bool):
+    """Preference rows of the item set repair can read; 16 bits a value
+    when bucket ids fit (see :func:`_to_host`)."""
+    rows = pref[idx]
+    return _rank_u16(rows) if as_u16 else rows
+
+
+def _rank_u16(t):
+    """Values below 2**16 in 16 bits for the transfer: an int16 tensor whose
+    bits are the uint16 value (:func:`_to_host` views them so)."""
+    return t.to(torch.int16)
+
+
+def _to_host(t) -> np.ndarray:
+    out = t.cpu().numpy()
+    return out.view(np.uint16) if out.dtype == np.int16 else out
+
+
+class _SparsePrefs:
+    """Read-only stand-in for the full (n, 8) preference matrix holding
+    only the rows capacity repair can touch (items spilled from
+    over-capacity buckets + members of under-min buckets)."""
+
+    def __init__(self, n: int, items: np.ndarray, rows):
+        # ``rows`` may be the array or a zero-arg thunk that produces it
+        self._rows = rows if isinstance(rows, np.ndarray) else None
+        self._rows_thunk = None if isinstance(rows, np.ndarray) else rows
+        self._idx = np.full(n, -1, np.int32)
+        self._idx[items] = np.arange(len(items), dtype=np.int32)
+
+    def __getitem__(self, i):
+        if self._rows is None:
+            self._rows = self._rows_thunk()
+            self._rows_thunk = None
+        j = self._idx[i]
+        assert np.all(j >= 0), "preference row requested outside need-set"
+        return self._rows[j]
+
+
+def _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets: int,
+                           capacity: int, min_size: int) -> list:
+    """Capacity repair with device-side summaries (sharded.py:1686-1885,
+    full-preference mode): placement-identical to :func:`_repair_buckets`,
+    but only assign, rank (16 bits when buckets hold < 64k items) and the
+    preference rows repair can read cross to the host. Rows for the initial
+    spill set plus the initial under-min membership cover every read
+    (:class:`_SparsePrefs` asserts it)."""
+    n = int(assign_d.shape[0])
+    counts_d, rank_d, need_d, m_d = _repair_summaries(
+        assign_d, own_d_d, n_buckets, capacity, min_size)
+    counts0 = counts_d.cpu().numpy().astype(np.int64)
+    m = int(m_d)
+    log.info("repair need-set: %d of %d rows (%.1f%%)", m, n,
+             100.0 * m / max(n, 1))
+    as_u16 = n_buckets <= np.iinfo(np.uint16).max + 1
+    rank_src = _rank_u16(rank_d) if (
+        len(counts0) and counts0.max() <= np.iinfo(np.uint16).max
+    ) else rank_d
+    rows_d = None
+    if m:
+        rows_d = _gather_pref_rows(pref_d, _need_idx(need_d), as_u16)
+    rank = _to_host(rank_src)
+    assign = assign_d.cpu().numpy()
+    ca = counts0[assign]
+    need = np.flatnonzero(
+        ((ca > capacity) & (rank >= capacity)) | (ca < min_size))
+    assert len(need) == m, (len(need), m)  # host/device predicate twins
+    if m:
+        prefs = _SparsePrefs(n, need, lambda: _to_host(rows_d))
+    else:
+        prefs = _SparsePrefs(n, need,
+                             np.zeros((0, int(pref_d.shape[1])), np.int32))
+    out = _repair_from_summaries_fast(assign, rank, counts0, prefs,
+                                      n_buckets, capacity, min_size)
+    if out is None:  # no native library: the list-based path
+        out = _repair_from_summaries(assign, rank, counts0, prefs,
+                                     n_buckets, capacity, min_size)
+    return out
+
+
+# -- spills -------------------------------------------------------------------
+
+def _spill_member_table(assign, c_pad: int, ms: int):
+    """(c_pad, ms) member table + per-cluster counts from the assignment
+    vector (sharded.py:2020-2048): row c lists cluster c's members by
+    ascending item id, padded with n; unassigned items and anything past
+    ``ms`` members are left out."""
+    n = assign.shape[0]
+    dev = assign.device
+    a = torch.where(assign >= 0, assign.to(torch.int64), c_pad)
+    perm = torch.argsort(a, stable=True)
+    sorted_a = a[perm]
+    offs = torch.searchsorted(
+        sorted_a, torch.arange(c_pad + 1, device=dev, dtype=torch.int64))
+    counts = torch.diff(torch.cat(
+        [offs, torch.full((1,), n, dtype=offs.dtype, device=dev)]))
+    slots = torch.arange(ms, device=dev)[None, :]
+    pos = torch.clamp(offs[:c_pad, None] + slots, max=n - 1)
+    ok = slots < counts[:c_pad, None]
+    table = torch.where(ok, perm[pos], n)
+    return table, counts[:c_pad]
+
+
+def _spill_centroids(feats, assign, sizes, c_pad: int, ms: int):
+    """Once per spill round: every cluster's f32 centroid (sharded.py:
+    1958-1959). The segment sum adds each cluster's members in ascending
+    item order, one member slot at a time (``ms`` = the largest cluster),
+    starting from zero: the order XLA's segment_sum adds them in, and a
+    fixed one on the card (no atomics)."""
+    n, d = feats.shape
+    table, _ = _spill_member_table(assign, c_pad, ms)
+    sums = torch.zeros((c_pad, d), dtype=feats.dtype, device=feats.device)
+    for j in range(ms):
+        t = table[:, j]
+        rows = feats[torch.clamp(t, max=n - 1)]
+        sums = sums + torch.where((t < n)[:, None], rows, 0.0)
+    return sums / torch.clamp_min(sizes, 1)[:, None].to(feats.dtype)
+
+
+def _cent_norms(cents):
+    """(c_pad,) squared norms of the spill centroids, once per round."""
+    return torch.sum(cents * cents, dim=1)
+
+
+def _topk_smallest(d2, kk: int):
+    """(values, positions) of the kk smallest per row, ties by ascending
+    position (``lax.top_k`` on -d2)."""
+    vals, pos = torch.sort(d2, dim=1, stable=True)
+    return vals[:, :kk], pos[:, :kk]
+
+
+def _spill_candidates_local(feats, cents, sizes, drop_idx, item_bucket,
+                            bucket_clusters, k: int, max_size: int,
+                            cent_norms=None):
+    """Bucket-local candidates (sharded.py:1962-2002): each item's own
+    bucket's clusters with room, nearest first; GLOBAL cluster ids, -1
+    where invalid."""
+    dx = feats[drop_idx]
+    cl = bucket_clusters[item_bucket]              # (chunk, mc), -1 padded
+    safe = torch.clamp_min(cl, 0)
+    cc = cents[safe]                               # (chunk, mc, d)
+    xx = torch.sum(dx * dx, dim=-1)[:, None]
+    yy = torch.sum(cc * cc, dim=-1) if cent_norms is None \
+        else cent_norms[safe]
+    g = torch.einsum("cd,cmd->cm", dx, cc)
+    d2 = xx + yy - 2.0 * g
+    valid = (cl >= 0) & (sizes[safe] < max_size)
+    d2 = torch.where(valid, d2, float("inf"))
+    vals, pos = _topk_smallest(d2, min(k, cl.shape[1]))
+    cand = torch.gather(cl, 1, pos)
+    return torch.where(torch.isfinite(vals), cand, -1)
+
+
+def _spill_candidates(feats, cents, sizes, drop_idx, k: int, max_size: int,
+                      cent_norms=None):
+    """Global candidates (sharded.py:2118-2137): the top-k nearest clusters
+    with room, over all clusters."""
+    d2 = _sqdist_tile(feats[drop_idx], cents, cent_norms)
+    d2 = torch.where(sizes[None, :] < max_size, d2, float("inf"))
+    vals, cand = _topk_smallest(d2, k)
+    return torch.where(torch.isfinite(vals), cand, -1)
+
+
+def _ranges(sizes: np.ndarray) -> np.ndarray:
+    """[0..s0), [0..s1), ... concatenated (vectorized per-segment arange)."""
+    total = int(sizes.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes[:-1])])
+    return np.arange(total, dtype=np.int64) - np.repeat(starts, sizes)
+
+
+class _Clusters:
+    """Columnar cluster membership (compact ids 0..num-1) with O(1)
+    appends: the spill phases' working view and the result's storage."""
+
+    def __init__(self, members, offsets, bucket=None):
+        self.members = np.asarray(members, dtype=np.int64)
+        self.offsets = np.asarray(offsets, dtype=np.int64)
+        self.base_sizes = np.diff(self.offsets).astype(np.int32)
+        self.bucket = None if bucket is None else np.asarray(
+            bucket, dtype=np.int32)
+        self.extra: dict[int, list[int]] = {}
+        self._extra_count = np.zeros(len(self.base_sizes), np.int32)
+
+    @classmethod
+    def from_lists(cls, clusters: list[list[int]], bucket=None):
+        sizes = np.array([len(c) for c in clusters], np.int64)
+        offsets = np.concatenate([[0], np.cumsum(sizes)])
+        members = np.concatenate(
+            [np.asarray(c, np.int64) for c in clusters]
+        ) if clusters else np.zeros(0, np.int64)
+        return cls(members, offsets, bucket)
+
+    @property
+    def num(self) -> int:
+        return len(self.base_sizes)
+
+    def sizes(self) -> np.ndarray:
+        return self.base_sizes + self._extra_count
+
+    def append(self, c: int, item: int) -> None:
+        self.extra.setdefault(c, []).append(item)
+        self._extra_count[c] += 1
+
+    def assign_array(self, n: int) -> np.ndarray:
+        """(n,) item -> cluster id, -1 for unplaced."""
+        out = np.full(n, -1, np.int32)
+        out[self.members] = np.repeat(
+            np.arange(self.num, dtype=np.int32), self.base_sizes)
+        for c, items in self.extra.items():
+            out[items] = c
+        return out
+
+    def finalize(self) -> tuple[np.ndarray, np.ndarray]:
+        """(members, offsets) with appends after each cluster's base
+        segment (spill placements keep Go append order)."""
+        if not self.extra:
+            return self.members, self.offsets
+        sizes_new = self.sizes().astype(np.int64)
+        off_new = np.concatenate([[0], np.cumsum(sizes_new)])
+        out = np.empty(int(off_new[-1]), np.int64)
+        base_pos = np.repeat(off_new[:-1], self.base_sizes) \
+            + _ranges(self.base_sizes)
+        out[base_pos] = self.members
+        for c, items in self.extra.items():
+            s = int(off_new[c]) + int(self.base_sizes[c])
+            out[s:s + len(items)] = items
+        return out, off_new
+
+
+def _spill_rounds(feats, cols: _Clusters, dropped_idx: list[int],
+                  max_size: int,
+                  item_bucket_of: dict[int, int] | None = None) -> list[int]:
+    """Greedy nearest-cluster-with-room placement with the candidate search
+    on the device (sharded.py:2214-2415, f32 branch): each round takes every
+    leftover item's top-k nearest clusters with room and places greedily;
+    rounds repeat (k doubling under contention) until one places nothing.
+    With ``item_bucket_of``, placements stay inside each item's bucket.
+    ``cols`` is mutated in place; returns the still-unplaced items."""
+    still = list(dropped_idx)
+    K_CAP = 4096
+    k = 0
+    n_c = cols.num
+    local = cols.bucket is not None and item_bucket_of is not None
+    dev = feats.device
+    table_d = None
+    if local and n_c and still:
+        bk = cols.bucket
+        nb_max = 1 + max(
+            int(bk.max()) if len(bk) else 0,
+            max(item_bucket_of[i] for i in still),
+        )
+        order_b = np.argsort(bk, kind="stable")
+        counts_b = np.bincount(bk, minlength=nb_max)
+        mc = max(1, int(counts_b.max()))
+        table = np.full((nb_max, mc), -1, np.int64)
+        table[bk[order_b], _ranges(counts_b)] = order_b
+        table_d = torch.from_numpy(table).to(dev)
+    n = feats.shape[0]
+    c_pad = 1 << max(n_c - 1, 1).bit_length()
+    for _ in range(len(still) + 1):
+        if n_c == 0 or not still:
+            break
+        sizes = np.full(c_pad, max_size, np.int32)  # padding reads "full"
+        sizes[:n_c] = cols.sizes()
+        if not (sizes[:n_c] < max_size).any():
+            break  # genuinely full everywhere
+        k = min(max(k, 8), n_c, K_CAP)
+        assign = torch.from_numpy(cols.assign_array(n)).to(dev)
+        sizes_d = torch.from_numpy(sizes).to(dev)
+        cents_d = _spill_centroids(feats, assign, sizes_d, c_pad,
+                                   max(1, int(sizes[:n_c].max())))
+        cent_norms_d = _cent_norms(cents_d)
+        if local:
+            budget = (1 << 27) // max(1, 4 * mc * feats.shape[1])
+            CHUNK = 1 << max(3, min(10, budget.bit_length() - 1))
+        else:
+            budget = (1 << 28) // max(1, 4 * c_pad)
+            CHUNK = 1 << max(5, min(12, budget.bit_length() - 1))
+        cand_parts = []
+        for s in range(0, len(still), CHUNK):
+            part = still[s:s + CHUNK]
+            idxs = torch.tensor(part, dtype=torch.int64, device=dev)
+            if local:
+                ib = torch.tensor([item_bucket_of[i] for i in part],
+                                  dtype=torch.int64, device=dev)
+                out = _spill_candidates_local(
+                    feats, cents_d, sizes_d, idxs, ib, table_d, k, max_size,
+                    cent_norms_d)
+            else:
+                out = _spill_candidates(feats, cents_d, sizes_d, idxs, k,
+                                        max_size, cent_norms_d)
+            cand_parts.append(out.cpu().numpy())
+        cand = np.concatenate(cand_parts) if cand_parts else np.zeros(
+            (0, k), np.int64)
+        room = (max_size - sizes[:n_c]).astype(np.int64)
+        next_still: list[int] = []
+        for row, item in enumerate(still):
+            for p in cand[row]:
+                p = int(p)
+                if 0 <= p < n_c and room[p] > 0:
+                    cols.append(p, item)
+                    room[p] -= 1
+                    break
+            else:
+                next_still.append(item)
+        placed = len(still) - len(next_still)
+        if placed == 0:
+            break  # no progress: every leftover's candidates are full
+        if placed * 2 < len(still):  # contention: widen the search
+            k = min(2 * k, n_c, K_CAP)
+        still = next_still
+    return still
+
+
+def _spill_bucket_local(feats, buckets, cols: _Clusters,
+                        dropped_idx: list[int], max_size: int) -> list[int]:
+    """Item-level rescue inside each dropped item's own bucket."""
+    owner = np.empty(feats.shape[0], np.int32)
+    for bi, members in enumerate(buckets):
+        owner[np.asarray(members, np.int64)] = bi
+    bucket_of = {int(i): int(owner[i]) for i in dropped_idx}
+    return _spill_rounds(feats, cols, dropped_idx, max_size,
+                         item_bucket_of=bucket_of)
+
+
+def _spill_global(feats, cols: _Clusters, dropped_idx: list[int],
+                  max_size: int) -> list[int]:
+    """Cross-bucket fallback: the nearest cluster with room anywhere."""
+    return _spill_rounds(feats, cols, dropped_idx, max_size)
+
+
+# -- host tail ------------------------------------------------------------------
+
+def _native_reconstruction(buckets, logs, steps, births, active):
+    """Flatten per-bucket state for the native member expansion
+    (``ic_reconstruct_members``). Returns (global member indices in
+    (bucket, sorted-root) order, per-root sizes, per-root bucket), the
+    Python walk's order, or None without the native library."""
+    from imageclust_tpu_torch.data.native import native_reconstruct_members
+
+    nb = len(buckets)
+    counts = np.asarray([len(b) for b in buckets], np.int32)
+    if not counts.sum():
+        return None
+    B1 = logs.shape[1]
+    m_per = np.minimum(steps.astype(np.int64), B1)
+    row_mask = np.arange(B1)[None, :] < m_per[:, None]
+    flat_logs = logs[row_mask]
+    log_off = np.zeros(nb + 1, np.int64)
+    log_off[1:] = np.cumsum(m_per)
+    counts_off = np.zeros(nb + 1, np.int64)
+    counts_off[1:] = np.cumsum(counts)
+    sentinel = np.int32(_BIG_I32)
+    masked = np.sort(np.where(active, births, sentinel), axis=1)
+    n_roots = active.sum(axis=1).astype(np.int64)
+    roots_flat = masked[np.arange(masked.shape[1])[None, :]
+                        < n_roots[:, None]].astype(np.int32)
+    root_off = np.zeros(nb + 1, np.int64)
+    root_off[1:] = np.cumsum(n_roots)
+
+    out = native_reconstruct_members(
+        flat_logs, log_off, counts, counts_off, roots_flat, root_off)
+    if out is None:
+        return None
+    members_loc, sizes = out
+    members_flat = np.concatenate(
+        [np.asarray(b, np.int64) for b in buckets if len(b)])
+    bases = np.repeat(counts_off[:-1], counts)
+    members_glob = members_flat[members_loc.astype(np.int64) + bases]
+    return members_glob, sizes, np.repeat(np.arange(nb), n_roots)
+
+
+def _restamp_logs(logs: np.ndarray, steps: np.ndarray, counts: np.ndarray,
+                  bucket_idx: np.ndarray, n: int) -> np.ndarray:
+    """Re-stamp the bucket-local merge logs into one global birth space
+    (sharded.py:2497-2531): leaf stamps (< count) become item indices,
+    internal stamps fresh ids past n, offset by each bucket's cumulative
+    merge count."""
+    nb, bucket_size = bucket_idx.shape
+    steps = steps.astype(np.int32)
+    total_merges = int(steps.sum(dtype=np.int64))
+    if not total_merges:
+        return np.zeros((0, 3), np.int32)
+    L = logs.shape[1]
+    base = np.empty(nb, np.int32)
+    base[0] = n
+    np.cumsum(steps[:-1], out=base[1:])
+    base[1:] += n
+    row_valid = np.arange(L, dtype=np.int32)[None, :] < steps[:, None]
+    flat = logs[:, :, :2][row_valid]
+    rows = np.repeat(np.arange(nb, dtype=np.int32), steps)
+    c_r = counts.astype(np.int32)[rows][:, None]
+    leaf = flat < c_r
+    gathered = bucket_idx[rows[:, None], np.where(leaf, flat, 0)]
+    mapped = np.where(leaf, gathered, base[rows][:, None] + (flat - c_r))
+    pos = np.arange(L, dtype=np.int32)[None, :].repeat(nb, 0)[row_valid]
+    out = np.empty((total_merges, 3), np.int32)
+    out[:, :2] = mapped
+    out[:, 2] = base[rows] + pos
+    return out
+
+
+def _bucket_target(count: int, min_size: int, max_size: int) -> int:
+    """Per-bucket cluster-count target; ceil(count / max_size) where the
+    (min, max) pair is infeasible for this count."""
+    try:
+        return calculate_optimal_clusters(count, min_size, max_size)
+    except Exception:
+        return max(1, math.ceil(count / max_size))
+
+
+def constrained_ward_bucketed(
+    embeddings,
+    ids: Sequence[str] | None = None,
+    *,
+    min_size: int = 3,
+    max_size: int = 6,
+    bucket_size: int = 512,
+    kmeans_iters: int = 8,
+    update_rule: str = "lance_williams",
+    mesh=None,
+    seed: int = 0,
+    reassign_dropped: bool = True,
+    feature_dtype: str = "float32",
+    device: str | torch.device | None = None,
+) -> ClusterResult:
+    """Scalable constrained Ward over k-means buckets on ``device``
+    (default ``"cuda"``; raises without a card).
+
+    ``embeddings`` is a numpy array or a torch tensor (a tensor already on
+    the device never leaves it). ``reassign_dropped`` (default True here)
+    turns on the absorb phase and the spills, so no image is lost unless
+    max_size leaves it nowhere to go. The result is columnar; its
+    ``phases_s`` holds the phase timer's seconds when
+    IMAGECLUST_CLUSTER_PROFILE=1, ``host_paths`` says whether placement and
+    member walk ran natively, ``n_buckets`` counts buckets after repair."""
+    if feature_dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"unknown feature_dtype {feature_dtype!r}")
+    if feature_dtype != "float32":
+        raise NotImplementedError(
+            f"feature_dtype={feature_dtype!r} residency is not ported yet "
+            f"({_ROADMAP}, bf16/int8 residency); use float32")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"the mesh bucketed engine is not ported yet ({_ROADMAP}, "
+            "multi-device); call with mesh=None")
+    if update_rule not in ("centroid", "lance_williams"):
+        raise ValueError(f"unknown update_rule: {update_rule}")
+    dev = resolve_device(device)
+    pt = _PhaseTimer(dev)
+    if isinstance(embeddings, torch.Tensor):
+        feats = embeddings.detach().to(dev, torch.float32)
+    else:
+        feats = torch.from_numpy(
+            np.ascontiguousarray(embeddings, np.float32)).to(dev)
+    if feats.dim() != 2:
+        raise ValueError(f"embeddings must be (n, d), got "
+                         f"{tuple(feats.shape)}")
+    n, d = feats.shape
+    if ids is None:
+        ids = DefaultIds(n)
+    if len(ids) != n:
+        raise ValueError("ids length must match embeddings")
+    calculate_optimal_clusters(n, min_size, max_size)  # global feasibility
+
+    fill = max(min_size, int(bucket_size * 0.75))
+    n_buckets = max(1, math.ceil(n / fill))
+    if n_buckets == 1:
+        return constrained_ward(
+            feats.cpu().numpy(), list(ids), min_size=min_size,
+            max_size=max_size, update_rule=update_rule,
+            reassign_dropped=reassign_dropped, device=dev)
+    if n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK:
+        raise NotImplementedError(
+            f"n * buckets = {n * n_buckets} needs the need-only preference "
+            f"mode, not ported yet ({_ROADMAP}, _pref_need_rows)")
+    if dev.type == "cuda" and n_buckets >= _PREF_FUSED_MIN_K:
+        raise NotImplementedError(
+            f"{n_buckets} buckets is in the fused preference kernel's "
+            f"domain (k >= {_PREF_FUSED_MIN_K}), not ported yet "
+            "(ROADMAP.md, queue 2: K4 pref_topk_block)")
+
+    cents_d, assign_d, own_d_d, pref_d = kmeans(
+        feats, n_buckets, kmeans_iters, seed, top_k=_TOP_PREF)
+    pt.tick("kmeans")
+    buckets = _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets,
+                                     bucket_size, min_size)
+    del assign_d, own_d_d, pref_d, cents_d
+    pt.tick("bucket-repair")
+
+    nb = len(buckets)
+    counts = np.zeros(nb, np.int32)
+    targets = np.zeros(nb, np.int32)
+    bucket_idx = np.zeros((nb, bucket_size), np.int32)
+    for bi, members in enumerate(buckets):
+        c = len(members)
+        counts[bi] = c
+        targets[bi] = _bucket_target(c, min_size, max_size) if c else 0
+        bucket_idx[bi, :c] = members
+
+    logs, steps, births, _sizes, active = _all_buckets(
+        feats, bucket_idx, counts, targets, max_size, min_size,
+        update_rule=update_rule, absorb=reassign_dropped)
+    pt.tick("bucket-merges")
+
+    dropped_idx: list[int] = []
+    merges_arr = _restamp_logs(logs, steps, counts, bucket_idx, n)
+    pt.tick("merge-restamp")
+
+    rec = _native_reconstruction(buckets, logs, steps, births, active)
+    if rec is not None:
+        members_glob, sizes_r, root_bucket = rec
+        members_glob = np.asarray(members_glob, dtype=np.int64)
+        sizes_r = np.asarray(sizes_r, dtype=np.int64)
+        valid = sizes_r >= min_size
+        if valid.all():
+            members_col = members_glob
+        else:
+            keep_rows = np.repeat(valid, sizes_r)
+            members_col = members_glob[keep_rows]
+            dropped_idx = members_glob[~keep_rows].tolist()
+        offsets_col = np.concatenate([[0], np.cumsum(sizes_r[valid])])
+        cols = _Clusters(members_col, offsets_col,
+                         np.asarray(root_bucket)[valid])
+    else:
+        clusters_l: list[list[int]] = []
+        bucket_l: list[int] = []
+        for bi, members in enumerate(buckets):
+            c = len(members)
+            if c == 0:
+                continue
+            log_b = logs[bi][: int(steps[bi])]
+            children = {int(new): (int(hi), int(lo))
+                        for hi, lo, new in log_b}
+            surviving = sorted(int(b) for b in births[bi][active[bi]])
+            for birth in surviving:
+                local = _leaf_indices(birth, c, children)
+                global_members = [int(members[k]) for k in local]
+                if len(global_members) < min_size:
+                    dropped_idx.extend(global_members)
+                    continue
+                clusters_l.append(global_members)
+                bucket_l.append(bi)
+        cols = _Clusters.from_lists(clusters_l, bucket_l)
+    pt.tick("reconstruction")
+    if reassign_dropped and dropped_idx:
+        dropped_idx = _spill_bucket_local(feats, buckets, cols, dropped_idx,
+                                          max_size)
+        pt.tick("spill-local")
+    if reassign_dropped and dropped_idx:
+        dropped_idx = _spill_global(feats, cols, dropped_idx, max_size)
+        pt.tick("spill-global")
+
+    members_f, offsets_f = cols.finalize()
+    pt.tick("finalize")
+    result = ClusterResult(
+        merges=merges_arr,
+        n_items=n,
+        n_clusters_target=sum(int(t) for t in targets),
+        members=members_f,
+        offsets=offsets_f,
+        ids=ids,
+        dropped_idx=dropped_idx,
+    )
+    from imageclust_tpu_torch.data.native import available
+
+    result.n_buckets = nb  # buckets after capacity repair
+    result.phases_s = dict(pt.phases)
+    # which host paths ran: the native library's or the Python ones
+    result.host_paths = {
+        "placement": "native" if available() else "python",
+        "reconstruction": "native" if rec is not None else "python"}
+    return result

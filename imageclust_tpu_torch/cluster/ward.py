@@ -208,10 +208,11 @@ class ClusterResult:
 def pairwise_ward_singleton(x: torch.Tensor) -> torch.Tensor:
     """Initial Ward distances between singletons: 0.5 * ||xi - xj||^2
     (clustering.go:136-145 with |a|=|b|=1), through an f32 Gram product.
-    The JAX package runs it at ``Precision.HIGHEST``; here TF32 is off."""
-    sq = torch.sum(x * x, dim=1)
-    gram = torch.matmul(x, x.T)
-    d2 = sq[:, None] + sq[None, :] - 2.0 * gram
+    The JAX package runs it at ``Precision.HIGHEST``; here TF32 is off.
+    ``x`` is (n, d), or (C, B, d) for C buckets at once."""
+    sq = torch.sum(x * x, dim=-1)
+    gram = torch.matmul(x, x.transpose(-1, -2))
+    d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * gram
     return 0.5 * torch.clamp_min(d2, 0.0)
 
 
@@ -233,10 +234,11 @@ def ward_update_vector(
 
     "centroid" recomputes from centroids as the reference does after every
     merge (clustering.go:83-87); "lance_williams" is the O(1)-per-entry
-    recurrence, identical in exact arithmetic."""
+    recurrence, identical in exact arithmetic. Leading batch dimensions
+    (one per bucket) broadcast: cents (..., m, d), c_new (..., d)."""
     if update_rule == "centroid":
-        diff = cents - c_new[None, :]
-        sq = torch.sum(diff * diff, dim=1)
+        diff = cents - c_new.unsqueeze(-2)
+        sq = torch.sum(diff * diff, dim=-1)
         return (s_new_f * sizes_f / (s_new_f + sizes_f)) * sq
     if update_rule == "lance_williams":
         return ((s_a_f + sizes_f) * d_a + (s_b_f + sizes_f) * d_b

@@ -47,70 +47,17 @@
 // Built with -fmad=false like every kernel of the port, although this one
 // does no floating-point arithmetic at all.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "lexmin.cuh"
 
 namespace {
+
+using ic::Best;
+using ic::identity;
+using ic::take;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerBlock = 8;
-constexpr int32_t kBig = 2147483647;
-
-struct Best {
-  float d;
-  int32_t hi;
-  int32_t lo;
-};
-
-__device__ __forceinline__ Best identity() { return Best{CUDART_INF_F, kBig, kBig}; }
-
-// Lexicographic (d, hi, lo) order with `<` and `==` only: NaN never wins.
-__device__ __forceinline__ void take(Best& b, float d, int32_t hi, int32_t lo) {
-  if (d < b.d || (d == b.d && (hi < b.hi || (hi == b.hi && lo < b.lo)))) {
-    b.d = d;
-    b.hi = hi;
-    b.lo = lo;
-  }
-}
-
-__device__ __forceinline__ Best warp_reduce(Best b) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float d = __shfl_xor_sync(0xffffffffu, b.d, off);
-    const int32_t hi = __shfl_xor_sync(0xffffffffu, b.hi, off);
-    const int32_t lo = __shfl_xor_sync(0xffffffffu, b.lo, off);
-    take(b, d, hi, lo);
-  }
-  return b;
-}
-
-// Block-wide lexicographic min; the result is valid in thread 0.
-__device__ __forceinline__ Best block_reduce(Best b) {
-  __shared__ float s_d[kWarps];
-  __shared__ int32_t s_hi[kWarps];
-  __shared__ int32_t s_lo[kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  b = warp_reduce(b);
-  if (lane == 0) {
-    s_d[warp] = b.d;
-    s_hi[warp] = b.hi;
-    s_lo[warp] = b.lo;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    Best c = identity();
-    if (lane < kWarps) {
-      c.d = s_d[lane];
-      c.hi = s_hi[lane];
-      c.lo = s_lo[lane];
-    }
-    b = warp_reduce(c);
-  }
-  return b;
-}
 
 __device__ __forceinline__ void consider(Best& best, float v, int32_t r, int32_t c,
                                          int32_t b_r, int32_t s_r, int32_t b_c,
@@ -184,7 +131,7 @@ merge_step_rows(float* __restrict__ D, const float* __restrict__ dvec,
     }
   }
 
-  best = block_reduce(best);
+  best = ic::block_reduce<kWarps>(best);
   if (threadIdx.x == 0) {
     part_d[blockIdx.x] = best.d;
     part_hi[blockIdx.x] = best.hi;
@@ -200,7 +147,7 @@ reduce_partials(const float* __restrict__ part_d, const int32_t* __restrict__ pa
   for (int i = threadIdx.x; i < m; i += kThreads) {
     take(best, part_d[i], part_hi[i], part_lo[i]);
   }
-  best = block_reduce(best);
+  best = ic::block_reduce<kWarps>(best);
   if (threadIdx.x == 0) {
     *out_d = best.d;
     out_pair[0] = best.hi;

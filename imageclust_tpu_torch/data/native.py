@@ -4,7 +4,8 @@ The port's own copy of the JAX package's bindings (the library is C++ with
 no framework). Loads ``native/libicnative.so`` at the repository root (built
 with ``make -C native``). Every entry point returns None when the library is
 absent — :mod:`imageclust_tpu_torch.data.loader` then takes its other
-decoders.
+decoders, and the bucketed engine its Python placement and member walk
+(identical results).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ __all__ = [
     "native_preprocess_blob",
     "native_content_hash",
     "native_decode_resize",
+    "native_reconstruct_members",
+    "native_spill_place",
 ]
 
 _LIB = None
@@ -69,6 +72,18 @@ def _load():
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int,
+            ]
+            lib.ic_reconstruct_members.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int,
+            ]
+            lib.ic_reconstruct_members.restype = ctypes.c_int
+            lib.ic_spill_place.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int32, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
             ]
             _LIB = lib
             break
@@ -176,3 +191,68 @@ def native_decode_resize(data: bytes, size: int | None):
         # arithmetic, so tiny images take the cv2 path to stay identical.
         return native_resize_u8(img[None], size, size, threads=1)[0]
     return cv2.resize(img, (size, size), interpolation=cv2.INTER_LINEAR)
+
+
+def native_reconstruct_members(
+    logs: np.ndarray,        # (sum_m, 3) int32, buckets concatenated
+    log_off: np.ndarray,     # (nb+1,) int64
+    counts: np.ndarray,      # (nb,) int32 — leaves per bucket
+    counts_off: np.ndarray,  # (nb+1,) int64 prefix sum of counts
+    roots: np.ndarray,       # (total_roots,) int32, buckets concatenated
+    root_off: np.ndarray,    # (nb+1,) int64
+    threads: int = 8,
+) -> tuple[np.ndarray, np.ndarray] | None:
+    """Expand per-bucket Ward merge logs into ordered member lists (the
+    bucketed engine's host reconstruction — see native/preproc.cpp for the
+    semantics; order matches ward._leaf_indices exactly). Returns
+    (members (sum counts,) int32 local indices, sizes (total_roots,) int32)
+    or None when the native lib is unavailable."""
+    lib = _load()
+    if lib is None:
+        return None
+    logs = np.ascontiguousarray(logs, np.int32)
+    log_off = np.ascontiguousarray(log_off, np.int64)
+    counts = np.ascontiguousarray(counts, np.int32)
+    counts_off = np.ascontiguousarray(counts_off, np.int64)
+    roots = np.ascontiguousarray(roots, np.int32)
+    root_off = np.ascontiguousarray(root_off, np.int64)
+    nb = counts.shape[0]
+    members = np.empty(int(counts_off[-1]), np.int32)
+    sizes = np.zeros(roots.shape[0], np.int32)
+    rc = lib.ic_reconstruct_members(
+        logs.ctypes.data, log_off.ctypes.data, counts.ctypes.data,
+        counts_off.ctypes.data, roots.ctypes.data, root_off.ctypes.data,
+        nb, members.ctypes.data, sizes.ctypes.data, max(1, threads),
+    )
+    if rc != 0:
+        raise ValueError("malformed merge log in native reconstruction")
+    return members, sizes
+
+
+def native_spill_place(
+    prefs: np.ndarray,    # (m, P) int32 preference lists, processing order
+    src: np.ndarray,      # (m,) int32 source bucket per item (skipped)
+    cnt: np.ndarray,      # (nb,) int64 live counts — UPDATED IN PLACE
+    capacity: int,
+    cursor: int,
+) -> tuple[np.ndarray, int] | None:
+    """Sequential capacity-repair placement (the _repair_buckets hot loop)
+    at C speed — bit-identical to the per-item Python scan: first
+    preference != src with room, else the monotone-cursor fallback.
+    Returns (targets (m,) int32, updated cursor), or None when the native
+    lib is unavailable. ``cnt`` must be a contiguous int64 array owned by
+    the caller; it is mutated exactly as the Python loop would."""
+    lib = _load()
+    if lib is None:
+        return None
+    prefs = np.ascontiguousarray(prefs, np.int32)
+    src = np.ascontiguousarray(src, np.int32)
+    assert cnt.dtype == np.int64 and cnt.flags.c_contiguous
+    m, p = prefs.shape
+    out = np.empty(m, np.int32)
+    cur = np.array([cursor], np.int64)
+    lib.ic_spill_place(
+        prefs.ctypes.data, src.ctypes.data, m, p, cnt.ctypes.data,
+        cnt.shape[0], capacity, cur.ctypes.data, out.ctypes.data,
+    )
+    return out, int(cur[0])

@@ -146,6 +146,81 @@ class Embedder:
         """Like :meth:`embed` but the result stays on the device."""
         return torch.cat(self._embed_chunks(images))
 
+    def embed_stream(self, chunks, inflight: int = 4,
+                     total: int | None = None) -> torch.Tensor:
+        """Embed an iterable of uint8 (b, S, S, 3) chunks (S = input size,
+        b <= batch_size) and return float32 (N, dim) on the device.
+
+        While the card runs chunk k the producer (e.g.
+        :func:`imageclust_tpu_torch.data.loader.stream_decode`) decodes
+        chunk k+1. ``inflight`` bounds the work queued ahead of the card:
+        every ``inflight`` chunks the host waits for the CUDA event recorded
+        one window back (a lagged fence, so the queue never drains)."""
+        return self.embed_stream_quantized(chunks, inflight, total=total)[0]
+
+    @torch.inference_mode()
+    def embed_stream_quantized(self, chunks, inflight: int = 4,
+                               out_dtype=None, total: int | None = None):
+        """The stream loop (JAX registry.py:251-378) with the identity cast:
+        ``out_dtype`` None or float32. bf16/int8 residency is not ported
+        yet. Returns ``(embeddings, scale)`` with scale 1.0.
+
+        Chunks are host arrays or uint8 tensors (a CUDA tensor feeds the
+        forward with no transfer). ``total``: the job size, when known;
+        embeddings then go into ONE preallocated (total, dim) buffer, so
+        the list path's final concatenation (2x the feature bytes) never
+        happens."""
+        if out_dtype not in (None, torch.float32, np.float32, "float32"):
+            raise NotImplementedError(
+                f"embedding residency {out_dtype} is not ported yet "
+                "(ROADMAP.md queue 1, bf16/int8 residency)")
+        bs = self.batch_size
+        expect = (self.spec.input_size, self.spec.input_size, 3)
+        buf = None
+        if total is not None:
+            buf = torch.empty((total, self.spec.dim), dtype=torch.float32,
+                              device=self.device)
+        outs: list[torch.Tensor] = []
+        written = 0
+        n_chunks = 0
+        fence = None
+        for chunk in chunks:
+            if not isinstance(chunk, torch.Tensor):
+                chunk = torch.from_numpy(np.ascontiguousarray(chunk))
+            if tuple(chunk.shape[1:]) != expect or chunk.shape[0] > bs:
+                raise ValueError(
+                    f"stream chunk must be (<= {bs}, {expect}), "
+                    f"got {tuple(chunk.shape)}")
+            c = chunk.shape[0]
+            x = chunk.to(self.device, non_blocking=True)
+            if c < bs:  # pad to the one batch shape
+                x = torch.cat([x, x.new_zeros((bs - c, *expect))])
+            emb = self._forward(x).to(torch.float32)
+            emb = emb[:c] if c < bs else emb
+            n_chunks += 1
+            if buf is not None:
+                if written + c > total:
+                    raise ValueError(
+                        f"stream yielded more than total={total} rows")
+                buf[written:written + c] = emb
+            else:
+                outs.append(emb)
+            written += c
+            if (inflight and n_chunks % inflight == 0
+                    and self.device.type == "cuda"):
+                if fence is not None:
+                    fence.synchronize()  # bound the queued work
+                fence = torch.cuda.Event()
+                fence.record()
+        if buf is not None:
+            if written != total:
+                raise ValueError(
+                    f"stream yielded {written} rows, expected total={total}")
+            return buf, 1.0
+        if not outs:
+            return torch.zeros((0, self.spec.dim), device=self.device), 1.0
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), 1.0
+
 
 def _weights_tag(cfg: EmbedConfig, seed: int) -> str:
     """Embedding-cache identity. The port's random init differs from the JAX

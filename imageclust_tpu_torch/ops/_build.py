@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Every source is compiled by ``nvcc`` for ``sm_90a`` into a position-
+Every source (each includes ``lexmin.cuh``, the shared lexicographic
+reduce) is compiled by ``nvcc`` for ``sm_90a`` into a position-
 independent object (one ``nvcc`` process per source, all started together)
 and the objects are linked into ``build/kernels/<hash>/libimageclust_kernels.so``
 at the repository root. The sources expose a plain C interface, loaded with
@@ -23,12 +24,14 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["load_kernels", "build_info", "SOURCES"]
+__all__ = ["load_kernels", "build_info", "SOURCES", "HEADERS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
-SOURCES = ("merge_update_argmin.cu",)
+SOURCES = ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
+           "merge_loop_whole.cu")
+HEADERS = ("lexmin.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -56,7 +59,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -92,13 +95,24 @@ def _compile(nvcc: str, out_dir: Path) -> str:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
+    i = ctypes.c_int
     lib.ic_merge_rows_per_block.argtypes = []
-    lib.ic_merge_rows_per_block.restype = ctypes.c_int
-    lib.ic_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.ic_merge_rows_per_block.restype = i
+    lib.ic_cuda_error_string.argtypes = [i]
     lib.ic_cuda_error_string.restype = ctypes.c_char_p
     lib.ic_merge_update_argmin.argtypes = [
-        p, p, p, p, p, p, p, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
-    lib.ic_merge_update_argmin.restype = ctypes.c_int
+        p, p, p, p, p, p, p, i, i, p, p, p, p, p, p]
+    lib.ic_merge_update_argmin.restype = i
+    lib.ic_batched_rows_per_block.argtypes = []
+    lib.ic_batched_rows_per_block.restype = ctypes.c_int
+    lib.ic_merge_update_argmin_batched.argtypes = [
+        p, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
+    lib.ic_merge_update_argmin_batched.restype = ctypes.c_int
+    lib.ic_merge_loop_whole_max_b.argtypes = []
+    lib.ic_merge_loop_whole_max_b.restype = ctypes.c_int
+    lib.ic_merge_loop_whole.argtypes = [
+        p, p, p, i, i, i, i, p, p, p, p, p, p]
+    lib.ic_merge_loop_whole.restype = ctypes.c_int
     return lib
 
 

@@ -17,6 +17,15 @@ other device is accepted, and nothing falls back.
 
 :func:`masked_argmin_pair_plain` is the twin of ``masked_argmin_pair_xla``
 (pallas_kernels.py:44): the same reduction without the update.
+
+K3, :func:`merge_update_argmin_batched`, replaces
+``pallas_kernels.py:merge_update_argmin_batched`` (body
+``_merge_step_kernel_batched`` :202-266, per-bucket reduce :342-350): K1 over
+a chunk of C buckets, each with its own pending update, plus the absorb
+phase's under-min mask. Its CUDA source is
+``csrc/merge_update_argmin_batched.cu``; its twin is
+:func:`merge_update_argmin_batched_plain`. It also only selects and takes
+exact minima, so kernel and twin are bit-identical.
 """
 
 from __future__ import annotations
@@ -26,8 +35,11 @@ import torch
 __all__ = [
     "merge_update_argmin",
     "merge_update_argmin_plain",
+    "merge_update_argmin_batched",
+    "merge_update_argmin_batched_plain",
     "masked_argmin_pair_plain",
     "launches",
+    "batched_launches",
 ]
 
 _STRIPE = 128
@@ -36,6 +48,8 @@ _BIG_I32 = 2**31 - 1
 # Launches of the CUDA kernel pair by merge_update_argmin (one per call on a
 # CUDA tensor). Plain-twin calls are not counted.
 launches = 0
+# The same count for merge_update_argmin_batched (K3).
+batched_launches = 0
 
 
 def masked_argmin_pair_plain(D, births, sizes, active, max_size,
@@ -176,8 +190,110 @@ def merge_update_argmin(D, dvec, sa, do_update, births, sizes, active,
             do_t.data_ptr(), n, int(max_size), part_d.data_ptr(),
             part_i[0].data_ptr(), part_i[1].data_ptr(), out_d.data_ptr(),
             out_pair.data_ptr(), stream)
-    if rc != 0:
-        msg = lib.ic_cuda_error_string(rc).decode()
-        raise RuntimeError(f"merge_update_argmin launch failed: {msg} ({rc})")
+    _raise_on(lib, rc, "merge_update_argmin")
     launches += 1
     return D, out_d, out_pair[0], out_pair[1]
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.ic_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+# -- K3 ---------------------------------------------------------------------
+
+def merge_update_argmin_batched_plain(D, dvec, sa, do_update, births, sizes,
+                                      active, max_size: int,
+                                      absorb_min: int):
+    """The plain PyTorch version of K3 with its contract: per bucket c,
+    applies the pending update (column then row ``sa[c]`` set to ``dvec[c]``
+    when ``do_update[c]``) to D in place and returns (D, dmin (C,), bhi
+    (C,), blo (C,)). ``absorb_min > 0`` keeps only pairs with an under-min
+    side. The Pallas body reduces 128-row stripes and then the stripe
+    partials; one reduce over each bucket's whole matrix gives the same
+    exact minima."""
+    C, B, _ = D.shape
+    dev = D.device
+    idx = torch.arange(B, device=dev, dtype=torch.int32)
+    sa = sa.reshape(C, 1, 1)
+    do = (do_update.reshape(C, 1, 1) != 0)
+    # pallas_kernels.py:231-237
+    d_new = torch.where(idx.view(1, 1, B) == sa, dvec[:, :, None], D)
+    d_new = torch.where(idx.view(1, B, 1) == sa, dvec[:, None, :], d_new)
+    D.copy_(torch.where(do, d_new, D))
+
+    # :239-257
+    act = active > 0
+    ok = act[:, :, None] & act[:, None, :] & (idx[:, None] != idx[None, :])
+    ok &= (sizes[:, :, None] + sizes[:, None, :]) <= max_size
+    if absorb_min > 0:
+        under = sizes < absorb_min
+        ok &= under[:, :, None] | under[:, None, :]
+    dmin, m1, m2 = _lexmin(D, ok, births[:, :, None], births[:, None, :],
+                           dims=(1, 2))
+    return D, dmin, m1, m2
+
+
+def _check_batched(D, dvec, sa, do_update, births, sizes, active):
+    if D.dim() != 3 or D.shape[1] != D.shape[2]:
+        raise ValueError(f"D must be (C, B, B), got {tuple(D.shape)}")
+    C, B, _ = D.shape
+    if D.dtype != torch.float32:
+        raise TypeError(f"D must be float32, got {D.dtype}")
+    for name, t, shape, dt in (("D", D, (C, B, B), torch.float32),
+                               ("dvec", dvec, (C, B), torch.float32),
+                               ("births", births, (C, B), torch.int32),
+                               ("sizes", sizes, (C, B), torch.int32),
+                               ("active", active, (C, B), torch.int32),
+                               ("sa", sa, (C,), torch.int32),
+                               ("do_update", do_update, (C,), torch.int32)):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != dt:
+            raise TypeError(f"{name} must be {dt}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != D.device:
+            raise ValueError(f"{name} is on {t.device}, D on {D.device}")
+
+
+def merge_update_argmin_batched(D, dvec, sa, do_update, births, sizes,
+                                active, max_size: int, absorb_min: int):
+    """K3. D (C, B, B) f32 contiguous (any B >= 1); dvec (C, B) f32; births,
+    sizes, active (C, B) int32; sa, do_update (C,) int32, all on D's device;
+    max_size and absorb_min Python ints (absorb_min <= 0: no absorb mask).
+    D is updated in place; returns (D, dmin (C,), bhi (C,), blo (C,)) on
+    D's device, without a host synchronisation on CUDA."""
+    global batched_launches
+    _check_batched(D, dvec, sa, do_update, births, sizes, active)
+    if D.device.type == "cpu":
+        return merge_update_argmin_batched_plain(
+            D, dvec, sa, do_update, births, sizes, active, int(max_size),
+            int(absorb_min))
+    if D.device.type != "cuda":
+        raise ValueError(f"merge_update_argmin_batched runs on cuda or cpu, "
+                         f"not {D.device}")
+    from imageclust_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()
+    dev = D.device
+    C, B, _ = D.shape
+    rows = lib.ic_batched_rows_per_block()
+    m = (B + rows - 1) // rows
+    part_d = torch.empty(C * m, dtype=torch.float32, device=dev)
+    part_i = torch.empty((2, C * m), dtype=torch.int32, device=dev)
+    out_d = torch.empty(C, dtype=torch.float32, device=dev)
+    out_i = torch.empty((2, C), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ic_merge_update_argmin_batched(
+            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
+            sizes.data_ptr(), active.data_ptr(), sa.data_ptr(),
+            do_update.data_ptr(), C, B, int(max_size), int(absorb_min),
+            part_d.data_ptr(), part_i[0].data_ptr(), part_i[1].data_ptr(),
+            out_d.data_ptr(), out_i[0].data_ptr(), out_i[1].data_ptr(),
+            stream)
+    _raise_on(lib, rc, "merge_update_argmin_batched")
+    batched_launches += 1
+    return D, out_d, out_i[0], out_i[1]

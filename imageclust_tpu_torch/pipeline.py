@@ -1,12 +1,15 @@
 """The clustering pipeline on PyTorch: ingest -> label -> decode -> embed ->
 fuse -> cluster -> name -> report.
 
-The port of ``imageclust_tpu/pipeline.py`` for jobs up to
-``cluster.exact_limit`` images (the small-job branch of ``_run_core``): one
-batched forward over the upload on the card, the exact constrained-Ward
-engine on the card (K1 per merge), then the same naming and HTML report.
-Larger jobs need the bucketed or chain engine and ``run_stream``, which are
-not ported yet and raise ``NotImplementedError`` (ROADMAP.md queue 1).
+The port of ``imageclust_tpu/pipeline.py``. Jobs up to
+``cluster.exact_limit`` images take one batched forward over the upload on
+the card and the exact constrained-Ward engine (K1 per merge). Larger jobs
+stream their ingest (read -> decode -> forward in bounded chunks), keep the
+features on the card and cluster them with the bucketed engine (K2 or K3);
+:meth:`Pipeline.run_stream` takes uint8 chunks directly. The same naming
+and HTML report follow. Not ported yet (``NotImplementedError``, ROADMAP.md
+queue 1): ``scale_engine="chain"``, bf16/int8 feature residency, zero-shot
+labels and text fusion.
 
 Output shape parity with the reference: {"Cluster-<i>": ClusterDetails}
 (workflow.go:192) and a clusters.html report in the work dir.
@@ -20,13 +23,17 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from imageclust_tpu_torch.cluster import constrained_ward
+from imageclust_tpu_torch.cluster import (
+    constrained_ward,
+    constrained_ward_bucketed,
+)
 from imageclust_tpu_torch.config import AppConfig
 from imageclust_tpu_torch.data.loader import (
     _read_file,
     decode_images,
     dedup_name,
     sanitize_filename,
+    stream_decode,
 )
 from imageclust_tpu_torch.device import resolve_device
 from imageclust_tpu_torch.labels import (
@@ -163,6 +170,84 @@ class Pipeline:
                 report_routes,
             )
 
+    def run_stream(
+        self,
+        chunks,
+        n_images: int,
+        work_dir: str,
+        name_fn=None,
+        min_size: int | None = None,
+        max_size: int | None = None,
+        profile_dir: str | None = None,
+        image_route: str = "/api/image/",
+        report_routes: tuple[str, str] | None = None,
+    ) -> PipelineResult:
+        """Tier-scale entry (JAX pipeline.py:192-314): images arrive as an
+        iterator of uint8 (b, S, S, 3) chunks, host arrays or CUDA tensors
+        (a CUDA chunk feeds the forward with no transfer). Embeddings go
+        into one preallocated buffer on the card, the bucketed engine
+        clusters them in columnar form (no per-item id strings), then the
+        same naming and report tail runs.
+
+        ``name_fn(i) -> str`` names item i (default ``img_{i:07d}.jpg``).
+        Labels: backend ``none`` only here; ``zero_shot`` is not ported yet
+        and blob-based labelers need :meth:`run_paths`."""
+        cfg = self.config
+        min_size = cfg.cluster.min_size if min_size is None else min_size
+        max_size = cfg.cluster.max_size if max_size is None else max_size
+        if n_images < 1:
+            raise ValueError("no images supplied")
+        if min_size < 1 or max_size < min_size:
+            raise ValueError(
+                f"invalid cluster size bounds [{min_size}, {max_size}]")
+        if cfg.labels.backend == "zero_shot":
+            raise NotImplementedError(
+                "zero-shot labels need the text tower, not ported yet "
+                "(ROADMAP.md queue 1)")
+        if cfg.labels.backend not in ("none", ""):
+            raise ValueError(
+                f"run_stream supports labels.backend 'none' or 'zero_shot' "
+                f"(got {cfg.labels.backend!r}); blob-based labelers need "
+                "run_paths")
+        name_fn = name_fn or (lambda i: f"img_{i:07d}.jpg")
+
+        metrics = RunMetrics()
+        timer = StageTimer(metrics, profile_dir)
+        metrics.counters["images"] = n_images
+        os.makedirs(work_dir, exist_ok=True)
+
+        with timer.profiled():
+            with timer.stage("embed"):
+                self._check_residency()
+                features = self.embedder.embed_stream(chunks, total=n_images)
+
+            with timer.stage("cluster"):
+                result = self._cluster_big(features, None, min_size,
+                                           max_size)
+                if result._dropped_idx is not None:
+                    dropped_idx = [int(i) for i in result._dropped_idx]
+                else:  # the single-bucket hand-off: ids are "img_<k>"
+                    dropped_idx = [int(s.rsplit("_", 1)[-1])
+                                   for s in result.dropped]
+                metrics.counters["clusters"] = result.n_clusters
+                metrics.counters["dropped"] = len(dropped_idx)
+                metrics.counters["merges"] = len(result.merges)
+
+            with timer.stage("name"):
+                details = self._prepare_details_columnar(
+                    result, name_fn, None, work_dir=work_dir)
+                if self._naming_skipped:
+                    metrics.counters["naming_skipped"] = self._naming_skipped
+
+            with timer.stage("report"):
+                html_path = self._write_report(details, work_dir,
+                                               image_route, report_routes)
+
+        dropped_names = [name_fn(i) for i in dropped_idx]
+        log.info("pipeline done: %d clusters, %d dropped, stages %s",
+                 len(details), len(dropped_names), metrics.stages)
+        return PipelineResult(details, html_path, metrics, dropped_names)
+
     def _run_core(
         self,
         names: list[str],
@@ -178,11 +263,9 @@ class Pipeline:
         report_routes: tuple[str, str] | None = None,
     ) -> PipelineResult:
         cfg = self.config
-        if len(sources) > cfg.cluster.exact_limit:
-            raise NotImplementedError(
-                f"{len(sources)} images is above cluster.exact_limit="
-                f"{cfg.cluster.exact_limit}: the scale engines and run_stream "
-                "are not ported yet (ROADMAP.md queue 1)")
+        # Above exact_limit, embeddings stay on the card all the way through
+        # clustering (no per-image cache); small jobs use the cache.
+        big_job = len(sources) > cfg.cluster.exact_limit
         if cfg.labels.fusion != "onehot":
             if cfg.labels.fusion == "text":
                 raise NotImplementedError(
@@ -192,61 +275,96 @@ class Pipeline:
                 f"unknown labels.fusion {cfg.labels.fusion!r} "
                 "(expected 'onehot' or 'text')")
 
-        blobs = [
-            s if isinstance(s, (bytes, bytearray)) else _read_file(s)
-            for s in sources
-        ]
-        with timer.stage("label"):
-            labeler = create_labeler(
-                cfg.labels, cache_dir if cfg.labels.cache else None,
-                embedder=self.embedder,
-            )
-            labeling = self._labeling_service(
-                labeler, cfg.labels, total=len(blobs))
-            per_image_labels = labeling.detect_all(blobs)
+        labeler = create_labeler(
+            cfg.labels, cache_dir if cfg.labels.cache else None,
+            embedder=self.embedder,
+        )
+        labeling = self._labeling_service(labeler, cfg.labels,
+                                          total=len(sources))
+        if big_job:
+            # Streamed ingest (JAX pipeline.py:339-394): read -> label ->
+            # decode -> forward in bounded chunks; the producer thread
+            # decodes chunk k+1 while the card runs chunk k, so host memory
+            # stays O(chunk), not O(job).
+            per_image_labels: list = []
+
+            def chunk_iter():
+                for _start, chunk_blobs, imgs in stream_decode(
+                    sources,
+                    size=self.embedder.spec.input_size,
+                    batch=self.embedder.batch_size,
+                    workers=cfg.preprocess.decode_workers,
+                ):
+                    # one service spans the stream: rate limiter, retry
+                    # budget and progress are job-global
+                    per_image_labels.extend(labeling.detect_all(chunk_blobs))
+                    yield imgs
+
+            with timer.stage("embed"):
+                self._check_residency()
+                image_emb = self.embedder.embed_stream(chunk_iter(),
+                                                       total=len(sources))
             label_set = self._label_set(per_image_labels, cfg.labels)
             metrics.counters["unique_labels"] = len(label_set)
             if hasattr(labeler, "hits"):
                 metrics.counters["label_cache_hits"] = labeler.hits
+        else:
+            blobs = [
+                s if isinstance(s, (bytes, bytearray)) else _read_file(s)
+                for s in sources
+            ]
+            with timer.stage("label"):
+                per_image_labels = labeling.detect_all(blobs)
+                label_set = self._label_set(per_image_labels, cfg.labels)
+                metrics.counters["unique_labels"] = len(label_set)
+                if hasattr(labeler, "hits"):
+                    metrics.counters["label_cache_hits"] = labeler.hits
 
-        with timer.stage("decode"):
-            batch = decode_images(
-                blobs,
-                size=self.embedder.spec.input_size,
-                workers=cfg.preprocess.decode_workers,
-            )
-
-        with timer.stage("embed"):
-            if cfg.embed.cache:
-                from imageclust_tpu_torch.utils.checkpoint import (
-                    EmbeddingCache,
+            with timer.stage("decode"):
+                batch = decode_images(
+                    blobs,
+                    size=self.embedder.spec.input_size,
+                    workers=cfg.preprocess.decode_workers,
                 )
 
-                emb_cache = EmbeddingCache(
-                    os.path.join(cache_dir, "embeddings"),
-                    self.embedder.tag,
-                )
-                image_emb = emb_cache.embed_with_cache(
-                    self.embedder, blobs, batch
-                )
-                metrics.counters["embed_cache_hits"] = emb_cache.hits
-            else:
-                image_emb = self.embedder.embed(batch)
+            with timer.stage("embed"):
+                if cfg.embed.cache:
+                    from imageclust_tpu_torch.utils.checkpoint import (
+                        EmbeddingCache,
+                    )
+
+                    emb_cache = EmbeddingCache(
+                        os.path.join(cache_dir, "embeddings"),
+                        self.embedder.tag,
+                    )
+                    image_emb = emb_cache.embed_with_cache(
+                        self.embedder, blobs, batch
+                    )
+                    metrics.counters["embed_cache_hits"] = emb_cache.hits
+                else:
+                    image_emb = self.embedder.embed(batch)
 
         with timer.stage("fuse"):
             label_mat = one_hot_matrix(per_image_labels, label_set)
             if cfg.labels.fusion_weight != 1.0:
                 label_mat = label_mat * np.float32(cfg.labels.fusion_weight)
-            features = combine_embeddings(image_emb, label_mat)
+            if big_job:
+                features = self._fuse_big(image_emb, label_mat)
+            else:
+                features = combine_embeddings(image_emb, label_mat)
 
         with timer.stage("cluster"):
-            result = constrained_ward(
-                features, item_ids,
-                min_size=min_size, max_size=max_size,
-                update_rule=cfg.cluster.update_rule,
-                reassign_dropped=cfg.cluster.reassign_dropped,
-                device=self.device,
-            )
+            if big_job:
+                result = self._cluster_big(features, item_ids, min_size,
+                                           max_size)
+            else:
+                result = constrained_ward(
+                    features, item_ids,
+                    min_size=min_size, max_size=max_size,
+                    update_rule=cfg.cluster.update_rule,
+                    reassign_dropped=cfg.cluster.reassign_dropped,
+                    device=self.device,
+                )
             metrics.counters["clusters"] = result.n_clusters
             metrics.counters["dropped"] = len(result.dropped)
             metrics.counters["merges"] = len(result.merges)
@@ -260,18 +378,8 @@ class Pipeline:
                 metrics.counters["naming_skipped"] = self._naming_skipped
 
         with timer.stage("report"):
-            # report_routes = (page_route, index_route[, section_route]) for
-            # job-scoped pagination links; file-relative defaults otherwise
-            routes = tuple(report_routes or ())
-            page_route = routes[0] if routes else "clusters_p{page}.html"
-            index_route = routes[1] if len(routes) > 1 else "clusters.html"
-            section_route = (routes[2] if len(routes) > 2
-                             else "clusters_ix{sec}.html")
-            html_path = write_report(
-                details, work_dir, image_route,
-                page_size=cfg.service.report_page_size,
-                page_route=page_route, index_route=index_route,
-                section_route=section_route)
+            html_path = self._write_report(details, work_dir, image_route,
+                                           report_routes)
 
         id_to_name = dict(zip(item_ids, names))
         dropped_names = [id_to_name[i] for i in result.dropped]
@@ -280,6 +388,67 @@ class Pipeline:
         return PipelineResult(details, html_path, metrics, dropped_names)
 
     # ------------------------------------------------------------------
+
+    def _write_report(self, details, work_dir, image_route, report_routes):
+        """report_routes = (page_route, index_route[, section_route]) for
+        job-scoped pagination links; file-relative defaults otherwise."""
+        routes = tuple(report_routes or ())
+        page_route = routes[0] if routes else "clusters_p{page}.html"
+        index_route = routes[1] if len(routes) > 1 else "clusters.html"
+        section_route = (routes[2] if len(routes) > 2
+                         else "clusters_ix{sec}.html")
+        return write_report(
+            details, work_dir, image_route,
+            page_size=self.config.service.report_page_size,
+            page_route=page_route, index_route=index_route,
+            section_route=section_route)
+
+    def _check_residency(self) -> None:
+        """The JAX pipeline streams embeddings straight into the bucketed
+        engine's residency dtype; only float32 is ported."""
+        cluster = self.config.cluster
+        if (cluster.scale_engine == "bucketed"
+                and cluster.feature_dtype != "float32"):
+            raise NotImplementedError(
+                f"cluster.feature_dtype={cluster.feature_dtype!r} residency "
+                "is not ported yet (ROADMAP.md queue 1, bf16/int8 "
+                "residency)")
+
+    def _fuse_big(self, image_emb, label_mat: np.ndarray):
+        """Fuse the label block onto the embeddings ON THE CARD (the
+        big-job path: features never visit the host)."""
+        import torch
+
+        if not label_mat.shape[1]:
+            return image_emb
+        lm = torch.from_numpy(np.ascontiguousarray(label_mat, np.float32))
+        return torch.cat([image_emb, lm.to(image_emb.device)], dim=1)
+
+    def _cluster_big(self, features, item_ids, min_size: int,
+                     max_size: int):
+        """Scale-engine dispatch above cluster.exact_limit: the bucketed
+        engine on the card. ``item_ids`` may be None: the result is then
+        columnar with integer item indices."""
+        cfg = self.config
+        if cfg.cluster.scale_engine == "chain":
+            raise NotImplementedError(
+                "cluster.scale_engine='chain' is not ported yet (ROADMAP.md "
+                "queue 1, chain engine); use 'bucketed'")
+        if cfg.cluster.scale_engine != "bucketed":
+            # fail loud: a typo must not silently pick an engine
+            raise ValueError(
+                f"unknown cluster.scale_engine "
+                f"{cfg.cluster.scale_engine!r}; know 'bucketed', 'chain'")
+        return constrained_ward_bucketed(
+            features, item_ids,
+            min_size=min_size, max_size=max_size,
+            bucket_size=cfg.cluster.bucket_size,
+            kmeans_iters=cfg.cluster.kmeans_iters,
+            update_rule=cfg.cluster.scale_update_rule,
+            reassign_dropped=cfg.cluster.scale_reassign_dropped,
+            feature_dtype=cfg.cluster.feature_dtype,
+            device=self.device,
+        )
 
     @staticmethod
     def _labeling_service(labeler, label_cfg, total: int):
@@ -350,6 +519,49 @@ class Pipeline:
                 d.images.append(names[idx])
             d.labels = ", ".join(seen_labels)
             key = f"Cluster-{cluster_id}"  # workflow.go:192
+            details[key] = d
+            texts[key] = d.labels
+
+        self._apply_naming(details, texts, work_dir)
+        return details
+
+    def _prepare_details_columnar(
+        self,
+        result,
+        name_fn,
+        per_image_labels=None,
+        work_dir: str | None = None,
+    ) -> dict[str, ClusterDetails]:
+        """workflow.go:187-229 over the engine's COLUMNAR result: member
+        indices drive ``name_fn`` and label lookups directly, so no per-item
+        id string or id->index dict is built. Same naming budget and resume
+        as :meth:`_prepare_cluster_details`."""
+        details: dict[str, ClusterDetails] = {}
+        texts: dict[str, str] = {}
+
+        def cluster_iter():
+            if result._members is not None:
+                mem, off = result._members, result._offsets
+                for c in range(len(off) - 1):
+                    yield c, mem[off[c]:off[c + 1]]
+            else:  # eager engine result (the single-bucket hand-off)
+                for c, idxs in result._index_map.items():
+                    yield c, idxs
+
+        for cid, idxs in cluster_iter():
+            d = ClusterDetails()
+            if per_image_labels is None:
+                d.images = [name_fn(int(i)) for i in idxs]
+            else:
+                seen_labels: list[str] = []
+                for i in idxs:
+                    i = int(i)
+                    for label in per_image_labels[i]:
+                        if label.name not in seen_labels:
+                            seen_labels.append(label.name)
+                    d.images.append(name_fn(i))
+                d.labels = ", ".join(seen_labels)
+            key = f"Cluster-{cid}"  # workflow.go:192
             details[key] = d
             texts[key] = d.labels
 

@@ -69,6 +69,68 @@ def test_kernel_rejects_cpu_scalars_on_cuda(cuda):
                                i, i, i, 6)
 
 
+def _batched_state(gen, C, B, dev, tied):
+    d = (torch.randint(0, 4, (C, B, B), generator=gen).float() if tied
+         else torch.rand((C, B, B), generator=gen))
+    d = ((d + d.transpose(1, 2)) / 2).contiguous()
+    births = torch.stack([torch.randperm(2 * B, generator=gen)[:B]
+                          for _ in range(C)]).to(torch.int32)
+    sizes = torch.randint(1, 4, (C, B), generator=gen).to(torch.int32)
+    active = (torch.rand((C, B), generator=gen) < 0.8).to(torch.int32)
+    active[0] = 0  # bucket 0: every pair infeasible
+    dvec = torch.rand((C, B), generator=gen)
+    sa = torch.randint(0, B, (C,), generator=gen).to(torch.int32)
+    do = torch.randint(0, 2, (C,), generator=gen).to(torch.int32)
+    return [t.to(dev) for t in (d, dvec, sa, do, births, sizes, active)]
+
+
+@pytest.mark.parametrize("C,B", [(1, 128), (8, 512), (261, 128), (3, 200)])
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("absorb_min", [-1, 3])
+def test_batched_kernel_bit_identical_to_twin(cuda, C, B, tied, absorb_min):
+    gen = torch.Generator().manual_seed(C * B + tied)
+    D, dvec, sa, do, births, sizes, active = _batched_state(gen, C, B, cuda,
+                                                            tied)
+    for max_size in (0, 6):
+        dk, dp = D.clone(), D.clone()
+        before = mk.batched_launches
+        got = mk.merge_update_argmin_batched(dk, dvec, sa, do, births, sizes,
+                                             active, max_size, absorb_min)
+        assert mk.batched_launches == before + 1
+        want = mk.merge_update_argmin_batched_plain(
+            dp, dvec, sa, do, births, sizes, active, max_size, absorb_min)
+        assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
+        for g, w in zip(got[1:], want[1:]):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.isinf(got[1][0])  # the all-infeasible bucket
+
+
+@pytest.mark.parametrize("C,B", [(3, 128), (64, 512), (5, 200)])
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("absorb_min", [0, 3])
+def test_whole_loop_kernel_bit_identical_to_twin(cuda, C, B, grid,
+                                                 absorb_min):
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+
+    rng = np.random.default_rng(C + B)
+    x = (rng.integers(-3, 4, (C, B, 16)) if grid
+         else rng.normal(size=(C, B, 16))).astype(np.float32)
+    counts = np.resize([int(0.75 * B), 37, 5, 0], C).astype(np.int32)
+    targets = np.array([sharded._bucket_target(int(c), 3, 6) if c else 0
+                        for c in counts], np.int32)
+    D = sharded.pairwise_ward_singleton(torch.from_numpy(x).to(cuda))
+    ct = torch.from_numpy(counts).to(cuda)
+    tg = torch.from_numpy(targets).to(cuda)
+    before = bk.launches
+    got = bk.merge_loop_whole(D.clone(), ct, tg, 6, absorb_min)
+    assert bk.launches == before + 1
+    want = bk.merge_loop_whole_plain(D.clone(), ct, tg, 6, absorb_min)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 0
+
+
 @pytest.mark.parametrize("rule", ["centroid", "lance_williams"])
 def test_engine_on_card_matches_twin_loop(cuda, rule):
     x = np.random.default_rng(3).integers(-2, 3, (700, 64)).astype(
@@ -83,3 +145,31 @@ def test_engine_on_card_matches_twin_loop(cuda, rule):
         x, None, merge_step=mk.merge_update_argmin_plain, **kw)
     np.testing.assert_array_equal(got.merges, want.merges)
     assert got.cluster_map == want.cluster_map
+
+
+@pytest.mark.parametrize("rule", ["lance_williams", "centroid"])
+def test_bucketed_engine_on_card_matches_twin_run(cuda, monkeypatch, rule):
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+
+    x = np.random.default_rng(5).normal(size=(3000, 32)).astype(np.float32)
+    kw = dict(update_rule=rule, bucket_size=256, device=cuda)
+    before = (bk.launches, mk.batched_launches)
+    got = sharded.constrained_ward_bucketed(x, **kw)
+    assert (bk.launches, mk.batched_launches) != before
+    monkeypatch.setattr(sharded, "merge_loop_whole",
+                        bk.merge_loop_whole_plain)
+    monkeypatch.setattr(sharded, "merge_update_argmin_batched",
+                        mk.merge_update_argmin_batched_plain)
+    want = sharded.constrained_ward_bucketed(x, **kw)
+    np.testing.assert_array_equal(got.merges, want.merges)
+    assert got.cluster_map == want.cluster_map
+
+
+def test_bucketed_engine_refuses_k4_domain_on_cuda(cuda, monkeypatch):
+    from imageclust_tpu_torch.cluster import sharded
+
+    monkeypatch.setattr(sharded, "_PREF_FUSED_MIN_K", 2)
+    x = np.random.default_rng(6).normal(size=(300, 4)).astype(np.float32)
+    with pytest.raises(NotImplementedError, match="K4"):
+        sharded.constrained_ward_bucketed(x, bucket_size=64, device=cuda)

@@ -40,11 +40,15 @@ def _imports(path):
 def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")}
     for mod in ("device.py", "config.py", "pipeline.py", "cli.py",
-                "cluster/ward.py", "ops/merge_kernels.py", "ops/_build.py",
+                "cluster/ward.py", "cluster/sharded.py",
+                "ops/merge_kernels.py", "ops/bucket_kernels.py",
+                "ops/_build.py",
                 "models/resnet50.py", "models/convert.py",
                 "models/registry.py", "service/app.py", "data/loader.py"):
         assert mod in names
-    assert (PORT / "csrc" / "merge_update_argmin.cu").exists()
+    for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
+                "merge_loop_whole.cu", "lexmin.cuh"):
+        assert (PORT / "csrc" / src).exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -71,6 +75,12 @@ def test_import_and_cluster_without_jax(tmp_path):
         ".astype(np.float32)\n"
         "r = constrained_ward(x, min_size=3, max_size=6, device='cpu')\n"
         "print(r.n_clusters, len(r.merges))\n"
+        "from imageclust_tpu_torch.cluster import constrained_ward_bucketed\n"
+        "y = np.random.default_rng(1).normal(size=(300, 4))"
+        ".astype(np.float32)\n"
+        "b = constrained_ward_bucketed(y, bucket_size=64, device='cpu')\n"
+        "assert sum(len(m) for m in b.cluster_map.values()) "
+        "+ len(b.dropped) == 300\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
@@ -122,10 +132,14 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 def test_kernel_build_is_lazy():
     """Importing the kernel modules builds nothing and needs no nvcc."""
     code = ("import imageclust_tpu_torch.ops.merge_kernels as mk, "
+            "imageclust_tpu_torch.ops.bucket_kernels as bk, "
+            "imageclust_tpu_torch.cluster.sharded as sh, "
             "imageclust_tpu_torch.ops._build as b\n"
             "assert b._lib is None and b.build_info() == {}\n"
             "print(b.SOURCES)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "merge_update_argmin.cu" in proc.stdout
+    for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
+                "merge_loop_whole.cu"):
+        assert src in proc.stdout

@@ -167,12 +167,30 @@ class TestErrors:
             pipeline.run(uploads, str(tmp_path), min_size=3, max_size=6)
 
     def test_scale_path_not_ported(self, towers, rng, tmp_path):
-        pcfg = _configs(exact_limit=4)[1]
-        pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
+        """Above exact_limit the chain engine and bf16 residency are still
+        not ported, and say so."""
         names, blobs = color_group_images(rng, n_groups=1, per_group=5)
-        with pytest.raises(NotImplementedError, match="exact_limit"):
-            pipeline.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
-                         str(tmp_path))
+        for cluster in (dict(scale_engine="chain"),
+                        dict(feature_dtype="bfloat16")):
+            pcfg = _configs(exact_limit=4, **cluster)[1]
+            pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
+            with pytest.raises(NotImplementedError, match="not ported"):
+                pipeline.run(
+                    [UploadedImage(n, b) for n, b in zip(names, blobs)],
+                    str(tmp_path))
+
+    def test_scale_path_runs(self, towers, rng, tmp_path):
+        """A job above exact_limit takes the streamed big-job branch and
+        the bucketed engine, and loses no image."""
+        pcfg = _configs(exact_limit=4, bucket_size=8)[1]
+        pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
+        names, blobs = color_group_images(rng, n_groups=4, per_group=5)
+        res = pipeline.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
+                           str(tmp_path))
+        placed = [m for d in res.clusters.values() for m in d.images]
+        assert sorted(placed + res.dropped) == sorted(names)
+        assert all(3 <= len(d.images) <= 6 for d in res.clusters.values())
+        assert "decode" not in res.metrics.stages  # streamed ingest
 
     @pytest.mark.parametrize("fusion,exc", [("text", NotImplementedError),
                                             ("typo", ValueError)])

@@ -1,0 +1,252 @@
+"""The port's scale path against the JAX package: streamed ingest
+(``run_paths`` above ``exact_limit``), ``run_stream``, the streamed embed
+and the CLI's switch to streaming.
+
+Both pipelines run the same float32 ResNet50 (one block per stage, Flax
+variables converted into the port) and the bucketed engine with the port's
+k-means seeded from the JAX package's ``jax.random`` indices. The towers
+agree to about 1e-4, so clusters are compared as sets of members (colour
+groups are far apart; the order of merges inside a group may differ).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imageclust_tpu.config import AppConfig as JaxAppConfig
+from imageclust_tpu.config import ClusterConfig as JaxClusterConfig
+from imageclust_tpu.config import LabelConfig as JaxLabelConfig
+from imageclust_tpu.config import NamingConfig as JaxNamingConfig
+from imageclust_tpu.data.loader import decode_images
+from imageclust_tpu.models.registry import Embedder as JaxEmbedder
+from imageclust_tpu.models.registry import EmbedderSpec as JaxSpec
+from imageclust_tpu.models.resnet50 import ResNet50V1 as FlaxResNet
+from imageclust_tpu.pipeline import Pipeline as JaxPipeline
+from imageclust_tpu_torch import cli
+from imageclust_tpu_torch import pipeline as tpipeline
+from imageclust_tpu_torch.cluster import sharded as tsh
+from imageclust_tpu_torch.config import (
+    AppConfig,
+    ClusterConfig,
+    LabelConfig,
+    NamingConfig,
+)
+from imageclust_tpu_torch.models.registry import Embedder, EmbedderSpec
+from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+from imageclust_tpu_torch.pipeline import Pipeline
+
+from helpers import color_group_images
+
+torch.set_num_threads(2)
+
+_LAYERS = (1, 1, 1, 1)
+_DIM = 32
+_BIG = dict(exact_limit=4, bucket_size=8)  # 24 images -> 4 buckets
+
+
+@pytest.fixture(scope="module")
+def towers():
+    """(JAX embedder, port embedder) on the same float32 weights."""
+    flax_model = FlaxResNet(dtype=jnp.float32, norm_dtype=jnp.float32,
+                            stage_layers=_LAYERS, num_classes=_DIM)
+    raw_model = FlaxResNet(dtype=jnp.float32, norm_dtype=jnp.float32,
+                           stage_layers=_LAYERS, num_classes=_DIM,
+                           stem_mode="s2d_raw")
+    variables = flax_model.init(jax.random.PRNGKey(1),
+                                jnp.zeros((1, 3, 224, 224)))
+    spec = dict(name="resnet50", input_size=224, dim=_DIM, scale=1 / 255.0,
+                mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0), bgr_input=True)
+    jax_emb = JaxEmbedder(
+        JaxSpec(**spec), lambda v, x: flax_model.apply(v, x), variables,
+        batch_size=8, tag="jax-test",
+        raw_apply_fn=lambda v, u8: raw_model.apply(v, u8))
+    port_emb = Embedder(
+        EmbedderSpec(**spec),
+        ResNet50V1(num_classes=_DIM, dtype="float32", norm_dtype="float32",
+                   stage_layers=_LAYERS, stem_mode="s2d_raw"),
+        batch_size=8, device=torch.device("cpu"), tag="torch-test")
+    port_emb.load_flax_variables(jax.tree.map(np.asarray, variables))
+    return jax_emb, port_emb
+
+
+@pytest.fixture()
+def jax_init(monkeypatch):
+    def init(x, k, seed):
+        idx = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed),
+                                                x.shape[0])[:k])
+        return x[torch.from_numpy(idx.copy()).to(x.device)].float()
+
+    monkeypatch.setattr(tsh, "_kmeans_init", init)
+
+
+def _configs(labels="fake", **cluster):
+    return (
+        JaxAppConfig(labels=JaxLabelConfig(backend=labels),
+                     naming=JaxNamingConfig(services=("fake",), retries=1),
+                     cluster=JaxClusterConfig(**cluster)),
+        AppConfig(labels=LabelConfig(backend=labels),
+                  naming=NamingConfig(services=("fake",), retries=1),
+                  cluster=ClusterConfig(**cluster)),
+    )
+
+
+def _partition(result):
+    return ({frozenset(d.images) for d in result.clusters.values()},
+            sorted(result.dropped))
+
+
+def _image_dir(rng, tmp_path, groups=6, per=4):
+    names, blobs = color_group_images(rng, n_groups=groups, per_group=per)
+    src = tmp_path / "imgs"
+    src.mkdir()
+    paths = []
+    for n, b in zip(names, blobs):
+        (src / n).write_bytes(b)
+        paths.append(str(src / n))
+    return names, blobs, paths
+
+
+class TestStreamedPipeline:
+    def test_run_paths_above_exact_limit_matches_jax(self, towers, rng,
+                                                     tmp_path, jax_init):
+        jax_emb, port_emb = towers
+        names, _, paths = _image_dir(rng, tmp_path)
+        jcfg, pcfg = _configs(**_BIG)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run_paths(
+            paths, str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run_paths(
+            paths, str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _partition(got) == _partition(want)
+        placed = [m for d in got.clusters.values() for m in d.images]
+        assert sorted(placed + got.dropped) == sorted(names)
+        for d in got.clusters.values():
+            assert 3 <= len(d.images) <= 6 and d.labels  # labels streamed
+        assert got.metrics.counters["merges"] > 0
+        assert "embed" in got.metrics.stages
+        assert "decode" not in got.metrics.stages  # inside the stream
+
+    def test_run_stream_host_chunks_matches_jax(self, towers, rng, tmp_path,
+                                                jax_init):
+        jax_emb, port_emb = towers
+        _, blobs = color_group_images(rng, n_groups=6, per_group=4)
+        imgs = decode_images(blobs, size=224)
+        cuts = (0, 8, 15, 23, 24)  # ragged chunks, none above batch_size
+        chunks = lambda: (imgs[a:b] for a, b in zip(cuts, cuts[1:]))  # noqa
+        jcfg, pcfg = _configs(labels="none", **_BIG)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run_stream(
+            chunks(), 24, str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run_stream(
+            chunks(), 24, str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _partition(got) == _partition(want)
+        assert got.metrics.counters["images"] == 24
+        assert set(got.metrics.stages) >= {"embed", "cluster", "name",
+                                           "report"}
+
+    def test_run_stream_single_bucket_and_names(self, towers, rng,
+                                                tmp_path):
+        _, blobs = color_group_images(rng, n_groups=3, per_group=4)
+        imgs = decode_images(blobs, size=224)
+        _, pcfg = _configs(labels="none", exact_limit=4)
+        res = Pipeline(pcfg, device="cpu", embedder=towers[1]).run_stream(
+            [imgs[:8], imgs[8:]], 12, str(tmp_path),
+            name_fn=lambda i: f"x{i}.jpg",
+            min_size=3, max_size=6)
+        placed = [m for d in res.clusters.values() for m in d.images]
+        assert sorted(placed + res.dropped) == sorted(
+            f"x{i}.jpg" for i in range(12))
+
+    @pytest.mark.parametrize("backend,exc", [("zero_shot",
+                                              NotImplementedError),
+                                             ("fake", ValueError)])
+    def test_run_stream_label_backends(self, towers, tmp_path, backend,
+                                       exc):
+        _, pcfg = _configs(labels=backend)
+        with pytest.raises(exc):
+            Pipeline(pcfg, device="cpu", embedder=towers[1]).run_stream(
+                [], 4, str(tmp_path))
+
+    @pytest.mark.parametrize("cluster,exc", [
+        (dict(scale_engine="chain"), NotImplementedError),
+        (dict(feature_dtype="bfloat16"), NotImplementedError),
+        (dict(scale_engine="typo"), ValueError)])
+    def test_unported_scale_modes_raise(self, towers, rng, tmp_path,
+                                        cluster, exc):
+        _, _, paths = _image_dir(rng, tmp_path, groups=2, per=3)
+        _, pcfg = _configs(exact_limit=4, **cluster)
+        with pytest.raises(exc):
+            Pipeline(pcfg, device="cpu", embedder=towers[1]).run_paths(
+                paths, str(tmp_path / "w"))
+
+
+class TestEmbedStream:
+    def test_matches_embed_preallocated_and_list(self, towers, rng):
+        _, emb = towers
+        u8 = rng.integers(0, 256, (13, 224, 224, 3)).astype(np.uint8)
+        want = emb.embed(u8)
+        parts = [u8[i:i + 5] for i in range(0, 13, 5)]
+        got_list = emb.embed_stream(iter(parts))
+        got_buf = emb.embed_stream(iter(parts), total=13)
+        for got in (got_list, got_buf):
+            assert got.shape == (13, _DIM) and got.dtype == torch.float32
+            np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                       atol=1e-4)
+        tensor_chunks = [torch.from_numpy(p) for p in parts]
+        np.testing.assert_array_equal(
+            emb.embed_stream(iter(tensor_chunks), total=13).numpy(),
+            got_buf.numpy())
+
+    def test_rejects_bad_streams(self, towers):
+        _, emb = towers
+        with pytest.raises(ValueError, match="stream chunk"):
+            emb.embed_stream([np.zeros((9, 224, 224, 3), np.uint8)])
+        two = [np.zeros((2, 224, 224, 3), np.uint8)]
+        with pytest.raises(ValueError, match="expected total"):
+            emb.embed_stream(iter(two), total=3)
+        with pytest.raises(ValueError, match="more than total"):
+            emb.embed_stream(iter(two), total=1)
+        with pytest.raises(NotImplementedError, match="residency"):
+            emb.embed_stream_quantized(iter(two), out_dtype=torch.bfloat16)
+
+
+class TestCliStreaming:
+    @pytest.fixture()
+    def calls(self, monkeypatch):
+        seen = []
+
+        class FakePipeline:
+            def __init__(self, config, device=None):
+                self.config = config
+
+            def _result(self):
+                class R:
+                    html_path = "x.html"
+
+                    def to_dict(self):
+                        return {"clusters": {}}
+                return R()
+
+            def run(self, uploads, *a, **k):
+                seen.append(("run", len(uploads)))
+                return self._result()
+
+            def run_paths(self, paths, *a, **k):
+                seen.append(("run_paths", len(paths)))
+                return self._result()
+
+        monkeypatch.setattr(tpipeline, "Pipeline", FakePipeline)
+        return seen
+
+    @pytest.mark.parametrize("extra,want", [
+        ([], "run"),
+        (["--stream"], "run_paths"),
+        (["--set", "cluster.exact_limit=4"], "run_paths")])
+    def test_switches_to_run_paths_above_exact_limit(self, rng, tmp_path,
+                                                     calls, extra, want):
+        _, _, _ = _image_dir(rng, tmp_path, groups=2, per=3)
+        rc = cli.main(["run", "--images", str(tmp_path / "imgs"),
+                       "--device", "cpu", "--out", str(tmp_path / "w"),
+                       *extra])
+        assert rc == 0
+        assert calls == [(want, 6)]
