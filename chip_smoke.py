@@ -41,7 +41,22 @@ line and raises on any failure:
 9. ``cli run`` on 6000 BMPs (above ``exact_limit``): streamed ingest, the
    bucketed engine on K2, the report;
 10. ``Pipeline.run_stream`` on 16,384 images made on the card as CUDA
-    ``uint8`` chunks.
+    ``uint8`` chunks;
+11. K5 (``short_seq_attention``) against its twin on the card at (B, T, H,
+    Dh) in {(1024, 50, 12, 64), (7, 128, 16, 64), (5, 17, 4, 32),
+    (3, 1, 1, 64)}, bf16 (allclose at 0.02) and f32 (at 1e-5); times at
+    ViT-B/32's (1024, 50, 12, 64) bf16 beside the bound and
+    ``scaled_dot_product_attention`` (a yardstick the port never calls);
+12. the full-width ViT-B/32 tower (bf16, batch 1024, seeded random init)
+    on 4096 noise images through ``Embedder.embed``, once on K5 and once
+    with ``models.vit.attention`` swapped for the twin: per-row cosine
+    >= ``VIT_COS_FLOOR``, 12 K5 launches per batch, images/s;
+13. the server of phase 4 with ``embed.model=vit_b32``;
+14. ``cli run --model vit_b32`` on 10,000 BMPs (streamed, the bucketed
+    engine on K2), 12 K5 launches per batch of 1024;
+15. ``vit_b16``, ``vit_l14``, ``vit_l14_336`` and ``siglip_so400m`` at full
+    width on 256 images each: finite (256, proj_dim) output, no K5 launch
+    (their sequences are longer than 128), images/s.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -50,11 +65,13 @@ before its next host read of ``found``). K2: one launch per chunk the
 bucket dispatcher formed. K3: each lockstep phase launches between its
 iterations and its iterations + K - 1 times. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
-and K3's from the 100,000-image engine runs); the last line is
+and K3's from the 100,000-image engine runs, K5's from the ViT server
+phase); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
 Exits non-zero, printing no result, without a CUDA device or outside a
-checkout of the repository.
+checkout of the repository. ``--phases 11,12`` runs only the named phases
+after the build (a development run: no summary, no result line).
 """
 
 from __future__ import annotations
@@ -90,6 +107,17 @@ FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
 # activity tests, a size add and compare, the absorb test, two birth loads,
 # max, min and the lexicographic compare (csrc/merge_loop_whole.cu)
 K2_OPS_PER_PAIR = 12
+BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
+VIT_B32_DEPTH = 12      # encoder blocks of ViT-B/32: one K5 launch each
+VIT_N = 4096            # phase 12: images through the full-width ViT-B/32
+VIT_COS_FLOOR = 0.999   # phase 12: per-row cosine, K5 run vs twin run
+VIT_CLI_GROUPS = 2000   # phase 14: 2000 groups x 5 = 10,000 images
+OTHER_TOWER_N = 256     # phase 15: images per tower
+# phase 11: K5's shapes (B, T, H, Dh): ViT-B/32 at batch 1024, the longest
+# sequence and the odd sizes the wrapper takes
+K5_SHAPES = ((1024, 50, 12, 64), (7, 128, 16, 64), (5, 17, 4, 32),
+             (3, 1, 1, 64))
+K5_TOL = {"bfloat16": 0.02, "float32": 1e-5}  # tests/test_attention.py
 
 
 def emit(obj) -> None:
@@ -112,6 +140,24 @@ def cuda_ms(fn, reps: int = TIMING_REPS, warm: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def burst_ms(fn, reps: int = TIMING_REPS, warm: int = 3) -> float:
+    """Device time per call of ``fn`` from CUDA events around ``reps``
+    back-to-back calls (the card stays busy while the host's per-call work
+    is shorter than the kernel)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def device_ms(fn, match: tuple[str, ...] = (), reps: int = TIMING_REPS):
@@ -392,16 +438,22 @@ def _check_sizes(clusters: dict, lo: int = 3, hi: int = 6) -> None:
             raise AssertionError(f"{key} has {len(c['images'])} images")
 
 
-def phase_server(card: str):
+def phase_server(card: str, model: str = "resnet50"):
     import numpy as np
 
-    from imageclust_tpu_torch.config import AppConfig, ServiceConfig
+    from imageclust_tpu_torch.config import (
+        AppConfig,
+        EmbedConfig,
+        ServiceConfig,
+    )
+    from imageclust_tpu_torch.ops import attention as at
     from imageclust_tpu_torch.ops import merge_kernels as mk
     from imageclust_tpu_torch.pipeline import Pipeline
     from imageclust_tpu_torch.service.app import create_server
 
     work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_jobs_"))
-    cfg = AppConfig(service=ServiceConfig(work_dir=str(work)))
+    cfg = AppConfig(service=ServiceConfig(work_dir=str(work)),
+                    embed=EmbedConfig(model=model))
     t0 = time.perf_counter()
     pipeline = Pipeline(cfg, device=DEVICE)
     build_s = time.perf_counter() - t0
@@ -414,7 +466,7 @@ def phase_server(card: str):
     big = group_images(rng, SERVER_GROUPS, 5, "b")
     requests = []
     try:
-        mk.launches = 0
+        mk.launches = at.launches = 0
         for label, (names, blobs, groups), query in (
                 ("18_images", small, ""), ("200_images", big, ""),
                 ("18_images_async", small, "?async=1")):
@@ -422,7 +474,7 @@ def phase_server(card: str):
                                                     "maxClusterSize": 6})
             if len(body) > cfg.service.max_upload_bytes:
                 raise AssertionError(f"{label}: request is {len(body)} bytes")
-            before = mk.launches
+            before, k5_before = mk.launches, at.launches
             t0 = time.perf_counter()
             status, _, raw = _http(base, "/api/cluster" + query, body, ctype)
             data = json.loads(raw)
@@ -471,8 +523,9 @@ def phase_server(card: str):
                 "sizes": sorted(len(c["images"])
                                 for c in data["clusters"].values()),
                 "dropped": len(data["dropped"]), "merges": merges,
-                "k1_launches": mk.launches - before})
-        main_path_launches = mk.launches
+                "k1_launches": mk.launches - before,
+                "k5_launches": at.launches - k5_before})
+        main_path_launches = {"k1": mk.launches, "k5": at.launches}
         for path in (f"/api/result?job={job}", "/api/view",
                      f"/api/image/{small[0][0]}", "/healthz"):
             status, ctype, raw = _http(base, path)
@@ -486,9 +539,16 @@ def phase_server(card: str):
         server.service.wait_background(60)
         thread.join(60)
         shutil.rmtree(work, ignore_errors=True)
-    emit({"phase": "server", "card": card, "pipeline_build_s": build_s,
-          "requests": requests, "healthz": health,
-          "k1_launches": main_path_launches})
+    if model.startswith("vit"):
+        # 12 encoder blocks, one K5 launch each, per embedded batch
+        k5 = main_path_launches["k5"]
+        if not (k5 > 0 and k5 % VIT_B32_DEPTH == 0):
+            raise AssertionError(f"server {model}: {k5} K5 launches")
+    elif main_path_launches["k5"]:
+        raise AssertionError(f"server {model}: K5 launched")
+    emit({"phase": "server", "card": card, "model": model,
+          "pipeline_build_s": build_s, "requests": requests,
+          "healthz": health, "launches": main_path_launches})
     return main_path_launches
 
 
@@ -545,20 +605,23 @@ def phase_cli(card: str):
 
 def _zero_counters():
     from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import attention as at
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
 
-    mk.launches = mk.batched_launches = bk.launches = 0
+    mk.launches = mk.batched_launches = bk.launches = at.launches = 0
     sharded.chunks_dispatched = 0
     sharded.lockstep_iterations = sharded.lockstep_phases = 0
 
 
 def _counters() -> dict:
     from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import attention as at
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
 
     return {"k1": mk.launches, "k2": bk.launches, "k3": mk.batched_launches,
+            "k5": at.launches,
             "chunks": sharded.chunks_dispatched,
             "lockstep_iterations": sharded.lockstep_iterations,
             "lockstep_phases": sharded.lockstep_phases}
@@ -842,15 +905,18 @@ def phase_engine_100k(card: str):
     return launches
 
 
-def phase_cli_big(card: str):
+def phase_cli_big(card: str, groups: int = BIG_CLI_GROUPS,
+                  model: str = "resnet50"):
     import numpy as np
 
     from imageclust_tpu_torch import cli
+    from imageclust_tpu_torch.models.registry import DEFAULT_BATCH
+    from imageclust_tpu_torch.ops import attention as at
 
     tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_cli_big_"))
     try:
         rng = np.random.default_rng(9)
-        names, blobs, _ = group_images(rng, BIG_CLI_GROUPS, 5, "s")
+        names, blobs, _ = group_images(rng, groups, 5, "s")
         img_dir = tmp / "images"
         img_dir.mkdir()
         for name, blob in zip(names, blobs):
@@ -861,28 +927,37 @@ def phase_cli_big(card: str):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["run", "--images", str(img_dir), "--device",
-                           DEVICE, "--out", str(tmp / "work")])
+                           DEVICE, "--out", str(tmp / "work"),
+                           "--model", model])
         wall_s = time.perf_counter() - t0
         c = _counters()
         if rc != 0:
             raise AssertionError(f"cli run exited {rc}")
         result = json.loads(out.getvalue())
         OUT.mkdir(parents=True, exist_ok=True)
-        (OUT / "cli_big_result.json").write_text(out.getvalue())
+        (OUT / f"cli_big_{model}_result.json").write_text(out.getvalue())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _check_sizes(result["clusters"])
     _check_scale_launches("cli big", c, "lance_williams")
     n = len(names)
+    # the stream embeds ceil(n / batch) chunks; K5 runs in each ViT-B/32
+    # block of each chunk and never in ResNet50
+    batches = -(-n // DEFAULT_BATCH[model])
+    want_k5 = VIT_B32_DEPTH * batches if model == "vit_b32" else 0
+    if c["k5"] != want_k5:
+        raise AssertionError(f"cli big {model}: {c['k5']} K5 launches, "
+                             f"want {want_k5}")
     placed = sum(len(cl["images"]) for cl in result["clusters"].values())
     if placed + len(result["dropped"]) != n:
         raise AssertionError("cli big: images lost")
-    emit({"phase": "cli_run_big", "card": card, "images": n,
+    emit({"phase": "cli_run_big", "card": card, "model": model, "images": n,
           "wall_s": wall_s, "stages_s": result["metrics"]["stages_s"],
           "embed_images_per_s": result["metrics"].get("images_per_sec_embed"),
           "clusters": len(result["clusters"]),
           "dropped": len(result["dropped"]), "launches": c,
-          "output": os.path.relpath(OUT / "cli_big_result.json", REPO)})
+          "output": os.path.relpath(OUT / f"cli_big_{model}_result.json",
+                                    REPO)})
 
 
 def phase_stream(card: str):
@@ -931,7 +1006,210 @@ def phase_stream(card: str):
           "launches": c})
 
 
-def main() -> int:
+# -- the ViT towers (phases 11-15) ---------------------------------------------
+
+def phase_k5(card: str):
+    import torch
+    import torch.nn.functional as F
+
+    from imageclust_tpu_torch.ops import attention as at
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    cases = []
+    max_err = 0.0
+    for shape in K5_SHAPES:
+        for name, tol in K5_TOL.items():
+            dt = getattr(torch, name)
+            q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                       for _ in range(3))
+            before = at.launches
+            got = at.short_seq_attention(q, k, v)
+            want = at.short_seq_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            if at.launches != before + 1:
+                raise AssertionError("K5 call did not count one launch")
+            err = float((got.float() - want.float()).abs().max())
+            if got.shape != q.shape or got.dtype != dt or not torch.allclose(
+                    got.float(), want.float(), rtol=tol, atol=tol):
+                raise AssertionError(f"K5 != twin at {shape} {name}: "
+                                     f"max abs err {err}")
+            cases.append({"shape": shape, "dtype": name, "tol": tol,
+                          "max_abs_err": err})
+            max_err = max(max_err, err)
+    long_q = torch.zeros((1, 129, 1, 64), device=dev)
+    try:
+        at.short_seq_attention(long_q, long_q, long_q)
+        raise AssertionError("K5 took T = 129")
+    except ValueError:
+        pass
+    emit({"phase": "k5_parity", "cases": cases, "parity": "tolerance",
+          "max_abs_err": max_err})
+
+    B, T, H, Dh = K5_SHAPES[0]
+    q, k, v = (torch.randn((B, T, H, Dh), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    call = lambda: at.short_seq_attention(q, k, v)  # noqa: E731
+    plain = lambda: at.short_seq_attention_plain(q, k, v)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+    call_ms = cuda_ms(call)
+    k5_ms = burst_ms(call)
+    dev_ms = device_ms(call, ("short_seq_attention",))
+    plain_ms = burst_ms(plain)
+    plain_dev_ms = device_ms(plain)
+    lib_ms = burst_ms(sdpa)
+    lib_dev_ms = device_ms(sdpa)
+    bytes_moved = 4 * B * T * H * Dh * 2  # q, k, v read once, o written
+    ops = 4 * B * H * T * T * Dh           # two products, 2 ops a MAC
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+    emit({"phase": "k5_time", "card": card, "shape": [B, T, H, Dh],
+          "dtype": "bfloat16", "burst_ms": k5_ms, "device_ms": dev_ms,
+          "call_ms": call_ms, "plain_burst_ms": plain_ms,
+          "plain_device_ms": plain_dev_ms, "sdpa_burst_ms": lib_ms,
+          "sdpa_device_ms": lib_dev_ms,
+          "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+          "bytes": bytes_moved, "bytes_ms": bytes_ms, "ops": ops,
+          "ops_ms": ops_ms,
+          "timing": f"*burst_ms: CUDA events around {TIMING_REPS} "
+                    "back-to-back warm calls, per call; call_ms: CUDA events "
+                    f"around one call, median of {TIMING_REPS}; *device_ms: "
+                    f"torch.profiler kernel time, mean of {TIMING_REPS}; "
+                    "sdpa: scaled_dot_product_attention on (B, H, T, Dh) "
+                    "copies, a yardstick only"})
+    return max_err, {"ms": k5_ms, "device_ms": dev_ms, "call_ms": call_ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+                     "library_ms": lib_ms}
+
+
+def _noise_images(n: int, size: int, seed: int):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(
+        0, 256, (n, size, size, 3), dtype=np.uint8)
+
+
+def phase_vit_tower(card: str):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models import vit
+    from imageclust_tpu_torch.ops import attention as at
+
+    t0 = time.perf_counter()
+    emb = create_embedder(EmbedConfig(model="vit_b32"), device=DEVICE)
+    build_s = time.perf_counter() - t0
+    images = _noise_images(VIT_N, 224, 12)
+    emb.embed(images[:emb.batch_size])  # warm: cuBLAS plans, allocator
+    torch.cuda.synchronize()
+    at.launches = 0
+    t0 = time.perf_counter()
+    got = emb.embed(images)
+    wall_s = time.perf_counter() - t0
+    launches = at.launches
+    batches = -(-VIT_N // emb.batch_size)
+    if launches != VIT_B32_DEPTH * batches:
+        raise AssertionError(f"ViT-B/32: {launches} K5 launches for "
+                             f"{batches} batches")
+    saved = vit.attention
+    vit.attention = at.short_seq_attention_plain
+    try:
+        t0 = time.perf_counter()
+        want = emb.embed(images)
+        twin_s = time.perf_counter() - t0
+    finally:
+        vit.attention = saved
+    if got.shape != (VIT_N, 512) or not np.isfinite(got).all():
+        raise AssertionError(f"ViT-B/32 output {got.shape}")
+    cos = (got * want).sum(1) / (np.linalg.norm(got, axis=1)
+                                 * np.linalg.norm(want, axis=1))
+    if not cos.min() >= VIT_COS_FLOOR:
+        raise AssertionError(f"ViT-B/32 on K5 vs twin: min cosine "
+                             f"{cos.min()} < {VIT_COS_FLOOR}")
+    # one batch under the profiler: the tower's device time and K5's share
+    x = torch.from_numpy(images[:emb.batch_size]).to(DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        emb._forward(x)
+        torch.cuda.synchronize()
+    all_us = _kernel_us(prof)
+    k5_us = _kernel_us(prof, ("short_seq_attention",))
+    emit({"phase": "vit_b32_tower", "card": card, "images": VIT_N,
+          "batch": emb.batch_size, "dtype": "bfloat16",
+          "embedder_build_s": build_s, "wall_s": wall_s,
+          "images_per_s": VIT_N / wall_s, "twin_wall_s": twin_s,
+          "twin_images_per_s": VIT_N / twin_s, "k5_launches": launches,
+          "cosine_min": float(cos.min()), "cosine_floor": VIT_COS_FLOOR,
+          "batch_device_ms": all_us / 1e3, "batch_k5_device_ms": k5_us / 1e3,
+          "timing": "wall: host clock around Embedder.embed (host copy in, "
+                    "embeddings back to the host); batch_*: torch.profiler "
+                    "kernel time of one batch's forward"})
+
+
+def phase_other_towers(card: str):
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models.vit import VIT_CONFIGS
+    from imageclust_tpu_torch.ops import attention as at
+
+    towers = []
+    for name in ("vit_b16", "vit_l14", "vit_l14_336", "siglip_so400m"):
+        vcfg = VIT_CONFIGS[name]
+        t0 = time.perf_counter()
+        emb = create_embedder(EmbedConfig(model=name), device=DEVICE)
+        build_s = time.perf_counter() - t0
+        images = _noise_images(OTHER_TOWER_N, vcfg.image_size, 15)
+        emb.embed(images[:emb.batch_size])  # warm
+        torch.cuda.synchronize()
+        at.launches = 0
+        t0 = time.perf_counter()
+        out = emb.embed(images)
+        wall_s = time.perf_counter() - t0
+        seq = (vcfg.image_size // vcfg.patch) ** 2 + vcfg.use_class_token
+        if (out.shape != (OTHER_TOWER_N, vcfg.proj_dim)
+                or not np.isfinite(out).all()):
+            raise AssertionError(f"{name}: output {out.shape}")
+        if at.launches:
+            raise AssertionError(f"{name} (T = {seq}) launched K5")
+        towers.append({"model": name, "seq": seq, "batch": emb.batch_size,
+                       "embedder_build_s": build_s, "wall_s": wall_s,
+                       "images_per_s": OTHER_TOWER_N / wall_s,
+                       "k5_launches": at.launches})
+        del emb
+        torch.cuda.empty_cache()
+    emit({"phase": "other_towers", "card": card, "images": OTHER_TOWER_N,
+          "dtype": "bfloat16", "towers": towers})
+
+
+PHASES = {
+    2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
+    6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
+    10: phase_stream, 11: phase_k5, 12: phase_vit_tower,
+    13: lambda card: phase_server(card, "vit_b32"),
+    14: lambda card: phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32"),
+    15: phase_other_towers,
+}
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    # development runs: `chip_smoke.py --phases 11,12` drives only those
+    # phases after the build; the full run takes no arguments
+    only = []
+    if args[:1] == ["--phases"] and len(args) == 2:
+        only = [int(n) for n in args[1].split(",")]
+    elif args:
+        print("usage: chip_smoke.py [--phases N,M,...]", file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -950,15 +1228,24 @@ def main() -> int:
 
     resolve_device("cuda")  # TF32 off for the whole run
     card = phase_card_and_build()
+    if only:  # a development run of some phases: no summary, no result
+        for n in only:
+            PHASES[n](card)
+        return 0
     max_err, timings = phase_k1(card)
     phase_engine(card)
-    launches = phase_server(card)
+    launches = phase_server(card)["k1"]
     phase_cli(card)
     k3_err, k3_t = phase_k3(card)
     k2_err, k2_t = phase_k2(card)
     big_launches = phase_engine_100k(card)
     phase_cli_big(card)
     phase_stream(card)
+    k5_err, k5_t = phase_k5(card)
+    phase_vit_tower(card)
+    vit_launches = phase_server(card, "vit_b32")["k5"]
+    phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32")
+    phase_other_towers(card)
     t = timings[4096]
     emit({"kernels": [{
         "name": "merge_update_argmin",
@@ -997,6 +1284,16 @@ def main() -> int:
         "library_ms": None,
         "shape": "C=261, B=512",
         "parity": "bit-identical",
+    }, {
+        "name": "short_seq_attention",
+        "route": "cuda",
+        "source": "imageclust_tpu_torch/csrc/short_seq_attention.cu",
+        "replaces": "imageclust_tpu/ops/attention.py:64",
+        "launches": vit_launches,
+        "max_abs_err": k5_err,
+        **k5_t,
+        "shape": "B=1024, T=50, H=12, Dh=64 bf16 (ViT-B/32 at batch 1024)",
+        "parity": "tolerance",
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", default="", help="YAML config path")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
-    p.add_argument("--model", default=None, help="embedder (resnet50)")
+    from imageclust_tpu_torch.models import list_models
+
+    p.add_argument("--model", default=None, choices=list_models(),
+                   help="embedder tower (default resnet50)")
     p.add_argument("--labeler", default=None,
                    help="labels backend: none|fake")
     p.add_argument("--namers", default=None,

@@ -6,7 +6,9 @@ own. Tests and CPU runs pass ``device="cpu"`` explicitly.
 
 The first resolution also turns TF32 off for matmuls and cuDNN
 convolutions, so that float32 on the card means float32 (the JAX package
-runs its Ward Gram matrix at ``Precision.HIGHEST``).
+runs its Ward Gram matrix at ``Precision.HIGHEST``), and stops cuBLAS from
+reducing bf16 products partly in bf16 (XLA accumulates the towers' bf16
+Dense layers in float32).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ DEFAULT_DEVICE = "cuda"
 def _strict_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:

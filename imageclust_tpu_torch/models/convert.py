@@ -1,4 +1,5 @@
-"""Flax ResNet50 variables -> the port's ``state_dict``.
+"""Flax tower variables -> the port's ``state_dict`` (ResNet50 and the
+ViT/SigLIP towers).
 
 The JAX package's weights are a nested dict tree
 ``{"params": ..., "batch_stats": ...}`` (what
@@ -12,6 +13,9 @@ This module maps either onto :class:`~.resnet50.ResNet50V1` by name:
 * BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, ``mean``/``var`` ->
   ``running_mean``/``running_var``,
 * conv ``bias`` (folded layout) -> ``bias``.
+
+The ViT towers (:func:`vit_state_dict_from_flax`) use the same kernel and
+LayerNorm rules; ``class_token`` and ``pos_embed`` carry over as they are.
 
 Any missing, unexpected or mis-shaped tensor raises ValueError with the
 full list, like the JAX package's ``_shape_diff``.
@@ -28,8 +32,9 @@ from imageclust_tpu_torch.models.resnet50 import (
     GLUON_STAGE_LAYERS,
     ResNet50V1,
 )
+from imageclust_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
-__all__ = ["resnet50_state_dict_from_flax"]
+__all__ = ["resnet50_state_dict_from_flax", "vit_state_dict_from_flax"]
 
 _BN = {"scale": "weight", "bias": "bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -45,6 +50,8 @@ def _walk(tree: Mapping, prefix: tuple = ()):
 
 def _map_param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
     *scope, leaf = path
+    if not scope and leaf in ("class_token", "pos_embed"):  # ViT tables
+        return leaf, arr
     mod = ".".join(scope)
     if leaf == "kernel":
         if arr.ndim == 4:  # HWIO -> OIHW
@@ -57,6 +64,19 @@ def _map_param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if leaf == "scale":
         return f"{mod}.weight", arr
     raise ValueError(f"params/{'/'.join(path)}: unknown leaf {leaf!r}")
+
+
+def _map_params(params: Mapping) -> tuple[dict[str, np.ndarray], list[str]]:
+    got: dict[str, np.ndarray] = {}
+    problems: list[str] = []
+    for path, arr in _walk(params):
+        try:
+            key, val = _map_param(path, arr)
+        except ValueError as exc:
+            problems.append(str(exc))
+            continue
+        got[key] = val
+    return got, problems
 
 
 def _stage_layers(params: Mapping) -> tuple[int, ...]:
@@ -90,15 +110,7 @@ def resnet50_state_dict_from_flax(
     if num_classes is None:
         num_classes = int(np.asarray(params["dense0"]["bias"]).shape[0])
 
-    got: dict[str, np.ndarray] = {}
-    problems: list[str] = []
-    for path, arr in _walk(params):
-        try:
-            key, val = _map_param(path, arr)
-        except ValueError as exc:
-            problems.append(str(exc))
-            continue
-        got[key] = val
+    got, problems = _map_params(params)
     for path, arr in _walk(stats):
         *scope, leaf = path
         if leaf not in _STATS:
@@ -109,6 +121,24 @@ def resnet50_state_dict_from_flax(
     with torch.device("meta"):
         ref = ResNet50V1(num_classes=num_classes, dtype="float32",
                          stage_layers=stage_layers, fold_bn=fold_bn)
+    return _checked(got, ref, problems)
+
+
+def vit_state_dict_from_flax(variables: Mapping,
+                             cfg: ViTConfig) -> dict[str, torch.Tensor]:
+    """Convert Flax ``VisionTransformer`` variables (``{"params": ...}``)
+    for ``cfg`` into a :class:`~.vit.VisionTransformer` state_dict: conv
+    HWIO -> OIHW, Dense (in, out) -> (out, in), LayerNorm ``scale`` ->
+    ``weight``, ``class_token`` and ``pos_embed`` unchanged. Raises
+    ValueError on any missing, extra or mis-shaped tensor."""
+    got, problems = _map_params(variables["params"])
+    with torch.device("meta"):
+        ref = VisionTransformer(cfg)
+    return _checked(got, ref, problems)
+
+
+def _checked(got: dict, ref: torch.nn.Module,
+             problems: list[str]) -> dict[str, torch.Tensor]:
     want = {k: tuple(v.shape) for k, v in ref.state_dict().items()}
     for k, shape in want.items():
         if k not in got:

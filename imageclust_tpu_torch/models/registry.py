@@ -1,16 +1,19 @@
 """Embedder registry and the batched embed executor on PyTorch.
 
-Counterpart of ``imageclust_tpu/models/registry.py`` for the main path's
-tower: ``resnet50`` (the 1000-d logits the reference reads as its
-embedding, embeddings.go:140, or the 2048-d pooled features). The
-ViT/SigLIP towers and ``quantize="int8"`` are not ported yet and raise
-``NotImplementedError`` (ROADMAP.md queue 1).
+Counterpart of ``imageclust_tpu/models/registry.py``: ``resnet50`` (the
+1000-d logits the reference reads as its embedding, embeddings.go:140, or
+the 2048-d pooled features) and the ViT/SigLIP towers of
+:data:`~.vit.VIT_CONFIGS` (``vit_b32``, ``vit_b16``, ``vit_l14``,
+``vit_l14_336``, ``siglip_so400m``; the projected embedding).
+``quantize="int8"`` is not ported yet and raises ``NotImplementedError``
+(ROADMAP.md queue 1, item 12).
 
-Images arrive as one uint8 BGR (N, H, W, 3) batch. At the input size they
-go straight into the s2d stem (raw uint8, scale and channel flip folded
-into conv0); other sizes take the device resize first. Batches are padded
-to the smallest power of two that covers the job (capped at
-``batch_size``), as the JAX executor does.
+Images arrive as one uint8 BGR (N, H, W, 3) batch. At the input size the
+ResNet50 batch goes straight into the s2d stem (raw uint8, scale and
+channel flip folded into conv0) and a ViT batch is flipped to RGB and
+normalised on the device (JAX ``_embed_fn``); other sizes take the device
+resize first. Batches are padded to the smallest power of two that covers
+the job (capped at ``batch_size``), as the JAX executor does.
 """
 
 from __future__ import annotations
@@ -26,6 +29,11 @@ import torch
 
 from imageclust_tpu_torch.config import EmbedConfig
 from imageclust_tpu_torch.device import resolve_device
+from imageclust_tpu_torch.models.vit import (
+    VIT_CONFIGS,
+    VisionTransformer,
+    load_clip_vision_state_dict,
+)
 from imageclust_tpu_torch.ops.preprocess import preprocess_batch
 
 log = logging.getLogger(__name__)
@@ -58,7 +66,7 @@ class EmbedderSpec:
 
 def list_models() -> list[str]:
     """Towers this port can build."""
-    return ["resnet50"]
+    return ["resnet50", *VIT_CONFIGS]
 
 
 class Embedder:
@@ -69,6 +77,7 @@ class Embedder:
                  pooled: bool = False, weights_loaded: bool = False):
         self.spec = spec
         self.model = model.to(device).eval()
+        self._vit = isinstance(model, VisionTransformer)
         self.batch_size = batch_size
         self.device = device
         self.tag = tag or spec.name  # identity for the embedding cache
@@ -81,36 +90,41 @@ class Embedder:
         the tower, so both packages run the same numbers."""
         from imageclust_tpu_torch.models.convert import (
             resnet50_state_dict_from_flax,
+            vit_state_dict_from_flax,
         )
 
-        sd = resnet50_state_dict_from_flax(
-            variables, stage_layers=self.model.stage_layers,
-            num_classes=self.model.num_classes, fold_bn=self.model.fold_bn)
+        if self._vit:
+            sd = vit_state_dict_from_flax(variables, self.model.cfg)
+        else:
+            sd = resnet50_state_dict_from_flax(
+                variables, stage_layers=self.model.stage_layers,
+                num_classes=self.model.num_classes, fold_bn=self.model.fold_bn)
         self.model.load_state_dict(sd)
         self.model.to(self.device)
 
     @torch.inference_mode()
     def _forward(self, chunk: torch.Tensor) -> torch.Tensor:
         spec = self.spec
-        if chunk.shape[1:3] == (spec.input_size, spec.input_size):
-            if self.model.stem_mode == "s2d_raw":
-                out = self.model(chunk, return_features=True)
-            else:
-                x = chunk.to(torch.float32)
-                if spec.bgr_input:
-                    x = x.flip(-1)
-                mean = torch.tensor(spec.mean, device=x.device)
-                std = torch.tensor(spec.std, device=x.device)
-                x = (x * spec.scale - mean) / std
-                out = self.model(x, return_features=True,
-                                 stem_mode="standard")
+        at_size = chunk.shape[1:3] == (spec.input_size, spec.input_size)
+        if at_size and not self._vit and self.model.stem_mode == "s2d_raw":
+            logits, feats = self.model(chunk, return_features=True)
+            return feats if self.pooled else logits
+        if at_size:  # JAX registry.py:162-168
+            x = chunk.to(torch.float32)
+            if spec.bgr_input:
+                x = x.flip(-1)
+            mean = torch.tensor(spec.mean, device=x.device)
+            std = torch.tensor(spec.std, device=x.device)
+            x = (x * spec.scale - mean) / std
         else:
             x = preprocess_batch(
                 chunk, size=spec.input_size, scale=spec.scale,
                 mean=spec.mean, std=spec.std, bgr_to_rgb=spec.bgr_input,
                 channels_first=False)
-            out = self.model(x, return_features=True, stem_mode="standard")
-        logits, feats = out
+        if self._vit:
+            return self.model(x)
+        logits, feats = self.model(x, return_features=True,
+                                   stem_mode="standard")
         return feats if self.pooled else logits
 
     def _embed_chunks(self, images) -> list[torch.Tensor]:
@@ -222,10 +236,18 @@ class Embedder:
         return (outs[0] if len(outs) == 1 else torch.cat(outs)), 1.0
 
 
-def _weights_tag(cfg: EmbedConfig, seed: int) -> str:
+def _weights_tag(cfg: EmbedConfig, seed: int, checkpoint: str = "") -> str:
     """Embedding-cache identity. The port's random init differs from the JAX
     package's (torch.Generator vs jax.random), so its tag differs too: a
-    shared cache never mixes the two."""
+    shared cache never mixes the two. A loaded ViT ``checkpoint`` is
+    fingerprinted as the JAX package does (its first MiB, size, mtime)."""
+    if checkpoint:
+        h = hashlib.sha256()
+        with open(checkpoint, "rb") as fh:
+            h.update(fh.read(1 << 20))
+        st = os.stat(checkpoint)
+        h.update(str((st.st_size, int(st.st_mtime))).encode())
+        return f"{cfg.model}:{cfg.output}:torch-{h.hexdigest()[:12]}"
     return f"{cfg.model}:{cfg.output}:torch-randominit-{seed}"
 
 
@@ -260,6 +282,56 @@ def _build_resnet50(cfg: EmbedConfig, seed: int):
     return spec, model, pooled
 
 
+def _build_vit(name: str, cfg: EmbedConfig, seed: int):
+    """The ViT/SigLIP tower ``name`` with seeded random init, or the HF
+    CLIP vision checkpoint at ``embed.onnx_path`` when it is a ``.npz``,
+    ``.pt`` or ``.bin`` file (JAX registry.py:499-571). The config's
+    default ``.onnx`` path is skipped quietly; any other path that cannot
+    be loaded is warned about. Returns (spec, model, loaded path or "")."""
+    if cfg.checkpoint_path:
+        raise NotImplementedError(
+            "embed.checkpoint_path (Orbax) is not ported yet (ROADMAP.md "
+            "queue 1, tooling)")
+    vcfg = VIT_CONFIGS[name]
+    model = VisionTransformer(vcfg, dtype=cfg.dtype, norm_dtype=cfg.norm_dtype)
+    model.init_random(seed)
+    ckpt = cfg.onnx_path
+    loaded = ""
+    if ckpt and os.path.exists(ckpt) and ckpt.endswith((".pt", ".bin",
+                                                         ".npz")):
+        # every tensor but an absent projection (kept from the init)
+        model.load_state_dict(_load_vit_checkpoint(ckpt, vcfg), strict=False)
+        loaded = ckpt
+        log.info("loaded ViT checkpoint %s", ckpt)
+    elif ckpt and not ckpt.endswith(".onnx"):
+        # .onnx is the config's resnet-oriented default: skipping it for a
+        # ViT tower is intended; any other path was an explicit ask
+        log.warning(
+            "ViT checkpoint %s not loaded (%s) — using random init "
+            "(torch.Generator seed %d)", ckpt,
+            "file missing" if not os.path.exists(ckpt)
+            else "unsupported extension; want .pt/.bin/.npz", seed)
+    spec = EmbedderSpec(
+        name=name,
+        input_size=vcfg.image_size,
+        dim=vcfg.proj_dim,
+        scale=1.0 / 255.0,
+        mean=vcfg.mean,
+        std=vcfg.std,
+        bgr_input=True,
+    )
+    return spec, model, loaded
+
+
+def _load_vit_checkpoint(path: str, vcfg) -> dict[str, torch.Tensor]:
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            sd = dict(z)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    return load_clip_vision_state_dict(sd, vcfg)
+
+
 def create_embedder(
     cfg: EmbedConfig | None = None,
     *,
@@ -274,20 +346,22 @@ def create_embedder(
     dev = resolve_device(device)
     if cfg.quantize not in ("", "int8"):
         raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
+    if cfg.model not in list_models():
+        raise ValueError(f"unknown model {cfg.model!r}; know {list_models()}")
     if cfg.quantize == "int8":
         raise NotImplementedError(
-            "embed.quantize='int8' is not ported yet (ROADMAP.md queue 1, "
-            "int8 PTQ)")
-    if cfg.model in DEFAULT_BATCH and cfg.model != "resnet50":
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP.md queue 1, "
-            "ViT/SigLIP towers)")
-    if cfg.model != "resnet50":
-        raise ValueError(f"unknown model {cfg.model!r}; know {list_models()}")
-    spec, model, pooled = _build_resnet50(cfg, seed)
+            f"embed.quantize='int8' ({cfg.model}) is not ported yet "
+            "(ROADMAP.md queue 1, item 12: int8 PTQ)")
+    loaded = ""
+    if cfg.model == "resnet50":
+        spec, model, pooled = _build_resnet50(cfg, seed)
+    else:
+        spec, model, loaded = _build_vit(cfg.model, cfg, seed)
+        pooled = False
     batch = cfg.batch_size or DEFAULT_BATCH[cfg.model]
-    emb = Embedder(spec, model, batch, dev, tag=_weights_tag(cfg, seed),
-                   pooled=pooled)
+    emb = Embedder(spec, model, batch, dev,
+                   tag=_weights_tag(cfg, seed, loaded), pooled=pooled,
+                   weights_loaded=bool(loaded))
     if variables is not None:
         emb.load_flax_variables(variables)
         h = hashlib.sha256()

@@ -1,7 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-Every source (each includes ``lexmin.cuh``, the shared lexicographic
-reduce) is compiled by ``nvcc`` for ``sm_90a`` into a position-
+Every source (the merge kernels include ``lexmin.cuh``, the shared
+lexicographic reduce) is compiled by ``nvcc`` for ``sm_90a`` into a position-
 independent object (one ``nvcc`` process per source, all started together)
 and the objects are linked into ``build/kernels/<hash>/libimageclust_kernels.so``
 at the repository root. The sources expose a plain C interface, loaded with
@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
-           "merge_loop_whole.cu")
+           "merge_loop_whole.cu", "short_seq_attention.cu")
 HEADERS = ("lexmin.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -113,6 +113,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ic_merge_loop_whole.argtypes = [
         p, p, p, i, i, i, i, p, p, p, p, p, p]
     lib.ic_merge_loop_whole.restype = ctypes.c_int
+    lib.ic_short_seq_attention.argtypes = [
+        p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    lib.ic_short_seq_attention.restype = i
     return lib
 
 

@@ -173,3 +173,64 @@ def test_bucketed_engine_refuses_k4_domain_on_cuda(cuda, monkeypatch):
     x = np.random.default_rng(6).normal(size=(300, 4)).astype(np.float32)
     with pytest.raises(NotImplementedError, match="K4"):
         sharded.constrained_ward_bucketed(x, bucket_size=64, device=cuda)
+
+
+# -- K5 and the ViT towers ------------------------------------------------------
+
+_K5_TOL = {torch.bfloat16: 0.02, torch.float32: 1e-5}  # test_attention.py
+
+
+@pytest.mark.parametrize("shape", [(64, 50, 12, 64), (7, 128, 16, 64),
+                                   (5, 17, 4, 32), (3, 1, 1, 64),
+                                   (2, 33, 3, 72)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_short_seq_attention_matches_twin(cuda, shape, dtype):
+    from imageclust_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    before = at.launches
+    got = at.short_seq_attention(q, k, v)
+    assert at.launches == before + 1
+    want = at.short_seq_attention_plain(q, k, v)
+    tol = _K5_TOL[dtype]
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_attention_dispatch_on_card(cuda):
+    from imageclust_tpu_torch.ops import attention as at
+
+    q = torch.randn((2, 129, 2, 64), device=cuda, dtype=torch.bfloat16)
+    before = at.launches
+    at.attention(q, q, q)  # T = 129: the plain path
+    assert at.launches == before
+    at.attention(q[:, :128].contiguous(), q[:, :128].contiguous(),
+                 q[:, :128].contiguous())
+    assert at.launches == before + 1
+    with pytest.raises(ValueError):
+        at.short_seq_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_tiny_vit_on_k5_matches_twin(cuda, monkeypatch, dtype):
+    """A tiny tower of the ViT-B/32 shape class (T = 17, Dh = 64) on K5
+    against the same tower with attention swapped for the twin."""
+    from imageclust_tpu_torch.models import vit
+    from imageclust_tpu_torch.ops import attention as at
+
+    cfg = vit.ViTConfig(patch=8, width=256, depth=2, heads=4, proj_dim=32,
+                        image_size=32)
+    model = vit.VisionTransformer(cfg, dtype=dtype, norm_dtype=dtype)
+    model = model.init_random(0).to(cuda).eval()
+    x = torch.randn((16, 32, 32, 3), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    before = at.launches
+    with torch.inference_mode():
+        got = model(x)
+        assert at.launches == before + cfg.depth
+        monkeypatch.setattr(vit, "attention", at.short_seq_attention_plain)
+        want = model(x)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert float(cos.min()) >= (0.999 if dtype == "bfloat16" else 0.99999)

@@ -42,12 +42,13 @@ def test_port_has_modules():
     for mod in ("device.py", "config.py", "pipeline.py", "cli.py",
                 "cluster/ward.py", "cluster/sharded.py",
                 "ops/merge_kernels.py", "ops/bucket_kernels.py",
-                "ops/_build.py",
-                "models/resnet50.py", "models/convert.py",
+                "ops/_build.py", "ops/attention.py",
+                "models/resnet50.py", "models/convert.py", "models/vit.py",
                 "models/registry.py", "service/app.py", "data/loader.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
-                "merge_loop_whole.cu", "lexmin.cuh"):
+                "merge_loop_whole.cu", "short_seq_attention.cu",
+                "lexmin.cuh"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -81,6 +82,11 @@ def test_import_and_cluster_without_jax(tmp_path):
         "b = constrained_ward_bucketed(y, bucket_size=64, device='cpu')\n"
         "assert sum(len(m) for m in b.cluster_map.values()) "
         "+ len(b.dropped) == 300\n"
+        "from imageclust_tpu_torch.models.vit import ViTConfig, "
+        "VisionTransformer\n"
+        "m = VisionTransformer(ViTConfig(patch=8, width=32, depth=1, "
+        "heads=4, proj_dim=8, image_size=16)).init_random(0)\n"
+        "assert m(torch.zeros(2, 16, 16, 3)).shape == (2, 8)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
@@ -114,25 +120,39 @@ def test_resolve_device_turns_tf32_off():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+def test_resolve_device_turns_bf16_reduced_precision_off():
+    """cuBLAS may reduce bf16 products partly in bf16 unless told not to;
+    XLA accumulates the towers' bf16 Dense layers in float32."""
+    from imageclust_tpu_torch.device import resolve_device
+
+    matmul = torch.backends.cuda.matmul
+    matmul.allow_bf16_reduced_precision_reduction = True
+    resolve_device("cpu")
+    assert matmul.allow_bf16_reduced_precision_reduction is False
+
+
 def test_chip_smoke_refuses_without_cuda(tmp_path):
     """Without a card, and outside a checkout, chip_smoke.py exits non-zero
     and prints no result line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
-    for where in (ROOT, tmp_path):
+    for where, args in ((ROOT, []), (tmp_path, []), (ROOT, ["--phases", "11"]),
+                        (ROOT, ["--bogus"])):
         script = where / "chip_smoke.py"
         if where is tmp_path:
             script.write_text((ROOT / "chip_smoke.py").read_text())
-        proc = subprocess.run([sys.executable, str(script)], cwd=where,
+        proc = subprocess.run([sys.executable, str(script), *args], cwd=where,
                               capture_output=True, text=True, env=env,
                               timeout=300)
         assert proc.returncode != 0
-        assert '"ok"' not in proc.stdout
+        assert '"ok"' not in proc.stdout and '"phase"' not in proc.stdout
 
 
 def test_kernel_build_is_lazy():
     """Importing the kernel modules builds nothing and needs no nvcc."""
     code = ("import imageclust_tpu_torch.ops.merge_kernels as mk, "
             "imageclust_tpu_torch.ops.bucket_kernels as bk, "
+            "imageclust_tpu_torch.ops.attention as at, "
+            "imageclust_tpu_torch.models.vit as vit, "
             "imageclust_tpu_torch.cluster.sharded as sh, "
             "imageclust_tpu_torch.ops._build as b\n"
             "assert b._lib is None and b.build_info() == {}\n"
@@ -141,5 +161,5 @@ def test_kernel_build_is_lazy():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
-                "merge_loop_whole.cu"):
+                "merge_loop_whole.cu", "short_seq_attention.cu"):
         assert src in proc.stdout

@@ -211,7 +211,7 @@ class TestErrors:
             create_embedder(EmbedConfig())
 
     @pytest.mark.parametrize("cfg,exc", [
-        (EmbedConfig(model="vit_b32"), NotImplementedError),
+        (EmbedConfig(model="vit_b32", quantize="int8"), NotImplementedError),
         (EmbedConfig(quantize="int8"), NotImplementedError),
         (EmbedConfig(model="nope"), ValueError),
         (EmbedConfig(quantize="fp4"), ValueError)])
