@@ -56,17 +56,33 @@ line and raises on any failure:
     engine on K2), 12 K5 launches per batch of 1024;
 15. ``vit_b16``, ``vit_l14``, ``vit_l14_336`` and ``siglip_so400m`` at full
     width on 256 images each: finite (256, proj_dim) output, no K5 launch
-    (their sequences are longer than 128), images/s.
+    (their sequences are longer than 128), images/s;
+16. K4 (``pref_topk_block``) against its twin on the card: a 2M-row job's
+    summarize pass (2,000,000 x 5209 centroids at d = 512 in bf16 and f32,
+    d = 1024 in int8; every row compared), small shapes, ties
+    across tiles and k = 5 < kk; integer-grid inputs bit-identical, normal
+    inputs equal up to near ties; times of the three dtypes beside their
+    bounds, the twin's and a ``torch.matmul`` + ``torch.topk`` yardstick;
+17. the bucketed engine at n = 2,000,000 (5209 buckets: one K4 launch) on
+    seeded normal features in int8 (d = 1024), bf16 and f32 (d = 512):
+    sizes in [3, 6], no image lost; the int8 run identical to a run with
+    every kernel swapped for its twin, the bf16/f32 assignments' share
+    that matches a twin summarize on the same centroids at least
+    ``ASSIGN_MATCH_FLOOR``;
+18. ``Pipeline.run_stream`` on 1,600,000 images made on the card, with
+    ``embed.model=vit_b32`` and ``cluster.feature_dtype=bfloat16`` (4167
+    buckets): 12 K5 launches a batch, one K4 launch, the naming budget.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
 K = ``FOUND_READ_EVERY`` (the gated no-op steps the merge loop may run
 before its next host read of ``found``). K2: one launch per chunk the
 bucket dispatcher formed. K3: each lockstep phase launches between its
-iterations and its iterations + K - 1 times. The line before the last is
+iterations and its iterations + K - 1 times. K4: one launch per job with
+k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
-phase); the last line is
+phase, K4's from the 1.6M-image ``run_stream``); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -118,6 +134,19 @@ OTHER_TOWER_N = 256     # phase 15: images per tower
 K5_SHAPES = ((1024, 50, 12, 64), (7, 128, 16, 64), (5, 17, 4, 32),
              (3, 1, 1, 64))
 K5_TOL = {"bfloat16": 0.02, "float32": 1e-5}  # tests/test_attention.py
+INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
+# phase 16: K4 at a 2M-row job's summarize pass (k = ceil(2M / 384) buckets),
+# every row held against the twin; then small shapes, ties across tiles
+# (n, k, d, duplicated centroids) and k = 5 < kk
+K4_N, K4_K, K4_KK = 2_000_000, 5209, 8
+K4_SMALL = ((600, 19, 48, False), (16, 384, 128, False),
+            (8, 256, 128, True), (300, 5, 64, False))
+K4_NEAR_TIE = 1e-5  # relative, float64 distances of differing picks
+# phase 17: least share of f32/bf16 k-means assignments equal to a twin
+# summarize's on the same centroids (they may differ only at near ties)
+ASSIGN_MATCH_FLOOR = 0.9999
+ENGINE_2M = 2_000_000    # phase 17: 5209 buckets, the K4 path
+STREAM_BIG_N = 1_600_000  # phase 18: 4167 buckets (>= 4096 from 1,572,864)
 
 
 def emit(obj) -> None:
@@ -608,8 +637,10 @@ def _zero_counters():
     from imageclust_tpu_torch.ops import attention as at
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops import pref_kernels as pk
 
     mk.launches = mk.batched_launches = bk.launches = at.launches = 0
+    pk.launches = 0
     sharded.chunks_dispatched = 0
     sharded.lockstep_iterations = sharded.lockstep_phases = 0
 
@@ -619,19 +650,24 @@ def _counters() -> dict:
     from imageclust_tpu_torch.ops import attention as at
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops import pref_kernels as pk
 
     return {"k1": mk.launches, "k2": bk.launches, "k3": mk.batched_launches,
-            "k5": at.launches,
+            "k4": pk.launches, "k5": at.launches,
             "chunks": sharded.chunks_dispatched,
             "lockstep_iterations": sharded.lockstep_iterations,
             "lockstep_phases": sharded.lockstep_phases}
 
 
-def _check_scale_launches(what: str, c: dict, rule: str) -> None:
+def _check_scale_launches(what: str, c: dict, rule: str,
+                          k4: int = 0) -> None:
     """K2: one launch per chunk. K3: each lockstep phase launches between
-    its iterations and its iterations + K - 1 times."""
+    its iterations and its iterations + K - 1 times. K4: ``k4`` launches
+    (one summarize pass at k >= 4096 buckets, none below)."""
     from imageclust_tpu_torch.cluster.ward import FOUND_READ_EVERY
 
+    if c["k4"] != k4:
+        raise AssertionError(f"{what}: {c['k4']} K4 launches, want {k4}")
     if rule == "lance_williams":
         ok = c["k2"] == c["chunks"] > 0 and c["k3"] == 0
     else:
@@ -834,19 +870,23 @@ def phase_k2(card: str):
 
 @contextlib.contextmanager
 def _twins():
-    """The bucketed engine with K2 and K3 swapped for their plain twins on
-    the card, to hold the kernel run against."""
+    """The bucketed engine with K2, K3 and K4 swapped for their plain twins
+    on the card, to hold the kernel run against."""
     from imageclust_tpu_torch.cluster import sharded
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops import pref_kernels as pk
 
-    saved = sharded.merge_loop_whole, sharded.merge_update_argmin_batched
+    saved = (sharded.merge_loop_whole, sharded.merge_update_argmin_batched,
+             sharded.pref_topk_block)
     sharded.merge_loop_whole = bk.merge_loop_whole_plain
     sharded.merge_update_argmin_batched = mk.merge_update_argmin_batched_plain
+    sharded.pref_topk_block = pk.pref_topk_block_plain
     try:
         yield
     finally:
-        sharded.merge_loop_whole, sharded.merge_update_argmin_batched = saved
+        (sharded.merge_loop_whole, sharded.merge_update_argmin_batched,
+         sharded.pref_topk_block) = saved
 
 
 def _check_columnar(what: str, res, n: int, lo: int = 3, hi: int = 6):
@@ -1190,17 +1230,310 @@ def phase_other_towers(card: str):
           "dtype": "bfloat16", "towers": towers})
 
 
+# -- the large-k path: K4 and bf16/int8 residency (phases 16-18) --------------
+
+def _k4_inputs(gen, n, k, d, dtype, grid):
+    """(rows, cents) on the card: integer-grid values (every product and
+    sum exact in f32: |v| <= 8 for f32/bf16, the whole int8 range) or
+    normal ones."""
+    import torch
+
+    if grid:
+        hi = 127 if dtype == torch.int8 else 8
+        return tuple(torch.randint(-hi, hi + 1, (m, d), generator=gen,
+                                   device=DEVICE, dtype=torch.int16).to(dtype)
+                     for m in (n, k))
+    return tuple(torch.randn((m, d), generator=gen, device=DEVICE).to(dtype)
+                 for m in (n, k))
+
+
+def _dist64(x, c, idx):
+    """(m, kk) float64 squared distances of the rows of x to the centroids
+    idx picks, from the stored values, in row chunks."""
+    import torch
+
+    out = []
+    for s in range(0, x.shape[0], 8192):
+        xs = x[s:s + 8192].double()
+        cs = c[idx[s:s + 8192].long()].double()
+        out.append(((xs[:, None, :] - cs) ** 2).sum(-1))
+    return torch.cat(out)
+
+
+def _k4_compare(x, c, kk: int, exact: bool):
+    """K4 on all rows of x against its twin: bit-identical when ``exact``,
+    else the picks may differ only at near ties (float64 distances of the
+    two picks, on the rows where they differ, within K4_NEAR_TIE relative).
+    Returns the case's record."""
+    import torch
+
+    from imageclust_tpu_torch.ops import pref_kernels as pk
+
+    cn = pk.row_norms(c)
+    before = pk.launches
+    gi, gv = pk.pref_topk_block(x, c, cn, kk)
+    torch.cuda.synchronize()
+    if pk.launches != before + 1:
+        raise AssertionError("K4 call did not count one launch")
+    m = x.shape[0]
+    wi, wv = pk.pref_topk_block_plain(x, c, cn, kk)
+    k = c.shape[0]
+    if not (gi.shape == (m, kk) and bool(((gi >= 0) & (gi < k)).all())
+            and bool((torch.diff(gv, dim=1) >= 0).all())):
+        raise AssertionError(f"K4 output malformed at {tuple(x.shape)}, k={k}")
+    picks = (gi == wi).all(1)
+    bits = picks & (gv.view(torch.int32) == wv.view(torch.int32)).all(1)
+    share = float(bits.float().mean())
+    err = float((gv - wv).abs().max())
+    what = f"K4 at n={x.shape[0]} k={k} d={x.shape[1]} {x.dtype}"
+    if exact and share != 1.0:
+        raise AssertionError(f"{what}: {1 - share:.3g} of rows differ from "
+                             "the twin on integer data")
+    if not exact:
+        rel = 0.0
+        rows = torch.nonzero(~picks)[:, 0]
+        if len(rows):
+            dk = _dist64(x[rows], c, gi[rows])
+            dw = _dist64(x[rows], c, wi[rows])
+            rel = float(((dk - dw).abs() / dw.clamp_min(1.0)).max())
+        if rel > K4_NEAR_TIE or not torch.allclose(gv, wv, rtol=K4_NEAR_TIE,
+                                                   atol=K4_NEAR_TIE):
+            raise AssertionError(f"{what}: picks differ beyond a near tie "
+                                 f"(rel {rel:.3g}, max abs err {err:.3g})")
+    return {"n": x.shape[0], "k": k, "d": x.shape[1],
+            "dtype": str(x.dtype).split(".")[-1], "kk": kk,
+            "data": "integer grid" if exact else "normal",
+            "rows_compared": m, "identical_row_share": share,
+            "same_picks_row_share": float(picks.float().mean()),
+            "max_abs_err": err}
+
+
+def _k4_bound(n, k, d, dtype, kk=8):
+    """(bound ms, bound_by, bytes, ops): rows, cents and norms read once,
+    the outputs written once; 2 n k d operations at the dtype's peak."""
+    import torch
+
+    es = {torch.float32: 4, torch.bfloat16: 2, torch.int8: 1}[dtype]
+    rate = {torch.float32: FP32_OPS_PER_S, torch.bfloat16: BF16_OPS_PER_S,
+            torch.int8: INT8_OPS_PER_S}[dtype]
+    bytes_moved = (n + k) * d * es + (n + k) * 4 + n * kk * 8
+    ops = 2 * n * k * d
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
+    return (max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms
+            else "bytes", bytes_moved, ops)
+
+
+def phase_k4(card: str):
+    import torch
+
+    from imageclust_tpu_torch.ops import pref_kernels as pk
+
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    dts = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "int8": torch.int8}
+    cases = []
+    for n, k, d, dup in K4_SMALL:
+        for name, dt in dts.items():
+            for grid in (True, False) if dt != torch.int8 else (True,):
+                x, c = _k4_inputs(gen, n, k, d, dt, grid)
+                if dup:  # the second half repeats the first: ties across tiles
+                    c = torch.cat([c[:k // 2], c[:k // 2]])
+                cases.append(_k4_compare(x, c, min(K4_KK, k), grid))
+    for name, d in (("bfloat16", 512), ("float32", 512), ("int8", 1024)):
+        for grid in (True, False) if name != "int8" else (True,):
+            x, c = _k4_inputs(gen, K4_N, K4_K, d, dts[name], grid)
+            cases.append(_k4_compare(x, c, K4_KK, grid))
+            del x, c
+    max_err = max(cs["max_abs_err"] for cs in cases
+                  if cs["data"] == "integer grid")
+    emit({"phase": "k4_parity", "cases": cases,
+          "parity": "bit-identical on integer grids; normal data: picks "
+                    f"equal up to near ties ({K4_NEAR_TIE} relative in "
+                    "float64)", "max_abs_err": max_err})
+
+    times = {}
+    for name, d in (("bfloat16", 512), ("int8", 1024), ("float32", 512)):
+        dt = dts[name]
+        x, c = _k4_inputs(gen, K4_N, K4_K, d, dt, dt == torch.int8)
+        cn = pk.row_norms(c)
+        call = lambda: pk.pref_topk_block(x, c, cn, K4_KK)  # noqa: E731
+        call_ms = cuda_ms(call, 3, 1)
+        dev_ms = device_ms(call, ("pref_topk_kernel",), 3)
+        bound_ms, bound_by, bytes_moved, ops = _k4_bound(K4_N, K4_K, d, dt)
+        rec = {"dtype": name, "n": K4_N, "k": K4_K, "d": d,
+               "device_ms": dev_ms, "call_ms": call_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "bytes": bytes_moved, "ops": ops}
+        if name == "bfloat16":
+            rec["plain_ms"] = cuda_ms(
+                lambda: pk.pref_topk_block_plain(x, c, cn, K4_KK), 1, 1)
+            ct = c.T.contiguous()
+
+            def two_calls():  # context only: no one PyTorch call is K4
+                for s in range(0, K4_N, 1 << 18):
+                    torch.topk(torch.matmul(x[s:s + (1 << 18)], ct), K4_KK,
+                               dim=1)
+            rec["matmul_topk_ms"] = cuda_ms(two_calls, 1, 1)
+        times[name] = rec
+        emit({"phase": "k4_time", "card": card, **rec,
+              "timing": "call_ms: CUDA events around one call, median of 3 "
+                        "warm calls; device_ms: torch.profiler kernel time, "
+                        "mean of 3; plain_ms: the twin, one warm call; "
+                        "matmul_topk_ms: torch.matmul (bf16) + torch.topk(8) "
+                        "over 2^18-row chunks, one warm call, context only"})
+        del x, c, cn
+        torch.cuda.empty_cache()
+    t = times["bfloat16"]
+    return max_err, {"ms": t["device_ms"] or t["call_ms"],
+                     "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                     "matmul_topk_ms": t["matmul_topk_ms"],
+                     "int8_ms": (times["int8"]["device_ms"]
+                                 or times["int8"]["call_ms"]),
+                     "float32_ms": (times["float32"]["device_ms"]
+                                    or times["float32"]["call_ms"])}
+
+
+def phase_engine_2m(card: str):
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.cluster import constrained_ward_bucketed
+    from imageclust_tpu_torch.cluster import sharded
+
+    os.environ["IMAGECLUST_CLUSTER_PROFILE"] = "1"
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    k4 = {}
+    for fd, d in (("int8", 1024), ("bfloat16", 512), ("float32", 512)):
+        x = torch.randn((ENGINE_2M, d), generator=gen, device=DEVICE)
+        kw = dict(min_size=3, max_size=6, feature_dtype=fd, device=DEVICE)
+        _zero_counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = constrained_ward_bucketed(x, **kw)
+        wall_s = time.perf_counter() - t0
+        c = _counters()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        _check_scale_launches(f"engine 2M {fd}", c, "lance_williams", k4=1)
+        k4[fd] = c["k4"]
+        sizes = _check_columnar(f"engine 2M {fd}", res, ENGINE_2M)
+        rec = {"phase": "bucketed_engine_2m", "card": card, "n": ENGINE_2M,
+               "d": d, "feature_dtype": fd, "wall_s": wall_s,
+               "phases_s": res.phases_s, "host_paths": res.host_paths,
+               "buckets": res.n_buckets, "clusters": int(len(sizes)),
+               "dropped": len(res._dropped_idx),
+               "merges": int(len(res.merges)),
+               "size_histogram": np.bincount(sizes).tolist(),
+               "peak_device_gb": peak_gb, "launches": c}
+        if fd == "int8":
+            # on the int8 grid all of K4's arithmetic is exact: the run with
+            # every kernel swapped for its twin must be the same run
+            with _twins():
+                t0 = time.perf_counter()
+                ref = constrained_ward_bucketed(x, **kw)
+                rec["twin_wall_s"] = time.perf_counter() - t0
+            if not (np.array_equal(res.merges, ref.merges)
+                    and np.array_equal(res._members, ref._members)
+                    and np.array_equal(res._offsets, ref._offsets)
+                    and list(res._dropped_idx) == list(ref._dropped_idx)):
+                raise AssertionError("engine 2M int8: kernel run != twin run")
+            rec["identical_to_twin_run"] = True
+        else:
+            # the summarize pass against its twin on the same centroids
+            feats = x.to(torch.bfloat16) if fd == "bfloat16" else x
+            k = -(-ENGINE_2M // 384)
+            cents = sharded.kmeans(feats, k, summarize_fused=True)[0]
+            a_k = sharded._kmeans_summarize_fused(feats, cents, 8, True)[0]
+            with _twins():
+                a_t = sharded._kmeans_summarize_fused(feats, cents, 8,
+                                                      True)[0]
+            share = float((a_k == a_t).float().mean())
+            rec["assign_match_share"] = share
+            if share < ASSIGN_MATCH_FLOOR:
+                raise AssertionError(f"engine 2M {fd}: K4's assignments match "
+                                     f"the twin's on {share:.6f} of items")
+            del feats, cents
+        emit(rec)
+        del x, res
+        torch.cuda.empty_cache()
+    del os.environ["IMAGECLUST_CLUSTER_PROFILE"]
+    return k4
+
+
+def phase_stream_big(card: str):
+    import torch
+
+    from imageclust_tpu_torch.config import (
+        AppConfig,
+        ClusterConfig,
+        EmbedConfig,
+        LabelConfig,
+    )
+    from imageclust_tpu_torch.pipeline import Pipeline
+
+    gen = torch.Generator(device=DEVICE).manual_seed(18)
+    dev = torch.device(DEVICE)
+    n = STREAM_BIG_N
+    bases = torch.randint(0, 256, (n // 4 + 1, 3), generator=gen, device=dev)
+
+    def chunks(batch):
+        for s in range(0, n, batch):
+            e = min(s + batch, n)
+            g = torch.arange(s, e, device=dev) // 4
+            noise = torch.randint(0, 21, (e - s, 224, 224, 3), generator=gen,
+                                  device=dev, dtype=torch.int16)
+            img = bases[g][:, None, None, :] - 10 + noise
+            yield img.clamp(0, 255).to(torch.uint8)
+
+    cfg = AppConfig(labels=LabelConfig(backend="none"),
+                    embed=EmbedConfig(model="vit_b32"),
+                    cluster=ClusterConfig(feature_dtype="bfloat16"))
+    work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_big_"))
+    try:
+        pipeline = Pipeline(cfg, device=DEVICE)
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = pipeline.run_stream(chunks(pipeline.embedder.batch_size), n,
+                                  str(work))
+        wall_s = time.perf_counter() - t0
+        c = _counters()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    _check_scale_launches("run_stream 1.6M", c, "lance_williams", k4=1)
+    batches = -(-n // pipeline.embedder.batch_size)
+    if c["k5"] != VIT_B32_DEPTH * batches:
+        raise AssertionError(f"run_stream 1.6M: {c['k5']} K5 launches for "
+                             f"{batches} batches")
+    sizes = [len(d.images) for d in res.clusters.values()]
+    if not all(3 <= s <= 6 for s in sizes):
+        raise AssertionError("run_stream 1.6M: cluster sizes out of bounds")
+    if sum(sizes) + len(res.dropped) != n:
+        raise AssertionError("run_stream 1.6M: images lost")
+    metrics = res.metrics.to_dict()
+    emit({"phase": "run_stream_big", "card": card, "images": n,
+          "model": "vit_b32", "feature_dtype": "bfloat16",
+          "wall_s": wall_s, "stages_s": metrics["stages_s"],
+          "embed_images_per_s": metrics.get("images_per_sec_embed"),
+          "clusters": len(sizes), "dropped": len(res.dropped),
+          "naming_skipped": metrics["counters"].get("naming_skipped", 0),
+          "launches": c})
+    return c
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
     10: phase_stream, 11: phase_k5, 12: phase_vit_tower,
     13: lambda card: phase_server(card, "vit_b32"),
     14: lambda card: phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32"),
-    15: phase_other_towers,
+    15: phase_other_towers, 16: phase_k4, 17: phase_engine_2m,
+    18: phase_stream_big,
 }
 
 
 def main(argv: list[str] | None = None) -> int:
+    t_start = time.perf_counter()
     args = sys.argv[1:] if argv is None else argv
     # development runs: `chip_smoke.py --phases 11,12` drives only those
     # phases after the build; the full run takes no arguments
@@ -1232,20 +1565,33 @@ def main(argv: list[str] | None = None) -> int:
         for n in only:
             PHASES[n](card)
         return 0
-    max_err, timings = phase_k1(card)
-    phase_engine(card)
-    launches = phase_server(card)["k1"]
-    phase_cli(card)
-    k3_err, k3_t = phase_k3(card)
-    k2_err, k2_t = phase_k2(card)
-    big_launches = phase_engine_100k(card)
-    phase_cli_big(card)
-    phase_stream(card)
-    k5_err, k5_t = phase_k5(card)
-    phase_vit_tower(card)
-    vit_launches = phase_server(card, "vit_b32")["k5"]
-    phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32")
-    phase_other_towers(card)
+    walls = {1: time.perf_counter() - t_start}  # start-up and the build
+
+    def run(n: int):
+        t0 = time.perf_counter()
+        out = PHASES[n](card)
+        walls[n] = time.perf_counter() - t0
+        return out
+
+    max_err, timings = run(2)
+    run(3)
+    launches = run(4)["k1"]
+    run(5)
+    k3_err, k3_t = run(6)
+    k2_err, k2_t = run(7)
+    big_launches = run(8)
+    run(9)
+    run(10)
+    k5_err, k5_t = run(11)
+    run(12)
+    vit_launches = run(13)["k5"]
+    run(14)
+    run(15)
+    k4_err, k4_t = run(16)
+    run(17)
+    k4_launches = run(18)["k4"]
+    emit({"phase": "wall_times", "phases_s": walls,
+          "script_s": time.perf_counter() - t_start})
     t = timings[4096]
     emit({"kernels": [{
         "name": "merge_update_argmin",
@@ -1294,6 +1640,18 @@ def main(argv: list[str] | None = None) -> int:
         **k5_t,
         "shape": "B=1024, T=50, H=12, Dh=64 bf16 (ViT-B/32 at batch 1024)",
         "parity": "tolerance",
+    }, {
+        "name": "pref_topk_block",
+        "route": "cuda",
+        "source": "imageclust_tpu_torch/csrc/pref_topk_block.cu",
+        "replaces": "imageclust_tpu/ops/pallas_kernels.py:629",
+        "launches": k4_launches,
+        "max_abs_err": k4_err,
+        **k4_t,
+        "library_ms": None,
+        "shape": "n=2,000,000, k=5209, d=512 bf16, kk=8 (a 2M job's "
+                 "summarize pass)",
+        "parity": "bit-identical on integer grids",
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,21 @@ the same observable semantics:
 
 1. **Bucketing.** A few Lloyd iterations of k-means over the embeddings
    (distances as matmuls over (block, k) tiles, centroid sums as one-hot
-   matmuls so they add in a fixed order), then a host-side capacity repair
-   so every bucket holds between ``min_size`` and ``bucket_size`` items.
-   Only per-item summaries (assigned bucket, rank in it, preference rows of
-   the items repair can read) leave the device.
+   matmuls so they add in a fixed order), one full-data summarize pass
+   (assignment, own distance, each item's 8 nearest buckets), then a
+   host-side capacity repair so every bucket holds between ``min_size``
+   and ``bucket_size`` items. Only per-item summaries (assigned bucket,
+   rank in it, preference rows of the items repair can read) leave the
+   device. On CUDA at k >= ``_PREF_FUSED_MIN_K`` buckets the summarize pass
+   is one launch of the fused preference kernel K4
+   (:func:`imageclust_tpu_torch.ops.pref_kernels.pref_topk_block`); below
+   that, and on the CPU (as the JAX package off a TPU), it runs (block, k)
+   distance tiles and a stable sort. Above ``_PREF_NEED_ONLY_MIN_WORK``
+   (n * k) off the K4 path, the summarize pass skips the preferences and
+   repair computes them for the items it can read only (need-only mode).
+   On the card, where that means k < 4096, it needs 4096+ items a bucket,
+   more than K2/K3 take, so only the CPU reaches the mode (from about 5M
+   images at the default bucket size), as in the JAX package off a TPU.
 2. **Per-bucket exact Ward.** The buckets' rows are gathered on the device,
    chunk by chunk, into (C, B, B) Ward matrices, and every bucket runs the
    reference's merge loop (same tie-breaks, same maxSize mask) followed by
@@ -25,11 +36,19 @@ the same observable semantics:
    clusters still under ``min_size`` spill into the nearest cluster with
    room, first inside their bucket, then anywhere.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP.md): the
-device mesh, bf16/int8 feature residency, the need-only preference mode
-(n * k >= 2**36) and, on CUDA, k >= 4096 buckets (the fused preference
-kernel K4's domain). On the CPU, k >= 4096 runs the tile path, as the JAX
-package does off a TPU.
+Feature residency (``feature_dtype``): float32, bfloat16 (the resident
+matrix rounded once; grams from exact upcasts, accumulated in f32) or int8
+(quantized once to a symmetric per-tensor grid whose scale is discarded, or
+an int8 input used as is; exact integer grams). Spill centroids live in the
+residency dtype (int8 rounded back onto the grid) and, off float32, are
+rebuilt each round from an on-device member table.
+
+Not ported: the device mesh (raises ``NotImplementedError`` naming
+ROADMAP.md) and ``_device_spill_place``. The JAX package's
+``IMAGECLUST_SUMMARIZE_FUSED`` and ``IMAGECLUST_PREF_FUSED`` switches are
+not ported either: on the card they swap K4 for the tile path, which the
+port's runtime rules forbid. Nor is ``IMAGECLUST_PREF_NEED_ONLY``: the mode
+follows from the job's size alone.
 
 The k-means seeding draws from ``torch.Generator(seed)``, not ``jax.random``,
 so the port's buckets differ from the JAX package's for the same seed; the
@@ -62,6 +81,12 @@ from imageclust_tpu_torch.device import resolve_device
 from imageclust_tpu_torch.ops.bucket_kernels import merge_loop_whole
 from imageclust_tpu_torch.ops.merge_kernels import (
     merge_update_argmin_batched,
+)
+from imageclust_tpu_torch.ops.pref_kernels import (
+    gram,
+    pref_topk_block,
+    row_norms,
+    to_grid,
 )
 
 __all__ = ["constrained_ward_bucketed", "kmeans"]
@@ -104,11 +129,11 @@ class _PhaseTimer:
 
 _TOP_PREF = 8  # per-item bucket preferences exported to the host
 
-# need-only preference computation above this n * n_buckets product (not
-# ported: NotImplementedError)
+# need-only preferences (repair computes rows for its need-set only) above
+# this n * n_buckets product, off the K4 path (sharded.py:2629-2660)
 _PREF_NEED_ONLY_MIN_WORK = 1 << 36
 
-# fused preference kernel K4 runs at k >= this many buckets (not ported)
+# on CUDA the summarize pass is one K4 launch at k >= this many buckets
 _PREF_FUSED_MIN_K = 4096
 
 _KMEANS_BLOCK = 1 << 16  # rows per assignment block
@@ -126,23 +151,53 @@ def _sqdist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """(m, k) squared distances: max(|x|^2 + |y|^2 - 2 x.y, 0) in f32."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
-    xx = torch.sum(x * x, dim=1)[:, None]
-    yy = torch.sum(y * y, dim=1)[None, :]
+    xx = row_norms(x)[:, None]
+    yy = row_norms(y)[None, :]
     g = torch.matmul(x, y.T)
     return torch.clamp_min(xx + yy - 2.0 * g, 0.0)
 
 
 def _sqdist_tile(rows: torch.Tensor, cents: torch.Tensor,
                  cent_norms: torch.Tensor | None = None) -> torch.Tensor:
-    """(block, k) squared distances for bucket assignment, f32 features.
-    ``cent_norms`` (precomputed (k,) squared norms of ``cents``) skips the
-    per-tile norm pass with the same values."""
+    """(block, k) squared distances for bucket assignment
+    (sharded.py:128-182). ``cent_norms`` (precomputed (k,) squared norms of
+    the stored centroids) skips the per-tile norm pass with the same values.
+
+    int8 rows: centroids round onto the grid and the gram is exact integer
+    arithmetic. bf16 rows: centroids round to bf16, norms come from the
+    rounded values, the gram accumulates exact products in f32. f32 rows
+    keep the f32 path."""
+    if rows.dtype in (torch.int8, torch.bfloat16):
+        if rows.dtype == torch.int8:
+            c = cents if cents.dtype == torch.int8 else to_grid(cents)
+        else:
+            c = cents.to(torch.bfloat16)
+        xx = row_norms(rows)[:, None]
+        yy = (cent_norms if cent_norms is not None else row_norms(c))[None, :]
+        return torch.clamp_min(xx + yy - 2.0 * gram(rows, c), 0.0)
     if cent_norms is None:
         return _sqdist(rows, cents)
     x = rows.to(torch.float32)
-    xx = torch.sum(x * x, dim=1)[:, None]
+    xx = row_norms(x)[:, None]
     g = torch.matmul(x, cents.to(torch.float32).T)
     return torch.clamp_min(xx + cent_norms[None, :] - 2.0 * g, 0.0)
+
+
+def _feat_int8(x: torch.Tensor) -> torch.Tensor:
+    """One-time symmetric per-tensor int8 quantization (sharded.py:185-194):
+    scale = absmax / 127, then round(x / max(scale, 1e-30)) clipped to
+    [-127, 127]. The scale is discarded (Ward's merge order does not depend
+    on a global scale). Row blocks bound the f32 temporaries."""
+    block = _KMEANS_BLOCK
+    amax = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s, e in _blocks(x.shape[0], block):
+        amax = torch.maximum(amax, torch.amax(torch.abs(
+            x[s:e].to(torch.float32))))
+    scale = torch.clamp_min(amax / 127.0, 1e-30)
+    out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    for s, e in _blocks(x.shape[0], block):
+        out[s:e] = to_grid(x[s:e], scale)
+    return out
 
 
 def _generator(seed: int) -> torch.Generator:
@@ -168,19 +223,22 @@ def _blocks(n: int, block: int):
 
 def _kmeans_iter(x: torch.Tensor, cents: torch.Tensor, k: int,
                  block: int) -> torch.Tensor:
-    """One Lloyd iteration. Centroid sums are one-hot matmuls, block by
-    block (sharded.py:232-239): a fixed order of additions, so the result
-    is the same on every run (an atomic scatter-add would not be)."""
+    """One Lloyd iteration (sharded.py:204-252) at the residency of ``x``:
+    distances by :func:`_sqdist_tile`, centroid sums as one-hot matmuls,
+    block by block: a fixed order of additions, so the result is the same
+    on every run (an atomic scatter-add would not be). The block sums are
+    f32 products of exact upcasts; on the int8 grid each is an exact
+    integer (at most 65,536 * 127 < 2**24), as JAX's int32 sums are."""
     d = x.shape[1]
     dev = x.device
     sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
     counts = torch.zeros(k, dtype=torch.float32, device=dev)
     for s, e in _blocks(x.shape[0], block):
-        rows = x[s:e].to(torch.float32)
+        rows = x[s:e]
         assign = torch.argmin(_sqdist_tile(rows, cents), dim=1)
         onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
         counts = counts + torch.sum(onehot, dim=0)
-        sums = sums + torch.matmul(onehot.T, rows)
+        sums = sums + torch.matmul(onehot.T, rows.to(torch.float32))
     new = sums / torch.clamp_min(counts, 1.0)[:, None]
     return torch.where(counts[:, None] > 0, new, cents)
 
@@ -189,16 +247,65 @@ def _kmeans_summarize(x: torch.Tensor, cents: torch.Tensor, kk: int,
                       block: int):
     """Full-data pass: per-item assignment, own-centroid distance and the
     (n, kk) preference matrix (nearest buckets first, ties by ascending
-    bucket index, as ``lax.top_k`` orders them: a stable sort)."""
+    bucket index, as ``lax.top_k`` orders them: a stable sort). ``kk=0`` is
+    the need-only mode: no preference matrix (None)."""
     assign, own, pref = [], [], []
     for s, e in _blocks(x.shape[0], block):
         d2 = _sqdist_tile(x[s:e], cents)
         a = torch.argmin(d2, dim=1)
         assign.append(a)
         own.append(torch.gather(d2, 1, a[:, None])[:, 0])
-        pref.append(torch.sort(d2, dim=1, stable=True)[1][:, :kk])
+        if kk:
+            pref.append(torch.sort(d2, dim=1, stable=True)[1][:, :kk])
     return (torch.cat(assign).to(torch.int32), torch.cat(own),
-            torch.cat(pref).to(torch.int32))
+            torch.cat(pref).to(torch.int32) if kk else None)
+
+
+def _pref_need_rows(x: torch.Tensor, cents: torch.Tensor, idx: torch.Tensor,
+                    kk: int, block: int, as_u16: bool):
+    """(m, kk) bucket preferences of the rows ``idx`` (sharded.py:313-343):
+    the same centroids, :func:`_sqdist_tile` dtype path and tile height as
+    the summarize pass for this k, one (block, k) tile at a time. int16
+    bits of the uint16 values when ``as_u16`` (see :func:`_rank_u16`)."""
+    prefs = [torch.sort(_sqdist_tile(x[idx[s:s + block]], cents), dim=1,
+                        stable=True)[1][:, :kk]
+             for s in range(0, idx.shape[0], block)]
+    out = torch.cat(prefs).to(torch.int32) if prefs else torch.zeros(
+        (0, kk), dtype=torch.int32, device=x.device)
+    return _rank_u16(out) if as_u16 else out
+
+
+def _use_summarize_fused(device: torch.device, k: int) -> bool:
+    """Whether the summarize pass is one K4 launch (sharded.py:387-399): on
+    CUDA at k >= ``_PREF_FUSED_MIN_K``. The CPU takes the tile path, as the
+    JAX package does off a TPU."""
+    return device.type == "cuda" and k >= _PREF_FUSED_MIN_K
+
+
+def _fused_cast_cents(x_dtype: torch.dtype, cents: torch.Tensor):
+    """Centroids in the residency's compute dtype and the f32 squared norms
+    of those stored values (sharded.py:366-384; no padding: K4 checks its
+    bounds)."""
+    if x_dtype == torch.int8:
+        c = to_grid(cents)
+    elif x_dtype == torch.bfloat16:
+        c = cents.to(torch.bfloat16)
+    else:
+        c = cents.to(torch.float32)
+    return c.contiguous(), row_norms(c)
+
+
+def _kmeans_summarize_fused(x: torch.Tensor, cents: torch.Tensor, kk: int,
+                            as_u16: bool):
+    """The summarize pass in one K4 call over all n rows (sharded.py:
+    402-451, whose 512-row scan the kernel's grid replaces): assignment =
+    nearest centroid, own distance = its score, preferences = the (n, kk)
+    index block (int16 bits of the uint16 values when ``as_u16``). Same
+    score expression and tie rule as :func:`_sqdist_tile` + argmin."""
+    c, cn = _fused_cast_cents(x.dtype, cents)
+    idx, vals = pref_topk_block(x, c, cn, kk)
+    return (idx[:, 0].contiguous(), vals[:, 0].contiguous(),
+            _rank_u16(idx) if as_u16 else idx)
 
 
 # Lloyd fit on a subsample of fit_per_center * k rows above this n
@@ -208,10 +315,15 @@ _KMEANS_SUBSAMPLE_MIN_N = 1 << 20
 
 def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
            top_k: int = _TOP_PREF, block: int = _KMEANS_BLOCK,
-           fit_per_center: int = _KMEANS_FIT_PER_CENTER):
-    """Lloyd's k-means on ``x``'s device, block by block over rows.
-    Returns (centroids (k, d) f32, assign (n,) int32, own_d (n,) f32,
-    top_pref (n, min(top_k, k)) int32)."""
+           fit_per_center: int = _KMEANS_FIT_PER_CENTER,
+           summarize_fused: bool = False):
+    """Lloyd's k-means on ``x``'s device, block by block over rows, at the
+    residency of ``x`` (f32, bf16 or int8). Returns (centroids (k, d) f32,
+    assign (n,) int32, own_d (n,) f32, top_pref (n, min(top_k, k))).
+    ``top_k=0`` is the need-only mode (top_pref None). With
+    ``summarize_fused`` the full-data pass is :func:`pref_topk_block` (K4 on
+    CUDA, its twin on the CPU) and top_pref comes back as int16 bits of
+    uint16 values when bucket ids fit."""
     n_real = x.shape[0]
     fit_x = x
     m = fit_per_center * k
@@ -224,6 +336,10 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
         cents = _kmeans_iter(fit_x, cents, k, fit_block)
     del fit_x
     kk = min(top_k, k)
+    if summarize_fused and kk:
+        assign, own_d, top_pref = _kmeans_summarize_fused(
+            x, cents, kk, as_u16=k <= np.iinfo(np.uint16).max + 1)
+        return cents, assign, own_d, top_pref
     block = _kmeans_block(n_real, k, block)
     assign, own_d, top_pref = _kmeans_summarize(x, cents, kk, block)
     return cents, assign, own_d, top_pref
@@ -771,13 +887,22 @@ class _SparsePrefs:
 
 
 def _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets: int,
-                           capacity: int, min_size: int) -> list:
-    """Capacity repair with device-side summaries (sharded.py:1686-1885,
-    full-preference mode): placement-identical to :func:`_repair_buckets`,
-    but only assign, rank (16 bits when buckets hold < 64k items) and the
-    preference rows repair can read cross to the host. Rows for the initial
-    spill set plus the initial under-min membership cover every read
-    (:class:`_SparsePrefs` asserts it)."""
+                           capacity: int, min_size: int, feats=None,
+                           cents=None, top_k: int = _TOP_PREF) -> list:
+    """Capacity repair with device-side summaries (sharded.py:1686-1885):
+    placement-identical to :func:`_repair_buckets`, but only assign, rank
+    (16 bits when buckets hold < 64k items) and the preference rows repair
+    can read cross to the host. Rows for the initial spill set plus the
+    initial under-min membership cover every read (:class:`_SparsePrefs`
+    asserts it).
+
+    ``pref_d=None`` is the need-only mode (pass ``feats`` and ``cents``):
+    the preference rows of exactly the need-set are computed here by
+    :func:`_pref_need_rows`, with the summarize pass's tile geometry."""
+    if pref_d is None and (feats is None or cents is None):
+        raise ValueError(
+            "_repair_buckets_device: need-only mode (pref_d=None) requires "
+            "feats and cents")
     n = int(assign_d.shape[0])
     counts_d, rank_d, need_d, m_d = _repair_summaries(
         assign_d, own_d_d, n_buckets, capacity, min_size)
@@ -790,7 +915,11 @@ def _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets: int,
         len(counts0) and counts0.max() <= np.iinfo(np.uint16).max
     ) else rank_d
     rows_d = None
-    if m:
+    if m and pref_d is None:
+        rows_d = _pref_need_rows(
+            feats, cents, _need_idx(need_d), min(top_k, n_buckets),
+            _kmeans_block(n, n_buckets, _KMEANS_BLOCK), as_u16)
+    elif m:
         rows_d = _gather_pref_rows(pref_d, _need_idx(need_d), as_u16)
     rank = _to_host(rank_src)
     assign = assign_d.cpu().numpy()
@@ -801,8 +930,9 @@ def _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets: int,
     if m:
         prefs = _SparsePrefs(n, need, lambda: _to_host(rows_d))
     else:
-        prefs = _SparsePrefs(n, need,
-                             np.zeros((0, int(pref_d.shape[1])), np.int32))
+        width = min(top_k, n_buckets) if pref_d is None \
+            else int(pref_d.shape[1])
+        prefs = _SparsePrefs(n, need, np.zeros((0, width), np.int32))
     out = _repair_from_summaries_fast(assign, rank, counts0, prefs,
                                       n_buckets, capacity, min_size)
     if out is None:  # no native library: the list-based path
@@ -834,25 +964,76 @@ def _spill_member_table(assign, c_pad: int, ms: int):
     return table, counts[:c_pad]
 
 
-def _spill_centroids(feats, assign, sizes, c_pad: int, ms: int):
-    """Once per spill round: every cluster's f32 centroid (sharded.py:
-    1958-1959). The segment sum adds each cluster's members in ascending
-    item order, one member slot at a time (``ms`` = the largest cluster),
-    starting from zero: the order XLA's segment_sum adds them in, and a
-    fixed one on the card (no atomics)."""
+def _table_sums(feats, table):
+    """(c_pad, d) f32 sums of each table row's members, added one member
+    slot at a time in table order, starting from zero (a fixed order on
+    the card: no atomics)."""
     n, d = feats.shape
-    table, _ = _spill_member_table(assign, c_pad, ms)
-    sums = torch.zeros((c_pad, d), dtype=feats.dtype, device=feats.device)
-    for j in range(ms):
+    sums = torch.zeros((table.shape[0], d), dtype=torch.float32,
+                       device=feats.device)
+    for j in range(table.shape[1]):
         t = table[:, j]
-        rows = feats[torch.clamp(t, max=n - 1)]
+        rows = feats[torch.clamp(t, max=n - 1)].to(torch.float32)
         sums = sums + torch.where((t < n)[:, None], rows, 0.0)
-    return sums / torch.clamp_min(sizes, 1)[:, None].to(feats.dtype)
+    return sums
+
+
+def _residency_cents(mean, dtype):
+    """f32 centroids in the residency's storage: int8 back onto the grid,
+    bf16 rounded (sharded.py:1949-1952)."""
+    if dtype == torch.int8:
+        return to_grid(mean)
+    return mean.to(dtype)
+
+
+def _spill_centroids(feats, assign, sizes, c_pad: int, ms: int):
+    """Once per spill round: every cluster's centroid (sharded.py:
+    1887-1959). The segment sum adds each cluster's members in ascending
+    item order, one member slot at a time (``ms`` = the largest cluster),
+    starting from zero: the order XLA's segment_sum adds them in. Off f32
+    the mean is taken in f32 and returned in the residency dtype."""
+    table, _ = _spill_member_table(assign, c_pad, ms)
+    mean = _table_sums(feats, table) / torch.clamp_min(
+        sizes, 1)[:, None].to(torch.float32)
+    return _residency_cents(mean, feats.dtype)
+
+
+# member-table bound: (c_pad+1) * max_size * 4 bytes; past it the spill
+# rounds take the segment sum every round (sharded.py:2014)
+_SPILL_TABLE_BYTES = 1 << 28
+
+
+def _spill_table_append(table, counts, rows, slots, items) -> None:
+    """One round's placements into the member table, in place
+    (sharded.py:2051-2060): slot = the cluster's size at append time, so
+    appended members keep append order after the sorted base block."""
+    table[rows, slots] = items
+    counts.index_add_(0, rows, torch.ones_like(rows))
+
+
+def _sizes_from_counts(counts, n_c: int, max_size: int):
+    """Device sizes for the candidate masks: live counts for real clusters,
+    "full" for padding rows (sharded.py:2063-2070)."""
+    c_pad = counts.shape[0]
+    return torch.where(torch.arange(c_pad, device=counts.device) < n_c,
+                       counts, max_size)
+
+
+def _spill_cent_table(feats, table, counts):
+    """Every spill-round centroid and its squared norm from the member
+    table (sharded.py:2073-2115): members summed in table order (sorted
+    base block, then appends) in f32, divided, cast to the residency;
+    norms from the cast values."""
+    mean = _table_sums(feats, table) / torch.clamp_min(
+        counts, 1)[:, None].to(torch.float32)
+    cents = _residency_cents(mean, feats.dtype)
+    return cents, _cent_norms(cents)
 
 
 def _cent_norms(cents):
-    """(c_pad,) squared norms of the spill centroids, once per round."""
-    return torch.sum(cents * cents, dim=1)
+    """(c_pad,) f32 squared norms of the stored spill centroids, once per
+    round."""
+    return row_norms(cents)
 
 
 def _topk_smallest(d2, kk: int):
@@ -867,15 +1048,18 @@ def _spill_candidates_local(feats, cents, sizes, drop_idx, item_bucket,
                             cent_norms=None):
     """Bucket-local candidates (sharded.py:1962-2002): each item's own
     bucket's clusters with room, nearest first; GLOBAL cluster ids, -1
-    where invalid."""
+    where invalid. Grid features against grid centroids take an exact
+    integer gram, everything else exact upcasts accumulated in f32."""
     dx = feats[drop_idx]
     cl = bucket_clusters[item_bucket]              # (chunk, mc), -1 padded
     safe = torch.clamp_min(cl, 0)
     cc = cents[safe]                               # (chunk, mc, d)
-    xx = torch.sum(dx * dx, dim=-1)[:, None]
-    yy = torch.sum(cc * cc, dim=-1) if cent_norms is None \
-        else cent_norms[safe]
-    g = torch.einsum("cd,cmd->cm", dx, cc)
+    xx = row_norms(dx)[:, None]
+    yy = row_norms(cc) if cent_norms is None else cent_norms[safe]
+    wide = torch.float64 if (dx.dtype == torch.int8
+                             and cc.dtype == torch.int8) else torch.float32
+    g = torch.einsum("cd,cmd->cm", dx.to(wide), cc.to(wide)).to(
+        torch.float32)
     d2 = xx + yy - 2.0 * g
     valid = (cl >= 0) & (sizes[safe] < max_size)
     d2 = torch.where(valid, d2, float("inf"))
@@ -915,6 +1099,9 @@ class _Clusters:
             bucket, dtype=np.int32)
         self.extra: dict[int, list[int]] = {}
         self._extra_count = np.zeros(len(self.base_sizes), np.int32)
+        # the spill rounds' device member table, kept between the local and
+        # global phases: ((c_pad, max_size), table, counts, appends)
+        self._spill_dev = None
 
     @classmethod
     def from_lists(cls, clusters: list[list[int]], bucket=None):
@@ -966,11 +1153,14 @@ def _spill_rounds(feats, cols: _Clusters, dropped_idx: list[int],
                   max_size: int,
                   item_bucket_of: dict[int, int] | None = None) -> list[int]:
     """Greedy nearest-cluster-with-room placement with the candidate search
-    on the device (sharded.py:2214-2415, f32 branch): each round takes every
-    leftover item's top-k nearest clusters with room and places greedily;
-    rounds repeat (k doubling under contention) until one places nothing.
-    With ``item_bucket_of``, placements stay inside each item's bucket.
-    ``cols`` is mutated in place; returns the still-unplaced items."""
+    on the device (sharded.py:2214-2415): each round takes every leftover
+    item's top-k nearest clusters with room and places greedily; rounds
+    repeat (k doubling under contention) until one places nothing. With
+    ``item_bucket_of``, placements stay inside each item's bucket. Off f32
+    residency the centroids come from a device member table that each
+    round's placements are appended to, while it stays under
+    ``_SPILL_TABLE_BYTES`` (past it, the segment sum). ``cols`` is mutated
+    in place; returns the still-unplaced items."""
     still = list(dropped_idx)
     K_CAP = 4096
     k = 0
@@ -992,6 +1182,9 @@ def _spill_rounds(feats, cols: _Clusters, dropped_idx: list[int],
         table_d = torch.from_numpy(table).to(dev)
     n = feats.shape[0]
     c_pad = 1 << max(n_c - 1, 1).bit_length()
+    use_table = (feats.dtype != torch.float32
+                 and (c_pad + 1) * max(max_size, 1) * 4 <= _SPILL_TABLE_BYTES)
+    mt_d = mcounts_d = None
     for _ in range(len(still) + 1):
         if n_c == 0 or not still:
             break
@@ -1000,11 +1193,28 @@ def _spill_rounds(feats, cols: _Clusters, dropped_idx: list[int],
         if not (sizes[:n_c] < max_size).any():
             break  # genuinely full everywhere
         k = min(max(k, 8), n_c, K_CAP)
-        assign = torch.from_numpy(cols.assign_array(n)).to(dev)
-        sizes_d = torch.from_numpy(sizes).to(dev)
-        cents_d = _spill_centroids(feats, assign, sizes_d, c_pad,
-                                   max(1, int(sizes[:n_c].max())))
-        cent_norms_d = _cent_norms(cents_d)
+        cents_d = cent_norms_d = None  # free the last round's first
+        if use_table:
+            if mt_d is None:
+                cache = cols._spill_dev
+                appends = int(cols._extra_count.sum())
+                if (cache is not None and cache[0] == (c_pad, max_size)
+                        and cache[3] == appends):
+                    mt_d, mcounts_d = cache[1], cache[2]
+                else:  # one assignment transfer per phase, not per round
+                    mt_d, mcounts_d = _spill_member_table(
+                        torch.from_numpy(cols.assign_array(n)).to(dev),
+                        c_pad, max_size)
+                cols._spill_dev = ((c_pad, max_size), mt_d, mcounts_d,
+                                   appends)
+            sizes_d = _sizes_from_counts(mcounts_d, n_c, max_size)
+            cents_d, cent_norms_d = _spill_cent_table(feats, mt_d, mcounts_d)
+        else:
+            assign = torch.from_numpy(cols.assign_array(n)).to(dev)
+            sizes_d = torch.from_numpy(sizes).to(dev)
+            cents_d = _spill_centroids(feats, assign, sizes_d, c_pad,
+                                       max(1, int(sizes[:n_c].max())))
+            cent_norms_d = _cent_norms(cents_d)
         if local:
             budget = (1 << 27) // max(1, 4 * mc * feats.shape[1])
             CHUNK = 1 << max(3, min(10, budget.bit_length() - 1))
@@ -1029,16 +1239,31 @@ def _spill_rounds(feats, cols: _Clusters, dropped_idx: list[int],
             (0, k), np.int64)
         room = (max_size - sizes[:n_c]).astype(np.int64)
         next_still: list[int] = []
+        pl_rows: list[int] = []
+        pl_slots: list[int] = []
+        pl_items: list[int] = []
         for row, item in enumerate(still):
             for p in cand[row]:
                 p = int(p)
                 if 0 <= p < n_c and room[p] > 0:
                     cols.append(p, item)
                     room[p] -= 1
+                    if use_table:
+                        pl_rows.append(p)
+                        pl_slots.append(int(sizes[p]))
+                        sizes[p] += 1  # the next slot; room bounds it
+                        pl_items.append(item)
                     break
             else:
                 next_still.append(item)
         placed = len(still) - len(next_still)
+        if use_table and placed:
+            _spill_table_append(
+                mt_d, mcounts_d,
+                *(torch.tensor(v, dtype=torch.int64, device=dev)
+                  for v in (pl_rows, pl_slots, pl_items)))
+            cols._spill_dev = ((c_pad, max_size), mt_d, mcounts_d,
+                               int(cols._extra_count.sum()))
         if placed == 0:
             break  # no progress: every leftover's candidates are full
         if placed * 2 < len(still):  # contention: widen the search
@@ -1168,13 +1393,14 @@ def constrained_ward_bucketed(
     max_size leaves it nowhere to go. The result is columnar; its
     ``phases_s`` holds the phase timer's seconds when
     IMAGECLUST_CLUSTER_PROFILE=1, ``host_paths`` says whether placement and
-    member walk ran natively, ``n_buckets`` counts buckets after repair."""
+    member walk ran natively, ``n_buckets`` counts buckets after repair.
+
+    ``feature_dtype`` sets the resident matrix: "float32", "bfloat16" (one
+    rounding of the inputs; a non-parity mode near ties) or "int8" (inputs
+    quantized once by :func:`_feat_int8`, whose scale Ward's merge order
+    does not need; an int8 input is used as is)."""
     if feature_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"unknown feature_dtype {feature_dtype!r}")
-    if feature_dtype != "float32":
-        raise NotImplementedError(
-            f"feature_dtype={feature_dtype!r} residency is not ported yet "
-            f"({_ROADMAP}, bf16/int8 residency); use float32")
     if mesh is not None:
         raise NotImplementedError(
             f"the mesh bucketed engine is not ported yet ({_ROADMAP}, "
@@ -1183,11 +1409,21 @@ def constrained_ward_bucketed(
         raise ValueError(f"unknown update_rule: {update_rule}")
     dev = resolve_device(device)
     pt = _PhaseTimer(dev)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}[feature_dtype]
     if isinstance(embeddings, torch.Tensor):
-        feats = embeddings.detach().to(dev, torch.float32)
+        emb = embeddings.detach().to(dev)
     else:
-        feats = torch.from_numpy(
-            np.ascontiguousarray(embeddings, np.float32)).to(dev)
+        arr = np.asarray(embeddings)
+        if arr.dtype != np.int8:
+            arr = arr.astype(np.float32, copy=False)
+        emb = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    if dt == torch.int8 and emb.dtype != torch.int8:
+        feats = _feat_int8(emb)
+        pt.tick("quantize")
+    else:
+        feats = emb.to(dt)
+    del emb
     if feats.dim() != 2:
         raise ValueError(f"embeddings must be (n, d), got "
                          f"{tuple(feats.shape)}")
@@ -1202,24 +1438,26 @@ def constrained_ward_bucketed(
     n_buckets = max(1, math.ceil(n / fill))
     if n_buckets == 1:
         return constrained_ward(
-            feats.cpu().numpy(), list(ids), min_size=min_size,
-            max_size=max_size, update_rule=update_rule,
-            reassign_dropped=reassign_dropped, device=dev)
-    if n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK:
-        raise NotImplementedError(
-            f"n * buckets = {n * n_buckets} needs the need-only preference "
-            f"mode, not ported yet ({_ROADMAP}, _pref_need_rows)")
-    if dev.type == "cuda" and n_buckets >= _PREF_FUSED_MIN_K:
-        raise NotImplementedError(
-            f"{n_buckets} buckets is in the fused preference kernel's "
-            f"domain (k >= {_PREF_FUSED_MIN_K}), not ported yet "
-            "(ROADMAP.md, queue 2: K4 pref_topk_block)")
+            feats.to(torch.float32).cpu().numpy(),  # int8 grid values: exact
+            list(ids), min_size=min_size, max_size=max_size,
+            update_rule=update_rule, reassign_dropped=reassign_dropped,
+            device=dev)
 
-    cents_d, assign_d, own_d_d, pref_d = kmeans(
-        feats, n_buckets, kmeans_iters, seed, top_k=_TOP_PREF)
+    # The summarize pass: one K4 launch on the card at k >= 4096; else the
+    # tile path, with the need-only mode above _PREF_NEED_ONLY_MIN_WORK.
+    if _use_summarize_fused(dev, n_buckets):
+        cents_d, assign_d, own_d_d, pref_d = kmeans(
+            feats, n_buckets, kmeans_iters, seed, top_k=_TOP_PREF,
+            summarize_fused=True)
+    else:
+        need_only = n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK
+        cents_d, assign_d, own_d_d, pref_d = kmeans(
+            feats, n_buckets, kmeans_iters, seed,
+            top_k=0 if need_only else _TOP_PREF)
     pt.tick("kmeans")
     buckets = _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets,
-                                     bucket_size, min_size)
+                                     bucket_size, min_size, feats=feats,
+                                     cents=cents_d)
     del assign_d, own_d_d, pref_d, cents_d
     pt.tick("bucket-repair")
 

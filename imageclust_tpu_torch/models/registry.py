@@ -34,6 +34,7 @@ from imageclust_tpu_torch.models.vit import (
     VisionTransformer,
     load_clip_vision_state_dict,
 )
+from imageclust_tpu_torch.ops.pref_kernels import to_grid
 from imageclust_tpu_torch.ops.preprocess import preprocess_batch
 
 log = logging.getLogger(__name__)
@@ -174,29 +175,36 @@ class Embedder:
 
     @torch.inference_mode()
     def embed_stream_quantized(self, chunks, inflight: int = 4,
-                               out_dtype=None, total: int | None = None):
-        """The stream loop (JAX registry.py:251-378) with the identity cast:
-        ``out_dtype`` None or float32. bf16/int8 residency is not ported
-        yet. Returns ``(embeddings, scale)`` with scale 1.0.
+                               out_dtype=None, margin: float = 1.25,
+                               total: int | None = None):
+        """The stream loop (JAX registry.py:251-378) with each chunk cast to
+        a residency dtype before it accumulates, so the f32 matrix never
+        exists. ``out_dtype`` None or float32: identity; torch.bfloat16: a
+        per-chunk rounding; torch.int8: a symmetric grid with its scale
+        calibrated on the FIRST chunk (absmax * ``margin`` / 127, at least
+        1e-30; later outliers clip). Returns ``(embeddings, scale)``;
+        scale is 1.0 unless int8: divide any block concatenated onto these
+        features (label fusion) by it.
 
         Chunks are host arrays or uint8 tensors (a CUDA tensor feeds the
         forward with no transfer). ``total``: the job size, when known;
-        embeddings then go into ONE preallocated (total, dim) buffer, so
-        the list path's final concatenation (2x the feature bytes) never
-        happens."""
-        if out_dtype not in (None, torch.float32, np.float32, "float32"):
-            raise NotImplementedError(
-                f"embedding residency {out_dtype} is not ported yet "
-                "(ROADMAP.md queue 1, bf16/int8 residency)")
+        embeddings then go into ONE preallocated (total, dim) buffer of the
+        residency dtype, so the list path's final concatenation (2x the
+        feature bytes) never happens."""
+        if out_dtype in (None, torch.float32, np.float32, "float32"):
+            out_dtype = torch.float32
+        elif out_dtype not in (torch.bfloat16, torch.int8):
+            raise ValueError(f"unsupported residency dtype {out_dtype}")
         bs = self.batch_size
         expect = (self.spec.input_size, self.spec.input_size, 3)
         buf = None
         if total is not None:
-            buf = torch.empty((total, self.spec.dim), dtype=torch.float32,
+            buf = torch.empty((total, self.spec.dim), dtype=out_dtype,
                               device=self.device)
         outs: list[torch.Tensor] = []
         written = 0
         n_chunks = 0
+        scale = 1.0
         fence = None
         for chunk in chunks:
             if not isinstance(chunk, torch.Tensor):
@@ -211,6 +219,15 @@ class Embedder:
                 x = torch.cat([x, x.new_zeros((bs - c, *expect))])
             emb = self._forward(x).to(torch.float32)
             emb = emb[:c] if c < bs else emb
+            if out_dtype == torch.int8:
+                if n_chunks == 0:  # one host read, first chunk only
+                    scale = max(float(torch.amax(torch.abs(emb)))
+                                * margin / 127.0, 1e-30)
+                    s = torch.tensor(scale, dtype=torch.float32,
+                                     device=emb.device)
+                emb = to_grid(emb, s)
+            else:
+                emb = emb.to(out_dtype)
             n_chunks += 1
             if buf is not None:
                 if written + c > total:
@@ -230,10 +247,11 @@ class Embedder:
             if written != total:
                 raise ValueError(
                     f"stream yielded {written} rows, expected total={total}")
-            return buf, 1.0
+            return buf, scale
         if not outs:
-            return torch.zeros((0, self.spec.dim), device=self.device), 1.0
-        return (outs[0] if len(outs) == 1 else torch.cat(outs)), 1.0
+            return torch.zeros((0, self.spec.dim), dtype=out_dtype,
+                               device=self.device), scale
+        return (outs[0] if len(outs) == 1 else torch.cat(outs)), scale
 
 
 def _weights_tag(cfg: EmbedConfig, seed: int, checkpoint: str = "") -> str:

@@ -30,7 +30,8 @@ _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
-           "merge_loop_whole.cu", "short_seq_attention.cu")
+           "merge_loop_whole.cu", "short_seq_attention.cu",
+           "pref_topk_block.cu")
 HEADERS = ("lexmin.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -116,6 +117,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ic_short_seq_attention.argtypes = [
         p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
     lib.ic_short_seq_attention.restype = i
+    lib.ic_pref_topk_block.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.ic_pref_topk_block.restype = i
     return lib
 
 

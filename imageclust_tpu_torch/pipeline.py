@@ -7,9 +7,10 @@ the card and the exact constrained-Ward engine (K1 per merge). Larger jobs
 stream their ingest (read -> decode -> forward in bounded chunks), keep the
 features on the card and cluster them with the bucketed engine (K2 or K3);
 :meth:`Pipeline.run_stream` takes uint8 chunks directly. The same naming
-and HTML report follow. Not ported yet (``NotImplementedError``, ROADMAP.md
-queue 1): ``scale_engine="chain"``, bf16/int8 feature residency, zero-shot
-labels and text fusion.
+and HTML report follow. With ``cluster.feature_dtype`` bfloat16 or int8
+the stream casts each chunk into that residency, so the f32 matrix never
+exists. Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
+``scale_engine="chain"``, zero-shot labels and text fusion.
 
 Output shape parity with the reference: {"Cluster-<i>": ClusterDetails}
 (workflow.go:192) and a clusters.html report in the work dir.
@@ -218,8 +219,9 @@ class Pipeline:
 
         with timer.profiled():
             with timer.stage("embed"):
-                self._check_residency()
-                features = self.embedder.embed_stream(chunks, total=n_images)
+                features, _ = self.embedder.embed_stream_quantized(
+                    chunks, out_dtype=self._residency_dtype(),
+                    total=n_images)
 
             with timer.stage("cluster"):
                 result = self._cluster_big(features, None, min_size,
@@ -301,9 +303,10 @@ class Pipeline:
                     yield imgs
 
             with timer.stage("embed"):
-                self._check_residency()
-                image_emb = self.embedder.embed_stream(chunk_iter(),
-                                                       total=len(sources))
+                # stream straight into the cluster residency dtype
+                image_emb, emb_scale = self.embedder.embed_stream_quantized(
+                    chunk_iter(), out_dtype=self._residency_dtype(),
+                    total=len(sources))
             label_set = self._label_set(per_image_labels, cfg.labels)
             metrics.counters["unique_labels"] = len(label_set)
             if hasattr(labeler, "hits"):
@@ -349,7 +352,7 @@ class Pipeline:
             if cfg.labels.fusion_weight != 1.0:
                 label_mat = label_mat * np.float32(cfg.labels.fusion_weight)
             if big_job:
-                features = self._fuse_big(image_emb, label_mat)
+                features = self._fuse_big(image_emb, label_mat, emb_scale)
             else:
                 features = combine_embeddings(image_emb, label_mat)
 
@@ -403,26 +406,42 @@ class Pipeline:
             page_route=page_route, index_route=index_route,
             section_route=section_route)
 
-    def _check_residency(self) -> None:
-        """The JAX pipeline streams embeddings straight into the bucketed
-        engine's residency dtype; only float32 is ported."""
-        cluster = self.config.cluster
-        if (cluster.scale_engine == "bucketed"
-                and cluster.feature_dtype != "float32"):
-            raise NotImplementedError(
-                f"cluster.feature_dtype={cluster.feature_dtype!r} residency "
-                "is not ported yet (ROADMAP.md queue 1, bf16/int8 "
-                "residency)")
-
-    def _fuse_big(self, image_emb, label_mat: np.ndarray):
-        """Fuse the label block onto the embeddings ON THE CARD (the
-        big-job path: features never visit the host)."""
+    def _residency_dtype(self):
+        """The bucketed engine's residency dtype for the streamed features
+        (JAX pipeline.py:244-250, 376-389); None keeps float32."""
         import torch
+
+        cluster = self.config.cluster
+        if cluster.scale_engine != "bucketed":
+            return None
+        return {"bfloat16": torch.bfloat16,
+                "int8": torch.int8}.get(cluster.feature_dtype)
+
+    def _fuse_big(self, image_emb, label_mat: np.ndarray,
+                  emb_scale: float = 1.0):
+        """Fuse the label block onto the embeddings ON THE CARD (the
+        big-job path: features never visit the host), in the embeddings'
+        residency dtype (JAX pipeline.py:515-554). On the int8 grid the
+        label block is divided by the stream's scale and rounded, so the
+        relative geometry matches the f32 pipeline."""
+        import torch
+
+        from imageclust_tpu_torch.ops.pref_kernels import to_grid
 
         if not label_mat.shape[1]:
             return image_emb
-        lm = torch.from_numpy(np.ascontiguousarray(label_mat, np.float32))
-        return torch.cat([image_emb, lm.to(image_emb.device)], dim=1)
+        lm = torch.from_numpy(np.ascontiguousarray(label_mat))
+        if image_emb.dtype == torch.int8:
+            had_labels = bool(label_mat.any())
+            lm = to_grid(lm, float(emb_scale))
+            if had_labels and not bool(lm.any()):
+                log.warning(
+                    "int8 residency rounded the label block to all zeros "
+                    "(values below the grid step %.3g) — labels will not "
+                    "influence clustering; raise labels.fusion_weight to "
+                    "give them weight", emb_scale)
+        lm = lm.to(image_emb.device).to(image_emb.dtype)
+        return torch.cat([image_emb, lm], dim=1)
 
     def _cluster_big(self, features, item_ids, min_size: int,
                      max_size: int):

@@ -166,13 +166,64 @@ def test_bucketed_engine_on_card_matches_twin_run(cuda, monkeypatch, rule):
     assert got.cluster_map == want.cluster_map
 
 
-def test_bucketed_engine_refuses_k4_domain_on_cuda(cuda, monkeypatch):
+_K4_DTYPES = [torch.float32, torch.bfloat16, torch.int8]
+
+
+@pytest.mark.parametrize("dtype", _K4_DTYPES)
+@pytest.mark.parametrize("n,k,d,kk", [(600, 19, 48, 8), (1000, 5209, 512, 8),
+                                      (77, 130, 1000, 8), (65, 300, 33, 8),
+                                      (300, 5, 64, 5)])
+def test_pref_topk_block_bit_identical_to_twin(cuda, dtype, n, k, d, kk):
+    """K4 on integer-grid data (every product and sum exact in f32) equals
+    its twin bit for bit: indices, distances and tie order. d = 1000 int8
+    and d = 33 take the 4-byte and byte-wise copies."""
+    from imageclust_tpu_torch.ops import pref_kernels as pk
+
+    gen = torch.Generator(device=cuda).manual_seed(n + k + d)
+    hi = 127 if dtype == torch.int8 else 8
+    x, c = (torch.randint(-hi, hi + 1, (m, d), generator=gen, device=cuda,
+                          dtype=torch.int16).to(dtype) for m in (n, k))
+    c[k // 2:k // 2 + k // 4] = c[:k // 4]  # exact ties across tiles
+    cn = pk.row_norms(c)
+    before = pk.launches
+    got = pk.pref_topk_block(x, c, cn, kk)
+    assert pk.launches == before + 1
+    want = pk.pref_topk_block_plain(x, c, cn, kk)
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("feature_dtype", ["float32", "bfloat16", "int8"])
+def test_bucketed_engine_on_k4_matches_twin_run(cuda, monkeypatch,
+                                                feature_dtype):
+    """The engine at k >= _PREF_FUSED_MIN_K (lowered) runs the summarize
+    pass as one K4 launch, keeps sizes in bounds and loses no image. On
+    the int8 grid (centroids rounded onto it) every K4 sum is exact, so
+    the run equals the one with every kernel swapped for its twin; f32 and
+    bf16 centroids are means off the grid, where picks may differ at near
+    ties."""
     from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import bucket_kernels as bk
+    from imageclust_tpu_torch.ops import pref_kernels as pk
 
     monkeypatch.setattr(sharded, "_PREF_FUSED_MIN_K", 2)
-    x = np.random.default_rng(6).normal(size=(300, 4)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="K4"):
-        sharded.constrained_ward_bucketed(x, bucket_size=64, device=cuda)
+    x = np.random.default_rng(6).integers(-8, 9, (3000, 16)).astype(
+        np.float32)
+    kw = dict(bucket_size=64, feature_dtype=feature_dtype, device=cuda)
+    before = pk.launches
+    got = sharded.constrained_ward_bucketed(x, **kw)
+    assert pk.launches == before + 1
+    placed = sum(len(m) for m in got.cluster_map.values())
+    assert placed + len(got.dropped) == 3000
+    assert all(3 <= len(m) <= 6 for m in got.cluster_map.values())
+    if feature_dtype != "int8":
+        return
+    monkeypatch.setattr(sharded, "pref_topk_block", pk.pref_topk_block_plain)
+    monkeypatch.setattr(sharded, "merge_loop_whole",
+                        bk.merge_loop_whole_plain)
+    want = sharded.constrained_ward_bucketed(x, **kw)
+    np.testing.assert_array_equal(got.merges, want.merges)
+    assert got.cluster_map == want.cluster_map
 
 
 # -- K5 and the ViT towers ------------------------------------------------------

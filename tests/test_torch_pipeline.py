@@ -167,17 +167,30 @@ class TestErrors:
             pipeline.run(uploads, str(tmp_path), min_size=3, max_size=6)
 
     def test_scale_path_not_ported(self, towers, rng, tmp_path):
-        """Above exact_limit the chain engine and bf16 residency are still
-        not ported, and say so."""
+        """Above exact_limit the chain engine is still not ported, and
+        says so."""
         names, blobs = color_group_images(rng, n_groups=1, per_group=5)
-        for cluster in (dict(scale_engine="chain"),
-                        dict(feature_dtype="bfloat16")):
-            pcfg = _configs(exact_limit=4, **cluster)[1]
-            pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
-            with pytest.raises(NotImplementedError, match="not ported"):
-                pipeline.run(
-                    [UploadedImage(n, b) for n, b in zip(names, blobs)],
-                    str(tmp_path))
+        pcfg = _configs(exact_limit=4, scale_engine="chain")[1]
+        pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
+        with pytest.raises(NotImplementedError, match="not ported"):
+            pipeline.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
+                         str(tmp_path))
+
+    @pytest.mark.parametrize("feature_dtype", ["bfloat16", "int8"])
+    def test_scale_path_runs_at_residency(self, towers, rng, tmp_path,
+                                          feature_dtype):
+        """bf16/int8 residency above exact_limit (refused before it was
+        ported): the upload streams into the residency dtype, the fake
+        labels fuse onto it, no image is lost and sizes stay in bounds."""
+        pcfg = _configs(exact_limit=4, bucket_size=8,
+                        feature_dtype=feature_dtype)[1]
+        pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
+        names, blobs = color_group_images(rng, n_groups=4, per_group=5)
+        res = pipeline.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
+                           str(tmp_path))
+        placed = [m for d in res.clusters.values() for m in d.images]
+        assert sorted(placed + res.dropped) == sorted(names)
+        assert all(3 <= len(d.images) <= 6 for d in res.clusters.values())
 
     def test_scale_path_runs(self, towers, rng, tmp_path):
         """A job above exact_limit takes the streamed big-job branch and

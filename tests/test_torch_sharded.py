@@ -414,10 +414,9 @@ class TestEngine:
         assert res.n_items == 300
 
     @pytest.mark.parametrize("kw,exc", [
-        (dict(feature_dtype="bfloat16"), NotImplementedError),
-        (dict(feature_dtype="int8"), NotImplementedError),
         (dict(feature_dtype="fp8"), ValueError),
         (dict(mesh=object()), NotImplementedError),
+        (dict(mesh=object(), feature_dtype="int8"), NotImplementedError),
         (dict(update_rule="nope"), ValueError)])
     def test_unported_modes_raise(self, rng, kw, exc):
         x = rng.normal(size=(300, 4)).astype(np.float32)
@@ -425,11 +424,31 @@ class TestEngine:
             tsh.constrained_ward_bucketed(x, bucket_size=128, device="cpu",
                                           **kw)
 
-    def test_need_only_mode_raises(self, rng, monkeypatch):
+    @pytest.mark.parametrize("feature_dtype", ["bfloat16", "int8"])
+    def test_residency_modes_match_jax(self, rng, jax_init, feature_dtype):
+        """bf16/int8 residency, refused before it was ported, runs and
+        gives the JAX package's partition on grid blobs."""
+        x = _blobs(rng, 60, 5, 8)
+        want = jsh.constrained_ward_bucketed(
+            x, min_size=3, max_size=6, bucket_size=128,
+            feature_dtype=feature_dtype)
+        got = tsh.constrained_ward_bucketed(
+            x, min_size=3, max_size=6, bucket_size=128,
+            feature_dtype=feature_dtype, device="cpu")
+        assert got.cluster_map == want.cluster_map
+        assert got.dropped == want.dropped
+
+    def test_need_only_mode_matches_jax(self, rng, monkeypatch, jax_init):
+        """The need-only preference mode, refused before it was ported,
+        gives the full-preference run's partition (and the JAX package's
+        need-only one)."""
+        x = _blobs(rng, 60, 5, 8)
+        full = tsh.constrained_ward_bucketed(x, bucket_size=128, device="cpu")
         monkeypatch.setattr(tsh, "_PREF_NEED_ONLY_MIN_WORK", 10)
-        x = rng.normal(size=(300, 4)).astype(np.float32)
-        with pytest.raises(NotImplementedError, match="need-only"):
-            tsh.constrained_ward_bucketed(x, bucket_size=128, device="cpu")
+        monkeypatch.setattr(jsh, "_PREF_NEED_ONLY_MIN_WORK", 10)
+        got = tsh.constrained_ward_bucketed(x, bucket_size=128, device="cpu")
+        want = jsh.constrained_ward_bucketed(x, bucket_size=128)
+        assert got.cluster_map == want.cluster_map == full.cluster_map
 
     def test_default_device_needs_cuda(self, rng, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -169,7 +169,7 @@ class TestStreamedPipeline:
 
     @pytest.mark.parametrize("cluster,exc", [
         (dict(scale_engine="chain"), NotImplementedError),
-        (dict(feature_dtype="bfloat16"), NotImplementedError),
+        (dict(feature_dtype="fp8"), ValueError),
         (dict(scale_engine="typo"), ValueError)])
     def test_unported_scale_modes_raise(self, towers, rng, tmp_path,
                                         cluster, exc):
@@ -178,6 +178,39 @@ class TestStreamedPipeline:
         with pytest.raises(exc):
             Pipeline(pcfg, device="cpu", embedder=towers[1]).run_paths(
                 paths, str(tmp_path / "w"))
+
+    @pytest.mark.parametrize("feature_dtype", ["bfloat16", "int8"])
+    def test_run_paths_residency_matches_jax(self, towers, rng, tmp_path,
+                                             jax_init, feature_dtype):
+        """The streamed ingest into bf16/int8 residency (refused before it
+        was ported): the fake labeler's block fuses onto the residency
+        grid (divided by the int8 stream scale) and the partition is the
+        JAX package's."""
+        jax_emb, port_emb = towers
+        names, _, paths = _image_dir(rng, tmp_path)
+        jcfg, pcfg = _configs(feature_dtype=feature_dtype, **_BIG)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run_paths(
+            paths, str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run_paths(
+            paths, str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _partition(got) == _partition(want)
+        placed = [m for d in got.clusters.values() for m in d.images]
+        assert sorted(placed + got.dropped) == sorted(names)
+
+    @pytest.mark.parametrize("feature_dtype", ["bfloat16", "int8"])
+    def test_run_stream_residency_matches_jax(self, towers, rng, tmp_path,
+                                              jax_init, feature_dtype):
+        jax_emb, port_emb = towers
+        _, blobs = color_group_images(rng, n_groups=6, per_group=4)
+        imgs = decode_images(blobs, size=224)
+        chunks = lambda: (imgs[a:a + 8] for a in range(0, 24, 8))  # noqa
+        jcfg, pcfg = _configs(labels="none", feature_dtype=feature_dtype,
+                              **_BIG)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run_stream(
+            chunks(), 24, str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run_stream(
+            chunks(), 24, str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _partition(got) == _partition(want)
 
 
 class TestEmbedStream:
@@ -206,8 +239,58 @@ class TestEmbedStream:
             emb.embed_stream(iter(two), total=3)
         with pytest.raises(ValueError, match="more than total"):
             emb.embed_stream(iter(two), total=1)
-        with pytest.raises(NotImplementedError, match="residency"):
-            emb.embed_stream_quantized(iter(two), out_dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="residency"):
+            emb.embed_stream_quantized(iter(two), out_dtype=torch.float16)
+
+    @pytest.mark.parametrize("total", [None, 13])
+    def test_quantized_stream_matches_jax(self, towers, rng, total):
+        """bf16: a per-chunk rounding; int8: the grid with the scale taken
+        from the FIRST chunk (absmax * 1.25 / 127), later chunks clipped.
+        The towers agree to ~1e-4, so the port is held bit for bit to the
+        rule applied to its own f32 stream and to the JAX stream within a
+        grid step."""
+        jax_emb, emb = towers
+        u8 = rng.integers(0, 256, (13, 224, 224, 3)).astype(np.uint8)
+        parts = [u8[i:i + 5] for i in range(0, 13, 5)]
+        f32 = emb.embed_stream(iter(parts)).numpy()
+        q, scale = emb.embed_stream_quantized(
+            iter(parts), out_dtype=torch.int8, total=total)
+        want_scale = max(float(np.abs(f32[:5]).max()) * 1.25 / 127.0, 1e-30)
+        assert scale == want_scale and q.dtype == torch.int8
+        np.testing.assert_array_equal(
+            q.numpy(), np.clip(np.round(f32 / np.float32(scale)), -127,
+                               127).astype(np.int8))
+        jq, jscale = jax_emb.embed_stream_quantized(
+            iter(parts), out_dtype=jnp.int8, total=total)
+        np.testing.assert_allclose(scale, jscale, rtol=1e-4)
+        assert np.abs(q.numpy().astype(int)
+                      - np.asarray(jq).astype(int)).max() <= 1
+        b, bscale = emb.embed_stream_quantized(
+            iter(parts), out_dtype=torch.bfloat16, total=total)
+        assert bscale == 1.0 and b.dtype == torch.bfloat16
+        assert torch.equal(b, torch.from_numpy(f32).to(torch.bfloat16))
+        jb, _ = jax_emb.embed_stream_quantized(
+            iter(parts), out_dtype=jnp.bfloat16, total=total)
+        np.testing.assert_allclose(b.float().numpy(),
+                                   np.asarray(jb.astype(jnp.float32)),
+                                   rtol=1e-2, atol=1e-2)
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+    def test_fuse_big_matches_jax(self, rng, dtype):
+        """The label block in the residency dtype, on the int8 grid divided
+        by the stream scale and rounded; an all-zero rounding warns."""
+        emb = rng.integers(-100, 100, (6, 4))
+        labels = (rng.random((6, 3)) < 0.5).astype(np.float32) * 0.7
+        jdt = {"bfloat16": jnp.bfloat16, "int8": jnp.int8}[dtype]
+        tdt = {"bfloat16": torch.bfloat16, "int8": torch.int8}[dtype]
+        je = jnp.asarray(emb).astype(jdt)
+        te = torch.from_numpy(emb).to(tdt)
+        for scale in (0.3, 100.0):
+            want = JaxPipeline._fuse_big(None, je, labels, scale)
+            got = Pipeline._fuse_big(None, te, labels, scale)
+            assert got.dtype == tdt
+            np.testing.assert_array_equal(
+                got.float().numpy(), np.asarray(want.astype(jnp.float32)))
 
 
 class TestCliStreaming:
