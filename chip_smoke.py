@@ -31,13 +31,19 @@ line and raises on any failure:
    B = 512 (a 100,000-image job's one chunk);
 7. K2 (``merge_loop_whole``) against its twin and against the K3 lockstep
    loop under Lance-Williams: C in {3, 64, 256}, B in {128, 512}, counts
-   mixing 0.75 B, 37, 5 and 0, absorb on and off, integer-grid and normal
-   features; identical log, step, births, sizes and active required; times
-   at C = 256, B = 512 with 384 items a bucket;
+   mixing 0.75 B, 37, 5 and 0, absorb on and off, normal, integer-grid and
+   d = 2 integer-grid (heavy ties) features; C = 2, B = 4096 with a full
+   bucket, normal and tied, absorb on; identical log, step, births, sizes,
+   active and final D required; times at C = 256, B = 512 with 384 items a bucket (CUDA events
+   around a burst, the profiler beside them) against the bound of one read
+   of the matrices, with the full-scan design's pair visits and the longest
+   bucket's merge count beside it;
 8. the bucketed engine (``constrained_ward_bucketed``) at n = 100,000,
    d = 1000 on seeded normal features, Lance-Williams (K2) and centroid
    (K3), each also with the kernels swapped for their twins: identical
-   merge logs and clusters, sizes in [3, 6], no image lost;
+   merge logs and clusters, sizes in [3, 6], no image lost; K2's summed
+   device time (CUDA events around each call) beside the bucket-merges
+   phase;
 9. ``cli run`` on 6000 BMPs (above ``exact_limit``): streamed ingest, the
    bucketed engine on K2, the report;
 10. ``Pipeline.run_stream`` on 16,384 images made on the card as CUDA
@@ -61,14 +67,15 @@ line and raises on any failure:
     summarize pass (2,000,000 x 5209 centroids at d = 512 in bf16 and f32,
     d = 1024 in int8; every row compared), small shapes, ties
     across tiles and k = 5 < kk; integer-grid inputs bit-identical, normal
-    inputs equal up to near ties; times of the three dtypes beside their
-    bounds, the twin's and a ``torch.matmul`` + ``torch.topk`` yardstick;
+    inputs equal up to near ties; times of the three dtypes (CUDA events
+    around a burst, the profiler beside them) beside their bounds, the
+    twin's and a ``torch.matmul`` + ``torch.topk`` yardstick;
 17. the bucketed engine at n = 2,000,000 (5209 buckets: one K4 launch) on
     seeded normal features in int8 (d = 1024), bf16 and f32 (d = 512):
     sizes in [3, 6], no image lost; the int8 run identical to a run with
     every kernel swapped for its twin, the bf16/f32 assignments' share
     that matches a twin summarize on the same centroids at least
-    ``ASSIGN_MATCH_FLOOR``;
+    ``ASSIGN_MATCH_FLOOR``; K2's summed device time beside bucket-merges;
 18. ``Pipeline.run_stream`` on 1,600,000 images made on the card, with
     ``embed.model=vit_b32`` and ``cluster.feature_dtype=bfloat16`` (4167
     buckets): 12 K5 launches a batch, one K4 launch, the naming budget.
@@ -119,10 +126,14 @@ BIG_N, BIG_D = 100_000, 1000  # phase 8: the bucketed engine's job
 BIG_CLI_GROUPS = 1200  # phase 9: 1200 groups x 5 = 6000 images
 STREAM_N = 16_384      # phase 10
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
-# K2 scan, per (row, column) pair of active slots: bounds, diagonal and
-# activity tests, a size add and compare, the absorb test, two birth loads,
-# max, min and the lexicographic compare (csrc/merge_loop_whole.cu)
+# K2's work on these inputs: one scan of each bucket's active pairs, per
+# (row, column) pair: bounds, diagonal and activity tests, a size add and
+# compare, the absorb test, two birth loads, max, min and the lexicographic
+# compare; then per merge and slot: dvec's nine operations and one candidate
+# folded into the slot's cached minimum, a pair's work
+# (csrc/merge_loop_whole.cu)
 K2_OPS_PER_PAIR = 12
+K2_OPS_PER_MERGE_SLOT = 9 + K2_OPS_PER_PAIR
 BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 VIT_B32_DEPTH = 12      # encoder blocks of ViT-B/32: one K5 launch each
 VIT_N = 4096            # phase 12: images through the full-width ViT-B/32
@@ -775,16 +786,20 @@ def phase_k3(card: str):
                  "bound_by": "bytes"}
 
 
-def _k2_inputs(gen, C, B, grid, d=16, counts=None):
+def _k2_inputs(gen, C, B, data, d=16, counts=None):
+    """(features, bucket index, counts, targets) on the card; ``data`` is
+    "normal", "grid" (integer grid) or "ties" (d = 2 integer grid: many
+    exact ties)."""
     import numpy as np
     import torch
 
     from imageclust_tpu_torch.cluster import sharded
 
-    if grid:
-        x = torch.randint(-3, 4, (C * B, d), generator=gen).float()
-    else:
+    if data == "normal":
         x = torch.randn((C * B, d), generator=gen)
+    else:
+        x = torch.randint(-3, 4, (C * B, 2 if data == "ties" else d),
+                          generator=gen).float()
     if counts is None:
         counts = np.resize([int(0.75 * B), 37, 5, 0], C)
     counts = np.asarray(counts, np.int32)
@@ -796,6 +811,20 @@ def _k2_inputs(gen, C, B, grid, d=16, counts=None):
             torch.from_numpy(targets).to(dev))
 
 
+def _k2_bound(C, B, counts, steps):
+    """(bound ms, bound_by, bytes, ops) of K2 on these inputs: each bucket
+    matrix read once, counts and targets read, log, step and state written
+    once; one scan of each bucket's active pairs plus O(B) per merge."""
+    bytes_moved = (C * B * B * 4 + 2 * C * 4 + C * (B - 1) * 3 * 4 + C * 4
+                   + 3 * C * B * 4)
+    ops = (sum(int(c) ** 2 for c in counts) * K2_OPS_PER_PAIR
+           + int(sum(steps)) * B * K2_OPS_PER_MERGE_SLOT)
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms), "operations" if ops_ms > bytes_ms
+            else "bytes", bytes_moved, ops)
+
+
 def phase_k2(card: str):
     import torch
 
@@ -803,69 +832,108 @@ def phase_k2(card: str):
     from imageclust_tpu_torch.ops import bucket_kernels as bk
 
     gen = torch.Generator().manual_seed(7)
+    shapes = [(C, B, None, ("normal", "grid", "ties"), (0, 3))
+              for C in (3, 64, 256) for B in (128, 512)]
+    # the widest bucket, full, under the engine's absorb (its twin runs
+    # thousands of trips: two cases keep the phase short)
+    shapes.append((2, 4096, [4096, 3072], ("normal", "ties"), (3,)))
     cases = 0
-    for C in (3, 64, 256):
-        for B in (128, 512):
-            for grid in (False, True):
-                x, bidx, ct, tg = _k2_inputs(gen, C, B, grid)
-                D = sharded.pairwise_ward_singleton(
-                    sharded._gather_buckets(x, bidx))
-                for amin in (0, 3):
-                    got = bk.merge_loop_whole(D.clone(), ct, tg, 6, amin)
-                    want = bk.merge_loop_whole_plain(D.clone(), ct, tg, 6,
-                                                     amin)
-                    lock = sharded._bucket_chunk_fused(
-                        x, bidx, ct, tg, 6, 3, "lance_williams",
-                        absorb=amin > 0)
-                    torch.cuda.synchronize()
-                    if not all(_same_bits(g, w) and _same_bits(g, k)
-                               for g, w, k in zip(got, want, lock)):
-                        raise AssertionError(
-                            f"K2 / twin / K3 loop differ at C={C} B={B} "
-                            f"grid={grid} absorb={amin}")
-                    if int(got[1].sum()) == 0:
-                        raise AssertionError("K2 case merged nothing")
-                    cases += 1
+    for C, B, counts, datas, amins in shapes:
+        for data in datas:
+            x, bidx, ct, tg = _k2_inputs(gen, C, B, data, counts=counts)
+            D = sharded.pairwise_ward_singleton(
+                sharded._gather_buckets(x, bidx))
+            for amin in amins:
+                dk, dw = D.clone(), D.clone()
+                got = bk.merge_loop_whole(dk, ct, tg, 6, amin)
+                want = bk.merge_loop_whole_plain(dw, ct, tg, 6, amin)
+                lock = sharded._bucket_chunk_fused(
+                    x, bidx, ct, tg, 6, 3, "lance_williams",
+                    absorb=amin > 0)
+                torch.cuda.synchronize()
+                if not (all(_same_bits(g, w) and _same_bits(g, k)
+                            for g, w, k in zip(got, want, lock))
+                        and _same_bits(dk, dw)):
+                    raise AssertionError(
+                        f"K2 / twin / K3 loop differ at C={C} B={B} "
+                        f"data={data} absorb={amin}")
+                if int(got[1].sum()) == 0:
+                    raise AssertionError("K2 case merged nothing")
+                cases += 1
+            del D, dk, dw
     emit({"phase": "k2_parity", "cases": cases,
-          "parity": "bit-identical (K2, twin, K3 lockstep loop)",
-          "max_abs_err": 0.0})
+          "parity": "bit-identical (K2, twin, K3 lockstep loop; final D "
+                    "K2 vs twin)", "max_abs_err": 0.0})
 
     C, B, per = 256, 512, 384
-    x, bidx, ct, tg = _k2_inputs(gen, C, B, False, d=64, counts=[per] * C)
+    x, bidx, ct, tg = _k2_inputs(gen, C, B, "normal", d=64,
+                                 counts=[per] * C)
     D0 = sharded.pairwise_ward_singleton(sharded._gather_buckets(x, bidx))
     reps, warm = TIMING_REPS, 3
-    pool = [D0.clone() for _ in range(2 * (reps + warm) + 2)]
+    # every call takes a fresh copy (K2 updates D in place), as cold in L2
+    # as the engine's freshly built matrices
+    pool = [D0.clone() for _ in range(3 * (reps + warm) + 2)]
     call = lambda: bk.merge_loop_whole(pool.pop(), ct, tg, 6, 3)  # noqa
     call_ms = cuda_ms(call, reps, warm)
-    dev_ms = device_ms(call, ("merge_loop_whole_kernel",), reps)
+    dev_ms = burst_ms(call, reps, warm)
+    prof_ms = device_ms(call, ("merge_loop_whole_kernel",), reps)
+    del pool
     plain_reps = 3
     plain_ms = cuda_ms(
         lambda: bk.merge_loop_whole_plain(D0.clone(), ct, tg, 6, 3),
         plain_reps, 1)
     log, step, *_ = bk.merge_loop_whole(D0.clone(), ct, tg, 6, 3)
     steps = step.cpu().numpy().astype(int)
-    # the scans this run made: every merge scans active^2 pairs
-    pairs = sum(sum((per - j) ** 2 for j in range(s)) for s in steps)
-    ops = pairs * K2_OPS_PER_PAIR
-    bytes_moved = (C * B * B * 4 + C * (B - 1) * 3 * 4 + C * 4
-                   + 3 * C * B * 4 + 2 * C * 4)
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+    bound_ms, bound_by, bytes_moved, ops = _k2_bound(C, B, [per] * C, steps)
+    # the full-scan design's pair visits: every merge scanned active^2 pairs
+    full_scan_pairs = sum(sum((per - j) ** 2 for j in range(s))
+                          for s in steps)
     emit({"phase": "k2_time", "card": card, "C": C, "B": B,
           "items_per_bucket": per, "merges": int(steps.sum()),
-          "device_ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-          "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
-          "bytes": bytes_moved, "bytes_ms": bytes_ms,
-          "pairs_scanned": pairs, "ops_per_pair": K2_OPS_PER_PAIR,
-          "ops_ms": ops_ms,
-          "timing": f"call_ms: CUDA events, median of {reps} warm calls; "
-                    f"plain_ms: the same, {plain_reps} calls; device_ms: "
-                    f"torch.profiler kernel time, mean of {reps}; "
-                    f"ops at {FP32_OPS_PER_S:.3g}/s"})
-    return 0.0, {"ms": dev_ms or call_ms, "call_ms": call_ms,
-                 "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": bound_by}
+          "serial_trips": int(steps.max()),
+          "device_ms": dev_ms, "profiler_device_ms": prof_ms,
+          "call_ms": call_ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "bytes": bytes_moved, "ops": ops,
+          "full_scan_pairs": full_scan_pairs,
+          "timing": f"device_ms: CUDA events around {reps} back-to-back "
+                    f"calls, per call; call_ms: CUDA events, median of {reps} "
+                    f"warm calls; profiler_device_ms: torch.profiler kernel "
+                    f"time, mean of {reps}; plain_ms: the twin, {plain_reps} "
+                    f"calls; ops at {FP32_OPS_PER_S:.3g}/s"})
+    return 0.0, {"ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+@contextlib.contextmanager
+def _k2_timed():
+    """The bucketed engine with each K2 call timed by CUDA events; yields a
+    dict whose "device_s" holds their sum once the block has ended."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import sharded
+
+    saved = sharded.merge_loop_whole
+    pairs = []
+
+    def timed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = saved(*args, **kw)
+        b.record()
+        pairs.append((a, b))
+        return out
+
+    rec = {}
+    sharded.merge_loop_whole = timed
+    try:
+        yield rec
+    finally:
+        sharded.merge_loop_whole = saved
+    torch.cuda.synchronize()
+    rec["device_s"] = sum(a.elapsed_time(b) for a, b in pairs) / 1e3
+    rec["calls"] = len(pairs)
 
 
 @contextlib.contextmanager
@@ -916,7 +984,8 @@ def phase_engine_100k(card: str):
         _zero_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = constrained_ward_bucketed(x, **kw)
+        with _k2_timed() as k2:
+            res = constrained_ward_bucketed(x, **kw)
         wall_s = time.perf_counter() - t0
         c = _counters()
         _check_scale_launches(f"engine {rule}", c, rule)
@@ -934,7 +1003,8 @@ def phase_engine_100k(card: str):
             raise AssertionError(f"engine {rule}: kernel run != twin run")
         emit({"phase": "bucketed_engine", "card": card, "n": BIG_N,
               "d": BIG_D, "update_rule": rule, "wall_s": wall_s,
-              "phases_s": res.phases_s, "twin_wall_s": twin_s,
+              "phases_s": res.phases_s, "k2_device_s": k2["device_s"],
+              "k2_calls": k2["calls"], "twin_wall_s": twin_s,
               "twin_phases_s": ref.phases_s, "host_paths": res.host_paths,
               "buckets": res.n_buckets,
               "clusters": int(len(sizes)), "dropped": len(res._dropped_idx),
@@ -1359,10 +1429,12 @@ def phase_k4(card: str):
         cn = pk.row_norms(c)
         call = lambda: pk.pref_topk_block(x, c, cn, K4_KK)  # noqa: E731
         call_ms = cuda_ms(call, 3, 1)
-        dev_ms = device_ms(call, ("pref_topk_kernel",), 3)
+        dev_ms = burst_ms(call, 3, 1)
+        prof_ms = device_ms(call, ("pref_topk_kernel",), 3)
         bound_ms, bound_by, bytes_moved, ops = _k4_bound(K4_N, K4_K, d, dt)
         rec = {"dtype": name, "n": K4_N, "k": K4_K, "d": d,
-               "device_ms": dev_ms, "call_ms": call_ms, "bound_ms": bound_ms,
+               "device_ms": dev_ms, "profiler_device_ms": prof_ms,
+               "call_ms": call_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": bytes_moved, "ops": ops}
         if name == "bfloat16":
             rec["plain_ms"] = cuda_ms(
@@ -1377,21 +1449,21 @@ def phase_k4(card: str):
         times[name] = rec
         emit({"phase": "k4_time", "card": card, **rec,
               "timing": "call_ms: CUDA events around one call, median of 3 "
-                        "warm calls; device_ms: torch.profiler kernel time, "
-                        "mean of 3; plain_ms: the twin, one warm call; "
+                        "warm calls; device_ms: CUDA events around 3 "
+                        "back-to-back calls, per call; profiler_device_ms: "
+                        "torch.profiler kernel time, mean of 3; plain_ms: "
+                        "the twin, one warm call; "
                         "matmul_topk_ms: torch.matmul (bf16) + torch.topk(8) "
                         "over 2^18-row chunks, one warm call, context only"})
         del x, c, cn
         torch.cuda.empty_cache()
     t = times["bfloat16"]
-    return max_err, {"ms": t["device_ms"] or t["call_ms"],
-                     "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+    return max_err, {"ms": t["device_ms"], "call_ms": t["call_ms"],
+                     "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "matmul_topk_ms": t["matmul_topk_ms"],
-                     "int8_ms": (times["int8"]["device_ms"]
-                                 or times["int8"]["call_ms"]),
-                     "float32_ms": (times["float32"]["device_ms"]
-                                    or times["float32"]["call_ms"])}
+                     "int8_ms": times["int8"]["device_ms"],
+                     "float32_ms": times["float32"]["device_ms"]}
 
 
 def phase_engine_2m(card: str):
@@ -1411,7 +1483,8 @@ def phase_engine_2m(card: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        res = constrained_ward_bucketed(x, **kw)
+        with _k2_timed() as k2:
+            res = constrained_ward_bucketed(x, **kw)
         wall_s = time.perf_counter() - t0
         c = _counters()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -1420,7 +1493,8 @@ def phase_engine_2m(card: str):
         sizes = _check_columnar(f"engine 2M {fd}", res, ENGINE_2M)
         rec = {"phase": "bucketed_engine_2m", "card": card, "n": ENGINE_2M,
                "d": d, "feature_dtype": fd, "wall_s": wall_s,
-               "phases_s": res.phases_s, "host_paths": res.host_paths,
+               "phases_s": res.phases_s, "k2_device_s": k2["device_s"],
+               "k2_calls": k2["calls"], "host_paths": res.host_paths,
                "buckets": res.n_buckets, "clusters": int(len(sizes)),
                "dropped": len(res._dropped_idx),
                "merges": int(len(res.merges)),

@@ -18,7 +18,9 @@ log (C, max(B - 1, 1), 3) int32, step (C,), births and sizes (C, B) int32
 and active (C, B) bool.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/merge_loop_whole.cu``; design notes there), one block per bucket.
+(``csrc/merge_loop_whole.cu``; design notes there), one block per bucket,
+which keeps each row's feasible minimum cached and rescans only the rows a
+merge invalidates.
 ``D`` is the caller's temporary and is updated IN PLACE (rows and columns
 of merged slots), on both paths. On a CPU tensor it runs
 :func:`merge_loop_whole_plain`, the bucketed counterpart of the vmapped
@@ -139,7 +141,8 @@ def merge_loop_whole(D, counts, targets, max_size: int, absorb_min: int):
     """K2. D (C, B, B) f32 contiguous, updated in place; counts, targets
     (C,) int32 on D's device; max_size and absorb_min Python ints
     (absorb_min <= 0: no absorb phase). The CUDA kernel takes 2 <= B <=
-    4096 (its loop state is 12 B bytes of shared memory) and raises above.
+    4096 (its loop state and row-minimum cache live in shared memory, 144
+    KB at B = 4096) and raises above.
     Returns (log, step, births, sizes, active) on D's device."""
     global launches
     if D.dim() != 3 or D.shape[1] != D.shape[2]:

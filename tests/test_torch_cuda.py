@@ -105,29 +105,45 @@ def test_batched_kernel_bit_identical_to_twin(cuda, C, B, tied, absorb_min):
         assert torch.isinf(got[1][0])  # the all-infeasible bucket
 
 
-@pytest.mark.parametrize("C,B", [(3, 128), (64, 512), (5, 200)])
-@pytest.mark.parametrize("grid", [False, True])
+# (C, B, counts (None: 0.75 B, 37, 5, 0 in turn), max_size)
+_WHOLE_CASES = [(3, 128, None, 6), (64, 512, None, 6), (5, 200, None, 6),
+                (4, 2, (0, 1, 2, 2), 6), (4, 33, (0, 1, 2, 33), 6),
+                (2, 4096, (4096, 3000), 6),
+                (3, 128, None, 2)]  # max_size 2: a merged slot is blocked
+
+
+@pytest.mark.parametrize("C,B,counts,max_size", _WHOLE_CASES)
+@pytest.mark.parametrize("data", ["normal", "grid", "grid_d2"])
 @pytest.mark.parametrize("absorb_min", [0, 3])
-def test_whole_loop_kernel_bit_identical_to_twin(cuda, C, B, grid,
-                                                 absorb_min):
+def test_whole_loop_kernel_bit_identical_to_twin(cuda, C, B, counts,
+                                                 max_size, data, absorb_min):
+    """K2 against its twin: the five outputs and D's final bits. The d = 2
+    integer grid gives heavy ties (many rows cache the same column)."""
     from imageclust_tpu_torch.cluster import sharded
     from imageclust_tpu_torch.ops import bucket_kernels as bk
 
     rng = np.random.default_rng(C + B)
-    x = (rng.integers(-3, 4, (C, B, 16)) if grid
-         else rng.normal(size=(C, B, 16))).astype(np.float32)
-    counts = np.resize([int(0.75 * B), 37, 5, 0], C).astype(np.int32)
+    if data == "normal":
+        x = rng.normal(size=(C, B, 16))
+    else:
+        x = rng.integers(-3, 4, (C, B, 2 if data == "grid_d2" else 16))
+    if counts is None:
+        counts = np.resize([int(0.75 * B), 37, 5, 0], C)
+    counts = np.asarray(counts, np.int32)
     targets = np.array([sharded._bucket_target(int(c), 3, 6) if c else 0
                         for c in counts], np.int32)
-    D = sharded.pairwise_ward_singleton(torch.from_numpy(x).to(cuda))
+    D = sharded.pairwise_ward_singleton(
+        torch.from_numpy(x.astype(np.float32)).to(cuda))
     ct = torch.from_numpy(counts).to(cuda)
     tg = torch.from_numpy(targets).to(cuda)
+    dk, dp = D.clone(), D.clone()
     before = bk.launches
-    got = bk.merge_loop_whole(D.clone(), ct, tg, 6, absorb_min)
+    got = bk.merge_loop_whole(dk, ct, tg, max_size, absorb_min)
     assert bk.launches == before + 1
-    want = bk.merge_loop_whole_plain(D.clone(), ct, tg, 6, absorb_min)
+    want = bk.merge_loop_whole_plain(dp, ct, tg, max_size, absorb_min)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+    assert torch.equal(dk.view(torch.int32), dp.view(torch.int32))
     assert int(got[1].sum()) > 0
 
 
