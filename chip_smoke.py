@@ -13,11 +13,21 @@ line and raises on any failure:
    at n in {128, 256, 1024, 4096}: random and integer-grid (tied) matrices,
    random active/size/birth patterns, ``do_update`` 0 and 1, an
    all-infeasible case — bit-identical (D, dmin, bhi, blo) required; then
-   the kernel's and the twin's times (CUDA events, warm, median of 25) beside
-   the bound (bytes moved over 3.35 TB/s);
-3. the exact engine (``constrained_ward``) on 4096 integer-grid features
-   (d = 1000) through K1 and through the twin: identical merge logs and
-   clusters required;
+   whole exact runs at n in {128, 1024, 4096} on normal, integer-grid and
+   d = 2 integer-grid (heavy ties) features, K1's loop steps (its per-row
+   cache, the fused bookkeeping) against the twin steps on a copy of the
+   state: (dmin, bhi, blo) bit-identical at every step, final D, log,
+   births, sizes and active too, with the rows rescanned per merge; then
+   the times of a call without a loop (one full scan) and of a cached call
+   in a loop's steady state (CUDA events, warm, median of 25; the
+   profiler's kernel time) beside their bounds (bytes moved over
+   3.35 TB/s);
+3. the exact engine (``constrained_ward``) at n = 4096, d = 1000 on
+   integer-grid features and on Gaussian blobs: the K1 loop in CUDA graphs
+   against the twin's loop run step by step, identical merge logs and
+   clusters required; ms per merge, the device-busy share, K1's summed
+   device time, the rows rescanned per merge and the loop's peak device
+   memory;
 4. the server (stdlib HTTP) in-process with full-width ResNet50 (bf16, s2d
    stem, seeded random init) and fake naming: three ``POST /api/cluster``
    (18 images in 3 colour groups, 200 images, the 18 again with
@@ -82,8 +92,9 @@ line and raises on any failure:
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
-K = ``FOUND_READ_EVERY`` (the gated no-op steps the merge loop may run
-before its next host read of ``found``). K2: one launch per chunk the
+K = ``FOUND_READ_EVERY`` (the steps of one CUDA graph replay: the loop
+reads ``found`` after each, so the last replay may run gated no-op
+steps; a replay counts the K1 launches captured in it). K2: one launch per chunk the
 bucket dispatcher formed. K3: each lockstep phase launches between its
 iterations and its iterations + K - 1 times. K4: one launch per job with
 k >= 4096 buckets on the card, none below. The line before the last is
@@ -117,6 +128,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 OUT = REPO / os.environ.get("IMAGECLUST_SMOKE_OUT", "build/chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+K1_KERNEL = ("merge_update_argmin_kernel",)  # K1's name in a profile
 TIMING_REPS = 25
 DEVICE = "cuda"
 ENGINE_N = 4096     # phase 3: the exact engine's largest padded size
@@ -351,91 +363,298 @@ def phase_k1(card: str):
     emit({"phase": "k1_parity", "cases": cases, "parity": "bit-identical",
           "max_abs_err": max_err})
 
+    # the loop's calls: the kernel's cached steps against the twin steps
+    # on a copy of the state, over whole exact runs
+    sequences = []
+    for n in (128, 1024, 4096):
+        for data, rule in (("normal", "centroid"), ("integer_grid", "centroid"),
+                           ("grid_d2", "lance_williams")):
+            sequences.append(_k1_sequence(n, data, rule))
+    emit({"phase": "k1_cached_parity", "runs": sequences,
+          "parity": "bit-identical: (dmin, bhi, blo) every step; final D, "
+                    "log, births, sizes, active, ctl"})
+
     timings = {}
     for n in (1024, 4096):
-        # the main path's heaviest state: every slot active, update pending
+        # the stateless call (one full scan) at the main path's heaviest
+        # state: every slot active, update pending
         D, dvec, births, sizes, active = _k1_state(gen, n, dev, False, 1.0)
         args = (dvec, torch.tensor([n // 2], dtype=torch.int32, device=dev),
                 torch.ones(1, dtype=torch.int32, device=dev), births, sizes,
                 active, 6)
         call = lambda: mk.merge_update_argmin(D, *args)  # noqa: E731
         plain = lambda: mk.merge_update_argmin_plain(D, *args)  # noqa: E731
-        # wall time of a call, the wrapper's host work included (what the
-        # merge loop pays), and the device time of the kernels alone
-        kernel_ms = cuda_ms(call)
-        plain_ms = cuda_ms(plain)
-        kernel_device_ms = device_ms(call, ("merge_step_rows",
-                                            "reduce_partials"))
-        plain_device_ms = device_ms(plain)
+        # wall time of a call, the wrapper's host work included, and the
+        # device time of the kernel alone
+        full_call_ms = cuda_ms(call)
+        full_plain_ms = cuda_ms(plain)
+        full_ms = device_ms(call, K1_KERNEL)
+        full_plain_device_ms = device_ms(plain)
         n_act = int(active.sum())
         # each active row of D read once, one row + one column written,
         # dvec/births/sizes/active read once
-        bytes_moved = n_act * n * 4 + 2 * n * 4 + 4 * n * 4
-        bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        # the kernel's own time is its device time; the call time where the
-        # profiler records no device activity
-        timings[n] = dict(ms=kernel_device_ms or kernel_ms,
-                          plain_ms=plain_device_ms or plain_ms,
-                          call_ms=kernel_ms, bound_ms=bound_ms)
+        full_bytes = n_act * n * 4 + 2 * n * 4 + 4 * n * 4
+        cached = _k1_cached_times(n)
+        timings[n] = dict(ms=cached["device_ms"],
+                          plain_ms=cached["plain_device_ms"],
+                          call_ms=cached["call_ms"],
+                          bound_ms=cached["bound_ms"],
+                          rescans_per_call=cached["rescans_per_call"],
+                          full_scan_ms=full_ms, full_scan_call_ms=full_call_ms,
+                          full_scan_plain_ms=full_plain_device_ms,
+                          full_scan_bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3)
         emit({"phase": "k1_time", "n": n, "card": card,
-              "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "kernel_device_ms": kernel_device_ms,
-              "plain_device_ms": plain_device_ms,
-              "bound_ms": bound_ms, "bound_by": "bytes",
-              "bytes": bytes_moved,
-              "timing": f"*_ms: CUDA events, median of {TIMING_REPS} warm "
-                        f"calls; *_device_ms: torch.profiler kernel time, "
-                        f"mean of {TIMING_REPS}"})
+              "full_scan": {"kernel_device_ms": full_ms,
+                            "kernel_call_ms": full_call_ms,
+                            "plain_ms": full_plain_ms,
+                            "plain_device_ms": full_plain_device_ms,
+                            "bound_ms": timings[n]["full_scan_bound_ms"],
+                            "bytes": full_bytes},
+              "cached": cached, "bound_by": "bytes",
+              "timing": f"*call_ms / plain_ms: CUDA events, median of "
+                        f"{TIMING_REPS} warm calls; *device_ms: "
+                        f"torch.profiler kernel time, mean of {TIMING_REPS}"})
     return max_err, timings
 
 
-def phase_engine(card: str):
+def _loop_features(n, data, d, seed):
     import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if data == "normal":
+        return rng.normal(size=(n, d)).astype(np.float32)
+    if data == "integer_grid":
+        return rng.integers(-2, 3, (n, d)).astype(np.float32)
+    if data == "grid_d2":
+        return rng.integers(-3, 4, (n, 2)).astype(np.float32)
+    # "gaussian_blobs": groups of 5 around seeded centres, a photo job's look
+    centres = rng.normal(size=(-(-n // 5), d)).astype(np.float32) * 4.0
+    return (np.repeat(centres, 5, axis=0)[:n]
+            + rng.normal(size=(n, d)).astype(np.float32))
+
+
+def _loop_states(n, data, d=64):
+    """Two copies of an exact loop's initial state on n items (n_pad = n)
+    and its step limit."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import ward
+
+    x = torch.from_numpy(_loop_features(n, data, d, n)).to(DEVICE)
+    limit = n - ward.calculate_optimal_clusters(n, 3, 6)
+    return [ward._loop_state(x, n, limit, 6) for _ in range(2)], limit
+
+
+def _k1_sequence(n, data, rule):
+    """A whole exact run with K1's loop steps and, on a copy of the state,
+    the twin's steps, both eager: (dmin, bhi, blo) compared at every step
+    on the card, the final state at the end."""
     import torch
 
     from imageclust_tpu_torch.cluster import ward
     from imageclust_tpu_torch.ops import merge_kernels as mk
 
-    rng = np.random.default_rng(7)
+    ((st_k, c_k), (st_p, c_p)), limit = _loop_states(n, data)
+    i32 = torch.int32
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for _ in range(limit + 2):  # two gated no-op steps past the limit
+        mk.merge_step(st_k)
+        mk.merge_step_plain(st_p)
+        bad += (st_k.out_d.view(i32) != st_p.out_d.view(i32)).sum()
+        bad += (st_k.out_pair != st_p.out_pair).sum()
+        ward._float_step(st_k, c_k, rule)
+        ward._float_step(st_p, c_p, rule)
+    torch.cuda.synchronize()
+    same = {name: _same_bits(getattr(st_k, name), getattr(st_p, name))
+            for name in ("D", "log", "births", "sizes", "active")}
+    same["ctl"] = torch.equal(st_k.ctl[:mk.CTL_FILLED + 1],
+                              st_p.ctl[:mk.CTL_FILLED + 1])
+    steps = int(st_k.ctl[mk.CTL_STEP])
+    if int(bad) or not all(same.values()) or steps != limit:
+        raise AssertionError(f"K1 cached steps != twin steps at n={n} "
+                             f"{data}: {int(bad)} step mismatches, {same}, "
+                             f"{steps} of {limit} merges")
+    return {"n": n, "data": data, "rule": rule, "merges": steps,
+            # every merge but the last is followed by one cached call
+            "rows_rescanned_per_merge":
+                int(st_k.ctl[mk.CTL_RESCAN_TOTAL]) / max(steps - 1, 1),
+            "rows_rescanned_max": int(st_k.ctl[mk.CTL_RESCAN_MAX])}
+
+
+def _k1_cached_times(n):
+    """K1's cached call in a loop's steady state (normal d = 64 data, the
+    centroid rule, after n / 4 merges), eager steps: call ms (CUDA events
+    around the wrapper), device ms (torch.profiler), the twin step's times
+    on a copy of the state in step with it, and the bound of what a cached
+    call moves."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.cluster import ward
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    ((st, cents), (sp, cp)), _ = _loop_states(n, "normal")
+    for _ in range(n // 4):
+        for state, c, step in ((st, cents, mk.merge_step),
+                               (sp, cp, mk.merge_step_plain)):
+            step(state)
+            ward._float_step(state, c, "centroid")
+    torch.cuda.synchronize()
+
+    def timed(state, c, step):
+        events = []
+        for _ in range(TIMING_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            step(state)
+            b.record()
+            ward._float_step(state, c, "centroid")
+            events.append((a, b))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in events)
+
+    def profiled(state, c, step, match):
+        # the float work runs outside the window, unprofiled
+        total_us = 0.0
+        for _ in range(TIMING_REPS):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(state)
+                torch.cuda.synchronize()
+            total_us += _kernel_us(prof, match)
+            ward._float_step(state, c, "centroid")
+        return total_us / TIMING_REPS / 1e3 if total_us else None
+
+    r0 = int(st.ctl[mk.CTL_RESCAN_TOTAL])
+    call_ms = timed(st, cents, mk.merge_step)
+    rescans = (int(st.ctl[mk.CTL_RESCAN_TOTAL]) - r0) / TIMING_REPS
+    device = profiled(st, cents, mk.merge_step, K1_KERNEL)
+    plain_call_ms = timed(sp, cp, mk.merge_step_plain)
+    plain_device = profiled(sp, cp, mk.merge_step_plain, ())
+    # row and column sa written, the rescanned rows read, the cache (16
+    # bytes a row), births/sizes/active and dvec read once
+    nbytes = 2 * n * 4 + rescans * n * 4 + 16 * n + 12 * n + 4 * n
+    return {"device_ms": device or call_ms, "call_ms": call_ms,
+            "plain_device_ms": plain_device or plain_call_ms,
+            "plain_call_ms": plain_call_ms, "rescans_per_call": rescans,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "merges_before": n // 4}
+
+
+def phase_engine(card: str):
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.cluster import ward
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
     n, d = ENGINE_N, 1000
-    x = rng.integers(-2, 3, (n, d)).astype(np.float32)
     kw = dict(min_size=3, max_size=6, update_rule="centroid",
               reassign_dropped=False, mesh=None, device=DEVICE)
-    mk.launches = 0
-    t0 = time.perf_counter()
-    got = ward._constrained_ward(x, None, merge_step=mk.merge_update_argmin,
-                                 **kw)
-    total_s = time.perf_counter() - t0
-    launches = mk.launches
-    t0 = time.perf_counter()
-    ref = ward._constrained_ward(
-        x, None, merge_step=mk.merge_update_argmin_plain, **kw)
-    plain_s = time.perf_counter() - t0
-    merges = len(got.merges)
-    if not (np.array_equal(got.merges, ref.merges)
-            and got.cluster_map == ref.cluster_map
-            and got.dropped == ref.dropped):
-        raise AssertionError(f"exact engine: K1 loop != twin loop at n={n}")
-    _check_launches("engine", launches, merges)
-    busy = None
-    if DEVICE == "cuda":
-        from torch.profiler import ProfilerActivity, profile
+    for data in ("integer_grid", "gaussian_blobs"):
+        x = _loop_features(n, data, d, 7)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mk.launches = 0
+        t0 = time.perf_counter()
+        with _stage_timer(ward, ("_merge_loop", "_loop_state",
+                                 "_run_graphed")) as (stages_s, returned):
+            run_graphed = ward._run_graphed
+            graphed_peak, before = [], []
 
+            def peak_of_graphed(*args, **kwargs):
+                # the graphed steps' own peak: the graph pool and the state
+                torch.cuda.synchronize()
+                before.append(torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                at = torch.cuda.memory_allocated()
+                run_graphed(*args, **kwargs)
+                graphed_peak.append(torch.cuda.max_memory_allocated() - at)
+
+            ward._run_graphed = peak_of_graphed
+            got = ward._constrained_ward(x, None, merge_step=mk.merge_step,
+                                         **kw)
+        total_s = time.perf_counter() - t0
+        peak = max(before + [torch.cuda.max_memory_allocated()]) - base
+        launches = mk.launches
+        ctl = returned["_loop_state"][0][0].ctl  # the loop's MergeState
+        rescanned = int(ctl[mk.CTL_RESCAN_TOTAL])
+        rescan_max = int(ctl[mk.CTL_RESCAN_MAX])
+        t0 = time.perf_counter()
+        ref = ward._constrained_ward(x, None, merge_step=mk.merge_step_plain,
+                                     eager=True, **kw)
+        plain_s = time.perf_counter() - t0
+        merges = len(got.merges)
+        if not (np.array_equal(got.merges, ref.merges)
+                and got.cluster_map == ref.cluster_map
+                and got.dropped == ref.dropped):
+            raise AssertionError(f"exact engine: graphed K1 loop != eager "
+                                 f"twin loop at n={n} on {data}")
+        _check_launches("engine", launches, merges)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            ward._constrained_ward(x, None, merge_step=mk.merge_update_argmin,
-                                   **kw)
+            ward._constrained_ward(x, None, merge_step=mk.merge_step, **kw)
             torch.cuda.synchronize()
         all_us = _kernel_us(prof)
-        k1_us = _kernel_us(prof, ("merge_step_rows", "reduce_partials"))
-        busy = {"device_s": all_us / 1e6, "k1_device_s": k1_us / 1e6,
-                "device_busy_share": all_us / 1e6 / total_s,
-                "k1_share_of_wall": k1_us / 1e6 / total_s}
-    emit({"phase": "exact_engine", "card": card, "n": n, "d": d,
-          "merges": merges, "k1_launches": launches,
-          "ms_per_merge": total_s * 1e3 / max(merges, 1),
-          "total_s": total_s, "plain_twin_total_s": plain_s,
-          "clusters": got.n_clusters, "logs_identical": True,
-          "profile": busy})
+        k1_us = _kernel_us(prof, K1_KERNEL)
+        k1_events = sum(e.count for e in prof.key_averages()
+                        if any(m in e.key for m in K1_KERNEL))
+        emit({"phase": "exact_engine", "card": card, "n": n, "d": d,
+              "data": data, "merges": merges, "k1_launches": launches,
+              "ms_per_merge": total_s * 1e3 / max(merges, 1),
+              "total_s": total_s, "eager_twin_total_s": plain_s,
+              # host clock; _merge_loop holds the other two and ends with
+              # the copies to the host, _run_graphed with a read of `found`
+              "stages_s": stages_s,
+              "clusters": got.n_clusters, "logs_identical": True,
+              # every merge but the last is followed by one cached call
+              "rows_rescanned_per_merge": rescanned / max(merges - 1, 1),
+              "rows_rescanned_max": rescan_max,
+              # the engine's peak above what was allocated before it
+              # (set by the Gram product's temporaries), and the peak
+              # while the graphed steps ran, above what they started with
+              "peak_device_bytes": peak,
+              "graphed_steps_peak_bytes": graphed_peak[0],
+              "profile": {"device_s": all_us / 1e6,
+                          "k1_device_s": k1_us / 1e6,
+                          "k1_events": k1_events,
+                          "device_busy_share": all_us / 1e6 / total_s,
+                          # nearly all device time is the steps' (the Gram
+                          # product is about 1 ms)
+                          "device_busy_share_of_graphed_steps":
+                              all_us / 1e6 / stages_s["_run_graphed"],
+                          "k1_share_of_wall": k1_us / 1e6 / total_s}})
+
+
+@contextlib.contextmanager
+def _stage_timer(module, names):
+    """Host seconds spent in ``module``'s functions ``names`` while the
+    block runs, and what each call returned (each wrapped, then
+    restored)."""
+    spent = dict.fromkeys(names, 0.0)
+    returned = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+            returned[name].append(out)
+            return out
+        return timed
+
+    for name in names:
+        setattr(module, name, wrap(name, saved[name]))
+    try:
+        yield spent, returned
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def _check_launches(what: str, launches: int, merges: int) -> None:
@@ -1674,13 +1893,12 @@ def main(argv: list[str] | None = None) -> int:
         "replaces": "imageclust_tpu/ops/pallas_kernels.py:134",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": t["ms"],
-        "call_ms": t["call_ms"],
-        "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"],
+        **t,
         "bound_by": "bytes",
         "library_ms": None,
-        "shape": "n=4096",
+        "shape": "n=4096: a cached loop call (ms, call_ms, plain_ms, "
+                 "bound_ms) and the full scan of a call without a loop "
+                 "(full_scan_*)",
         "parity": "bit-identical",
     }, {
         "name": "merge_loop_whole",

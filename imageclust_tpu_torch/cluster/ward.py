@@ -6,22 +6,26 @@ semantics (the reference's Go engine, clustering.go:198-284):
 
 * the n x n Ward distance matrix is one device tensor (f32 Gram at full
   float32 precision: TF32 is off, see :mod:`imageclust_tpu_torch.device`),
-* each merge is the fused K1 step (:func:`merge_update_argmin`): the pending
-  row/column update of the previous merge applied in place, then the next
-  feasible pair with the Go tie-break (smallest ``(birth_hi, birth_lo)``
-  among the minimal distances),
+* each merge is one K1 step (:func:`~imageclust_tpu_torch.ops.
+  merge_kernels.merge_step`): the pending row/column update of the
+  previous merge applied in place, the next feasible pair with the Go
+  tie-break (smallest ``(birth_hi, birth_lo)`` among the minimal distances)
+  from the kernel's per-row cache, and the integer bookkeeping of the merge
+  (sizes, births, active, the log row), gated on ``found``; then the float
+  work (the merged centroid and the next pending row) in torch ops,
 * slots never move; births reproduce the reference's list order; the
   maxSize rule is a feasibility mask; under-min drop and oversized split run
   on the host from the merge log.
 
 The loop is the PENDING-update loop of the JAX package's
-``_merge_loop_fused_impl`` (ward.py:386-480) with the same carry. Every step
-stays on the device: the argmax slot lookups, the ``found`` gating (``gate``
-in the JAX body) and the log write are tensor ops, so no merge waits on the
-host. The host reads ``found`` once every :data:`FOUND_READ_EVERY` steps and
-stops early once it is false; the steps run after the last feasible merge
-are gated no-ops, exactly as in the JAX ``while_loop`` body. The loop runs
-at most ``n - n_target`` steps.
+``_merge_loop_fused_impl`` (ward.py:386-480) with the same carry, kept in
+place in a :class:`~imageclust_tpu_torch.ops.merge_kernels.MergeState`.
+No merge waits on the host: on the card :data:`FOUND_READ_EVERY` steps are
+replayed from one CUDA graph, and the host reads ``found`` once a replay
+(on the CPU once every :data:`FOUND_READ_EVERY` steps) and stops once it is
+false. Steps past the last feasible merge, or past ``n - n_target``
+merges (the step limit the kernel gates on), are no-ops, as in the JAX
+``while_loop`` body.
 
 There is no size gate: the JAX package's 4096 limit came from TPU VMEM. A
 CUDA tensor always runs K1, a CPU tensor its plain twin.
@@ -36,7 +40,7 @@ import numpy as np
 import torch
 
 from imageclust_tpu_torch.device import resolve_device
-from imageclust_tpu_torch.ops.merge_kernels import merge_update_argmin
+from imageclust_tpu_torch.ops import merge_kernels as mk
 
 __all__ = [
     "ClusterResult",
@@ -51,8 +55,9 @@ __all__ = [
 
 _BIG_I32 = 2**31 - 1
 
-# Merge steps between two host reads of the loop's `found` flag. After the
-# last feasible merge the loop runs at most this many gated no-op steps.
+# Merge steps between two host reads of the loop's `found` flag (on the
+# card: the steps captured in one CUDA graph). After the last feasible merge
+# the loop runs at most this many gated no-op steps.
 FOUND_READ_EVERY = 64
 
 
@@ -247,90 +252,116 @@ def ward_update_vector(
 
 
 def _merge_loop(x: torch.Tensor, n_items: int, n_target: int, max_size: int,
-                update_rule: str, merge_step=merge_update_argmin):
+                update_rule: str, merge_step=mk.merge_step,
+                eager: bool = False):
     """The pending-update exact loop (JAX ward.py:386-480) on ``x``'s device.
 
-    ``x`` is (n_pad, d) f32 with rows >= n_items as padding. Iteration k's
-    ``merge_step`` applies merge k-1's row/column update before reducing;
-    the small state (sizes, births, cents, active, log) updates eagerly and
-    gated on ``found``, so the masks are always post-merge. Returns host
-    arrays (log[:steps], births, sizes, active)."""
+    ``x`` is (n_pad, d) f32 with rows >= n_items as padding. Each step is
+    ``merge_step`` on one :class:`~imageclust_tpu_torch.ops.merge_kernels.
+    MergeState` (it applies merge k-1's row/column update, finds pair k and
+    updates sizes, births, active and the log in place, gated on ``found``),
+    then :func:`_float_step` (the merged centroid and the next pending
+    row). On a CUDA device the first step runs eagerly on a side stream
+    (K1's full fill, and the warm-up of every op), then
+    :data:`FOUND_READ_EVERY` steps are captured in one CUDA graph and
+    replayed until ``found`` reads false or the step limit is reached; a
+    capture that fails raises. On the CPU, or with ``eager=True``, the
+    steps run one by one. Returns host arrays (log[:steps], births, sizes,
+    active)."""
     if update_rule not in ("centroid", "lance_williams"):
         raise ValueError(f"unknown update_rule: {update_rule}")
-    dev = x.device
-    f32, i32 = torch.float32, torch.int32
+    limit = max(n_items - n_target, 0)
+    st, cents = _loop_state(x, n_items, limit, max_size)
+
+    def body():
+        merge_step(st)
+        _float_step(st, cents, update_rule)
+
+    if limit and x.device.type == "cuda" and not eager:
+        _run_graphed(body, st, limit)
+    elif limit:
+        for k in range(limit):
+            body()
+            if (k + 1) % FOUND_READ_EVERY == 0 and not bool(st.found):
+                break
+
+    steps = int(st.ctl[mk.CTL_STEP])
+    return (st.log[:steps].cpu().numpy(), st.births.cpu().numpy(),
+            st.sizes.cpu().numpy(), st.active.cpu().numpy().astype(bool))
+
+
+def _loop_state(x: torch.Tensor, n_items: int, limit: int, max_size: int):
+    """The loop's initial state on ``x``'s device: (MergeState, centroids).
+    Padding slots are inactive with births above every stamp the loop
+    hands out, as in the JAX package."""
+    i32 = torch.int32
     n_pad = x.shape[0]
-    idx = torch.arange(n_pad, dtype=i32, device=dev)
+    idx = torch.arange(n_pad, dtype=i32, device=x.device)
     active0 = idx < n_items
+    st = mk.MergeState(
+        pairwise_ward_singleton(x).contiguous(),
+        births=torch.where(active0, idx, _BIG_I32 - n_pad + idx).to(i32),
+        sizes=torch.where(active0, 1, 0).to(i32),
+        active=active0.to(i32), counter=n_items, limit=limit,
+        max_size=max_size)
+    return st, x.clone()
 
-    D = pairwise_ward_singleton(x).contiguous()
-    sizes = torch.where(active0, 1, 0).to(i32)
-    births = torch.where(active0, idx, _BIG_I32 - n_pad + idx).to(i32)
-    cents = x.clone()
-    active = active0.to(i32)
-    counter = torch.full((), n_items, dtype=i32, device=dev)
-    log = torch.zeros((max(n_pad - 1, 1), 3), dtype=i32, device=dev)
-    step = torch.zeros((), dtype=i32, device=dev)
-    p_sa = torch.zeros(1, dtype=i32, device=dev)
-    p_dvec = torch.zeros(n_pad, dtype=f32, device=dev)
-    p_do = torch.zeros(1, dtype=i32, device=dev)
-    zero_f = torch.zeros((), dtype=f32, device=dev)
 
-    def pick(t, i):  # t[i] for a 1-element index tensor, no host sync
-        return torch.index_select(t, 0, i)
+def _float_step(st, cents: torch.Tensor, update_rule: str) -> None:
+    """The float work after a step, shared by the kernel's and the twin's
+    loops: the merged centroid into ``cents`` (gated on ``found``) and the
+    next pending row into ``st.dvec``, written in place. ``sizes`` are
+    already the merged ones, which changes the row only at sa (zeroed) and
+    sb (never read again: the slot is inactive)."""
+    pair = st.pair
+    s_a_f, s_b_f, s_new_f = st.pair_f.unbind()
+    ab = cents.index_select(0, pair)
+    c_new = (s_a_f * ab[0] + s_b_f * ab[1]) / s_new_f
+    sizes_f = st.sizes.to(torch.float32)
+    if update_rule == "centroid":
+        dvec = ward_update_vector(
+            update_rule, sizes_f=sizes_f, s_a_f=s_a_f, s_b_f=s_b_f,
+            s_new_f=s_new_f, cents=cents, c_new=c_new)
+    else:
+        rows = st.D.index_select(0, pair)
+        dvec = ward_update_vector(
+            update_rule, sizes_f=sizes_f, s_a_f=s_a_f, s_b_f=s_b_f,
+            s_new_f=s_new_f, d_a=rows[0], d_b=rows[1],
+            d_ab=rows[0].index_select(0, pair[1:]))
+    cents.index_copy_(0, pair[:1],
+                      torch.where(st.found, c_new, ab[0])[None])
+    st.dvec.copy_(dvec.index_fill_(0, pair[:1], 0.0))
 
-    for k in range(max(n_items - n_target, 0)):
-        D, dmin, m1, m2 = merge_step(D, p_dvec, p_sa, p_do, births, sizes,
-                                     active, max_size)
-        found = torch.isfinite(dmin)
 
-        sa = torch.argmax((births == m1).to(i32)).reshape(1)
-        sb = torch.argmax((births == m2).to(i32)).reshape(1)
-        s_a = pick(sizes, sa)
-        s_b = pick(sizes, sb)
-        s_new = s_a + s_b
-        sizes_f = sizes.to(f32)
-        s_new_f = s_new.to(f32)
-        s_a_f = s_a.to(f32)
-        s_b_f = s_b.to(f32)
-        c_new = ((s_a_f * pick(cents, sa)[0] + s_b_f * pick(cents, sb)[0])
-                 / s_new_f)
-        if update_rule == "centroid":
-            dvec = ward_update_vector(
-                update_rule, sizes_f=sizes_f, s_a_f=s_a_f, s_b_f=s_b_f,
-                s_new_f=s_new_f, cents=cents, c_new=c_new)
-        else:
-            d_a = pick(D, sa)[0]
-            dvec = ward_update_vector(
-                update_rule, sizes_f=sizes_f, s_a_f=s_a_f, s_b_f=s_b_f,
-                s_new_f=s_new_f, d_a=d_a, d_b=pick(D, sb)[0],
-                d_ab=pick(d_a, sb))
-        dvec = dvec.index_fill(0, sa, 0.0)
-
-        # gated scatters: the JAX body's `gate(x.at[i].set(v), x)` on the
-        # touched elements only (the untouched ones are equal either way)
-        sizes.index_copy_(0, sa, torch.where(found, s_new, s_a))
-        sizes.index_copy_(0, sb, torch.where(found, 0, pick(sizes, sb)))
-        births.index_copy_(
-            0, sa, torch.where(found, counter, pick(births, sa)).reshape(1))
-        cents.index_copy_(
-            0, sa, torch.where(found, c_new, pick(cents, sa)[0])[None])
-        active.index_copy_(0, sb, torch.where(found, 0, pick(active, sb)))
-        row = torch.stack([m1, m2, counter]).to(i32)[None]
-        step1 = step.reshape(1).to(torch.int64)
-        log.index_copy_(0, step1, torch.where(found, row, pick(log, step1)))
-        counter = counter + found.to(i32)
-        step = step + found.to(i32)
-        p_sa = torch.where(found, sa.to(i32), 0).to(i32)
-        p_dvec = torch.where(found, dvec, zero_f)
-        p_do = found.to(i32).reshape(1)
-
-        if (k + 1) % FOUND_READ_EVERY == 0 and not bool(found):
+def _run_graphed(body, st, limit: int) -> None:
+    """Runs ``body`` (one loop step on ``st``) on the card: once eagerly on
+    a side stream, then in a CUDA graph of :data:`FOUND_READ_EVERY` steps
+    replayed until ``st.found`` reads false or ``limit`` steps have run
+    (the steps past either are gated no-ops). One host read of ``found``
+    per replay."""
+    dev = st.D.device
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        body()
+    cur.wait_stream(side)
+    done = 1
+    if done >= limit or not bool(st.found):
+        return
+    reps = min(FOUND_READ_EVERY, limit - done)
+    graph = torch.cuda.CUDAGraph()
+    before = mk.captured_launches
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            body()
+    k1_per_replay = mk.captured_launches - before
+    while done < limit:
+        graph.replay()
+        mk.count_replay(k1_per_replay)
+        done += reps
+        if not bool(st.found):
             break
-
-    steps = int(step)
-    return (log[:steps].cpu().numpy(), births.cpu().numpy(),
-            sizes.cpu().numpy(), active.cpu().numpy().astype(bool))
 
 
 def _pad_len(n: int) -> int:
@@ -357,7 +388,8 @@ def _leaf_indices(birth: int, n_items: int, children: dict[int, tuple[int, int]]
 
 def _run_merges(
     x: np.ndarray, n_target: int, max_size: int, update_rule: str,
-    device: torch.device, mesh=None, merge_step=merge_update_argmin,
+    device: torch.device, mesh=None, merge_step=mk.merge_step,
+    eager: bool = False,
 ) -> tuple[list[list[int]], np.ndarray]:
     """Run the device loop; return surviving clusters' index lists in Go list
     order (birth order) plus the merge log."""
@@ -371,7 +403,7 @@ def _run_merges(
     xp[:n] = x
     log, births, _sizes, active = _merge_loop(
         torch.from_numpy(xp).to(device), n, n_target, max_size, update_rule,
-        merge_step=merge_step)
+        merge_step=merge_step, eager=eager)
     children = {int(new): (int(hi), int(lo)) for hi, lo, new in log}
     surviving = sorted(int(b) for b in births[active])
     clusters = [_leaf_indices(b, n, children) for b in surviving]
@@ -384,7 +416,7 @@ def split_oversized(
     max_size: int,
     update_rule: str = "centroid",
     device: str | torch.device | None = None,
-    merge_step=merge_update_argmin,
+    merge_step=mk.merge_step,
 ) -> list[list[int]]:
     """Split one oversized cluster by re-running the merge engine on its
     members with the minSize=1 target — splitCluster semantics
@@ -451,14 +483,18 @@ def constrained_ward(
     return _constrained_ward(
         embeddings, ids, min_size=min_size, max_size=max_size,
         update_rule=update_rule, reassign_dropped=reassign_dropped,
-        mesh=mesh, device=device, merge_step=merge_update_argmin)
+        mesh=mesh, device=device, merge_step=mk.merge_step)
 
 
 def _constrained_ward(embeddings, ids, *, min_size, max_size, update_rule,
-                      reassign_dropped, mesh, device, merge_step):
+                      reassign_dropped, mesh, device, merge_step,
+                      eager=False):
     """:func:`constrained_ward` with the merge step as a parameter. Only
     tests and the card's smoke run pass anything but K1 here (the plain
-    twin, to hold the kernel's loop against it on the same device)."""
+    twin, to hold the kernel's loop against it on the same device), or
+    ``eager=True``, which runs the loop's steps one by one on the card
+    instead of in a CUDA graph (so a graphed loop can be held against an
+    eager one)."""
     dev = resolve_device(device)
     if isinstance(embeddings, torch.Tensor):
         embeddings = embeddings.detach().cpu().numpy()
@@ -473,7 +509,7 @@ def _constrained_ward(embeddings, ids, *, min_size, max_size, update_rule,
 
     n_target = calculate_optimal_clusters(n, min_size, max_size)
     clusters, log = _run_merges(x, n_target, max_size, update_rule, dev,
-                                mesh=mesh, merge_step=merge_step)
+                                mesh=mesh, merge_step=merge_step, eager=eager)
 
     # Oversized-split pass (clustering.go:248-262). Unreachable through the
     # public path (the merge loop never exceeds max_size) but preserved.

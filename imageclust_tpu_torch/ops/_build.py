@@ -97,12 +97,12 @@ def _compile(nvcc: str, out_dir: Path) -> str:
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.ic_merge_rows_per_block.argtypes = []
-    lib.ic_merge_rows_per_block.restype = i
+    lib.ic_merge_workspace_bytes.argtypes = [i]
+    lib.ic_merge_workspace_bytes.restype = ctypes.c_longlong
     lib.ic_cuda_error_string.argtypes = [i]
     lib.ic_cuda_error_string.restype = ctypes.c_char_p
     lib.ic_merge_update_argmin.argtypes = [
-        p, p, p, p, p, p, p, i, i, p, p, p, p, p, p]
+        p, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p]
     lib.ic_merge_update_argmin.restype = i
     lib.ic_batched_rows_per_block.argtypes = []
     lib.ic_batched_rows_per_block.restype = ctypes.c_int

@@ -1,4 +1,4 @@
-"""K1: the fused constrained-Ward merge step, and its plain PyTorch twin.
+"""K1: the constrained-Ward merge step, and its plain PyTorch twins.
 
 :func:`merge_update_argmin` replaces
 ``imageclust_tpu/ops/pallas_kernels.py:merge_update_argmin`` (Pallas body
@@ -7,13 +7,22 @@
 returns the next feasible pair's ``(dmin, bhi, blo)`` with the Go tie-break
 (lexicographically smallest ``(max birth, min birth)`` among the minima).
 
-On a CUDA tensor it launches the hand-written Hopper kernel
-(``csrc/merge_update_argmin.cu``; design notes there): bound by device-memory
-bytes, one read of the active rows of D per merge. On a CPU tensor it runs
-:func:`merge_update_argmin_plain`, the torch translation of the Pallas body
-(pallas_kernels.py:96-119) and its host reduce (:191-198). Both only select
-and take exact minima, so they are bit-identical on any finite data. No
-other device is accepted, and nothing falls back.
+:func:`merge_step` is the same kernel as one step of the exact merge loop
+(``cluster/ward.py``) on a :class:`MergeState`: the kernel keeps each row's
+feasible minimum cached across the loop's calls and rescans only the rows a
+merge invalidates, and it also does the loop's integer bookkeeping for the
+pair it finds (sizes, births, active, the log row, the counters, the next
+pending update), gated on ``found`` and the step limit. Its twin
+:func:`merge_step_plain` does that bookkeeping in torch ops after
+:func:`merge_update_argmin_plain`; both leave the state bit-identical.
+
+On a CUDA tensor both launch the hand-written Hopper kernel
+(``csrc/merge_update_argmin.cu``; design notes there), one launch a call.
+On a CPU tensor they run the twins: :func:`merge_update_argmin_plain`, the
+torch translation of the Pallas body (pallas_kernels.py:96-119) and its
+host reduce (:191-198), and :func:`merge_step_plain`. Kernel and twins only
+select, take exact minima and count, so they are bit-identical on any
+finite data. No other device is accepted, and nothing falls back.
 
 :func:`masked_argmin_pair_plain` is the twin of ``masked_argmin_pair_xla``
 (pallas_kernels.py:44): the same reduction without the update.
@@ -33,11 +42,15 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "MergeState",
+    "merge_step",
+    "merge_step_plain",
     "merge_update_argmin",
     "merge_update_argmin_plain",
     "merge_update_argmin_batched",
     "merge_update_argmin_batched_plain",
     "masked_argmin_pair_plain",
+    "count_replay",
     "launches",
     "batched_launches",
 ]
@@ -45,9 +58,27 @@ __all__ = [
 _STRIPE = 128
 _BIG_I32 = 2**31 - 1
 
-# Launches of the CUDA kernel pair by merge_update_argmin (one per call on a
-# CUDA tensor). Plain-twin calls are not counted.
+# The int32 fields of MergeState.ctl, as csrc/merge_update_argmin.cu reads
+# and writes them.
+CTL_SA = 0            # pending slot of the next step's update
+CTL_DO = 1            # the next step applies it
+CTL_COUNTER = 2       # next birth stamp
+CTL_STEP = 3          # merges performed: the next log row
+CTL_LIMIT = 4         # most merges the loop may perform
+CTL_FILLED = 5        # the kernel's cache is filled
+CTL_TICKET = 6        # the kernel's block ticket (0 between calls)
+CTL_RESCANS = 7       # the kernel's rows rescanned in the running call
+CTL_RESCAN_TOTAL = 8  # rows rescanned by the kernel's cached calls
+CTL_RESCAN_MAX = 9    # most rows rescanned by one cached call
+CTL_LEN = 10
+
+# Launches of the K1 kernel (one per merge_update_argmin or merge_step call
+# on a CUDA tensor, or per step of a replayed CUDA graph: count_replay).
+# Plain-twin calls are not counted.
 launches = 0
+# K1 launches recorded into CUDA graphs while they were captured; a capture
+# runs nothing, so these are not launches until a replay.
+captured_launches = 0
 # The same count for merge_update_argmin_batched (K3).
 batched_launches = 0
 
@@ -115,6 +146,114 @@ def merge_update_argmin_plain(D, dvec, sa, do_update, births, sizes, active,
     return D, dmin, m1, m2
 
 
+class MergeState:
+    """The exact merge loop's state on one device, updated IN PLACE by every
+    :func:`merge_step` (the kernel) or :func:`merge_step_plain` (the twin),
+    so a CUDA graph can replay steps on it.
+
+    ``D`` (n, n) f32, ``births``/``sizes``/``active`` (n,) int32 are taken
+    as given (not copied). ``dvec`` (n,) f32 is the pending update's row,
+    which the loop's float work writes between steps; ``ctl`` the
+    ``CTL_*`` fields; ``log`` (max(n - 1, 1), 3) int32 the merge log. Each
+    step leaves the pair it found for the float work: ``pair`` (2,) int64
+    (sa, sb), ``pair_f`` (3,) f32 (size of sa, size of sb, their sum),
+    ``found`` (1,) bool (all zero when nothing merged), and
+    ``out_d`` (1,) f32 / ``out_pair`` (2,) int32, K1's (dmin, bhi, blo)
+    before the step limit's gate. ``ws`` is the kernel's workspace (the
+    per-row cache and its per-block partials), None on the CPU."""
+
+    def __init__(self, D, births, sizes, active, counter: int, limit: int,
+                 max_size: int):
+        _check(D, D[0], births, sizes, active, 0, 0)  # D[0]: an (n,) f32
+        dev = D.device
+        n = D.shape[0]
+        i32 = torch.int32
+        self.D, self.births, self.sizes, self.active = D, births, sizes, active
+        self.max_size = int(max_size)
+        self.dvec = torch.zeros(n, dtype=torch.float32, device=dev)
+        ctl = [0] * CTL_LEN
+        ctl[CTL_COUNTER] = int(counter)
+        ctl[CTL_LIMIT] = int(limit)
+        self.ctl = torch.tensor(ctl, dtype=i32, device=dev)
+        self.log = torch.zeros((max(n - 1, 1), 3), dtype=i32, device=dev)
+        self.pair = torch.zeros(2, dtype=torch.int64, device=dev)
+        self.pair_f = torch.zeros(3, dtype=torch.float32, device=dev)
+        self.found = torch.zeros(1, dtype=torch.bool, device=dev)
+        self.out_d = torch.zeros(1, dtype=torch.float32, device=dev)
+        self.out_pair = torch.zeros(2, dtype=i32, device=dev)
+        self.ws = None
+        if dev.type == "cuda":
+            self.ws = _workspace(n, dev)
+
+
+def merge_step_plain(st: MergeState) -> None:
+    """One step of the exact loop in torch ops, the twin of
+    :func:`merge_step`: K1's plain twin, then the loop's integer
+    bookkeeping for the pair, gated on ``found`` (a finite dmin, and fewer
+    than ``ctl[CTL_LIMIT]`` merges so far). The JAX package's loop body
+    (ward.py:386-480) with the slot lookups and gated scatters of the
+    port's earlier eager loop. Runs on any device."""
+    i32 = torch.int32
+    ctl = st.ctl
+    _, dmin, m1, m2 = merge_update_argmin_plain(
+        st.D, st.dvec, ctl[CTL_SA], ctl[CTL_DO], st.births, st.sizes,
+        st.active, st.max_size)
+    found = torch.isfinite(dmin) & (ctl[CTL_STEP] < ctl[CTL_LIMIT])
+    fi = found.to(i32)
+    sa = torch.argmax((st.births == m1).to(i32))
+    sb = torch.argmax((st.births == m2).to(i32))
+    pair = torch.where(found, torch.stack([sa, sb]), 0)
+    s = st.sizes.index_select(0, pair)  # (s_a, s_b)
+    s_new = s[0] + s[1]
+    sizes_ab = torch.stack([s_new, torch.zeros_like(s_new)])
+    st.sizes.index_copy_(0, pair, torch.where(found, sizes_ab, s))
+    sa1, sb1 = pair[:1], pair[1:]
+    st.active.index_copy_(
+        0, sb1, torch.where(found, 0, st.active.index_select(0, sb1)))
+    counter = ctl[CTL_COUNTER:CTL_COUNTER + 1]
+    st.births.index_copy_(
+        0, sa1, torch.where(found, counter, st.births.index_select(0, sa1)))
+    step1 = ctl[CTL_STEP:CTL_STEP + 1].to(torch.int64)
+    row = torch.stack([m1, m2, counter[0]]).to(i32)[None]
+    st.log.index_copy_(
+        0, step1, torch.where(found, row, st.log.index_select(0, step1)))
+    st.ctl[CTL_COUNTER:CTL_STEP + 1].add_(fi)
+    st.ctl[CTL_SA:CTL_DO + 1].copy_(torch.stack([pair[0].to(i32), fi]))
+    st.ctl[CTL_FILLED] = 1
+    st.pair.copy_(pair)
+    st.pair_f.copy_(torch.where(found, torch.stack([s[0], s[1], s_new]),
+                                0).to(torch.float32))
+    st.found.copy_(found.reshape(1))
+    st.out_d.copy_(dmin.reshape(1))
+    st.out_pair.copy_(torch.stack([m1, m2]))
+
+
+def merge_step(st: MergeState) -> None:
+    """K1 as one step of the exact loop on ``st`` (see :class:`MergeState`):
+    applies the pending update, finds the next feasible pair from the
+    kernel's per-row cache (filled by one full scan at the loop's first
+    step) and does the loop's integer bookkeeping for it, in one launch on
+    the current stream, with no host synchronisation and no allocation, so
+    it can be captured in a CUDA graph. On a CPU tensor it runs
+    :func:`merge_step_plain`."""
+    dev = st.D.device
+    if dev.type == "cpu":
+        merge_step_plain(st)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"merge_step runs on cuda or cpu, not {dev}")
+    _launch(st.D, st.dvec, st.births, st.sizes, st.active, st.ctl,
+            st.max_size, st.ws, st.out_d, st.out_pair, st.log, st.pair,
+            st.pair_f, st.found)
+
+
+def count_replay(k1_launches: int) -> None:
+    """Counts the K1 launches made by one replay of a CUDA graph into which
+    ``k1_launches`` calls were captured."""
+    global launches
+    launches += int(k1_launches)
+
+
 def _check(D, dvec, births, sizes, active, sa, do_update):
     if D.dim() != 2 or D.shape[0] != D.shape[1]:
         raise ValueError(f"D must be square (n, n), got {tuple(D.shape)}")
@@ -146,20 +285,49 @@ def _check(D, dvec, births, sizes, active, sa, do_update):
                 raise ValueError(f"{name} is on {v.device}, D on {D.device}")
 
 
-def _scalar(v, dev):
-    if isinstance(v, torch.Tensor):
-        return v.reshape(1)
-    return torch.tensor([int(v)], dtype=torch.int32, device=dev)
+def _workspace(n: int, dev) -> torch.Tensor:
+    from imageclust_tpu_torch.ops._build import load_kernels
+
+    nbytes = load_kernels().ic_merge_workspace_bytes(n)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch(D, dvec, births, sizes, active, ctl, max_size, ws, out_d,
+            out_pair, log=None, pair=None, pair_f=None, found=None) -> None:
+    """One K1 launch on the current stream; counted as a launch, or as a
+    captured launch while the stream is being captured into a CUDA graph."""
+    global launches, captured_launches
+    from imageclust_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()
+    for t in (D, dvec, births, sizes, active):
+        if t.data_ptr() % 16:
+            raise ValueError("kernel inputs must be 16-byte aligned")
+    loop = [0 if t is None else t.data_ptr()
+            for t in (log, pair, pair_f, found)]
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream(D.device)
+        rc = lib.ic_merge_update_argmin(
+            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
+            sizes.data_ptr(), active.data_ptr(), ctl.data_ptr(),
+            D.shape[0], int(max_size), ws.data_ptr(), out_d.data_ptr(),
+            out_pair.data_ptr(), *loop, stream.cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
+    _raise_on(lib, rc, "merge_update_argmin")
+    if capturing:
+        captured_launches += 1
+    else:
+        launches += 1
 
 
 def merge_update_argmin(D, dvec, sa, do_update, births, sizes, active,
                         max_size: int):
-    """K1. D (n, n) f32 contiguous, n % 128 == 0; dvec (n,) f32; births,
-    sizes, active (n,) int32; sa, do_update one int32 each (a tensor on D's
-    device, or a Python int); max_size a Python int. D is updated in place;
-    returns (D, dmin, bhi, blo) as 0-d tensors on D's device, without a host
-    synchronisation on CUDA."""
-    global launches
+    """K1 without a loop. D (n, n) f32 contiguous, n % 128 == 0; dvec (n,)
+    f32; births, sizes, active (n,) int32; sa, do_update one int32 each (a
+    tensor on D's device, or a Python int); max_size a Python int. D is
+    updated in place; returns (D, dmin, bhi, blo) as 0-d tensors on D's
+    device, without a host synchronisation on CUDA. The kernel scans every
+    active row (its cache is scratch here)."""
     _check(D, dvec, births, sizes, active, sa, do_update)
     if D.device.type == "cpu":
         return merge_update_argmin_plain(D, dvec, sa, do_update, births,
@@ -167,32 +335,18 @@ def merge_update_argmin(D, dvec, sa, do_update, births, sizes, active,
     if D.device.type != "cuda":
         raise ValueError(f"merge_update_argmin runs on cuda or cpu, "
                          f"not {D.device}")
-    from imageclust_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
     dev = D.device
-    n = D.shape[0]
-    for t in (D, dvec, births, sizes, active):
-        if t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be 16-byte aligned")
-    sa_t = _scalar(sa, dev)
-    do_t = _scalar(do_update, dev)
-    m = n // lib.ic_merge_rows_per_block()
-    part_d = torch.empty(m, dtype=torch.float32, device=dev)
-    part_i = torch.empty((2, m), dtype=torch.int32, device=dev)
-    out_d = torch.empty((), dtype=torch.float32, device=dev)
+    ctl = torch.zeros(CTL_LEN, dtype=torch.int32, device=dev)
+    for field, v in ((CTL_SA, sa), (CTL_DO, do_update)):
+        if isinstance(v, torch.Tensor):
+            ctl[field:field + 1].copy_(v.reshape(1))
+        else:
+            ctl[field] = int(v)
+    out_d = torch.empty(1, dtype=torch.float32, device=dev)
     out_pair = torch.empty(2, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ic_merge_update_argmin(
-            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
-            sizes.data_ptr(), active.data_ptr(), sa_t.data_ptr(),
-            do_t.data_ptr(), n, int(max_size), part_d.data_ptr(),
-            part_i[0].data_ptr(), part_i[1].data_ptr(), out_d.data_ptr(),
-            out_pair.data_ptr(), stream)
-    _raise_on(lib, rc, "merge_update_argmin")
-    launches += 1
-    return D, out_d, out_pair[0], out_pair[1]
+    _launch(D, dvec, births, sizes, active, ctl, max_size,
+            _workspace(D.shape[0], dev), out_d, out_pair)
+    return D, out_d[0], out_pair[0], out_pair[1]
 
 
 def _raise_on(lib, rc: int, what: str) -> None:

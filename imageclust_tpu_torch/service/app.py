@@ -320,7 +320,7 @@ class ClusterService:
                 return self.cluster(query, headers.get("Content-Type", ""),
                                     body)
             return _error(405, "method not allowed")
-        if method != "GET":
+        if method not in ("GET", "HEAD"):  # HEAD: GET without the body
             return _error(405, "method not allowed")
         if path in ("/api/view", "/view"):
             return self.view(query)
@@ -375,7 +375,7 @@ def _handler_class(service: ClusterService, max_body: int):
                 reply = _error(500, str(exc))
             self._send(reply)
 
-        do_GET = do_POST = do_OPTIONS = do_PUT = do_DELETE = _serve
+        do_GET = do_HEAD = do_POST = do_OPTIONS = do_PUT = do_DELETE = _serve
 
     return Handler
 

@@ -147,20 +147,99 @@ def test_whole_loop_kernel_bit_identical_to_twin(cuda, C, B, counts,
     assert int(got[1].sum()) > 0
 
 
+def _features(data, n, seed):
+    rng = np.random.default_rng(seed)
+    if data == "normal":
+        return rng.normal(size=(n, 16)).astype(np.float32)
+    d = 2 if data == "grid_d2" else 64
+    return rng.integers(-2, 3, (n, d)).astype(np.float32)
+
+
+def _same_state(a, b):
+    for name in ("D", "births", "sizes", "active", "dvec", "log", "pair",
+                 "pair_f", "found", "out_d", "out_pair"):
+        ta, tb = getattr(a, name), getattr(b, name)
+        if ta.dtype == torch.float32:
+            ta, tb = ta.view(torch.int32), tb.view(torch.int32)
+        assert torch.equal(ta, tb), name
+    assert torch.equal(a.ctl[:mk.CTL_FILLED + 1], b.ctl[:mk.CTL_FILLED + 1])
+
+
+@pytest.mark.parametrize("n,data,max_size", [
+    (100, "normal", 6), (1000, "normal", 6), (1000, "grid", 6),
+    (700, "grid_d2", 6), (300, "grid_d2", 2)])
 @pytest.mark.parametrize("rule", ["centroid", "lance_williams"])
-def test_engine_on_card_matches_twin_loop(cuda, rule):
-    x = np.random.default_rng(3).integers(-2, 3, (700, 64)).astype(
-        np.float32)
+def test_cached_steps_bit_identical_to_twin_and_stateless(cuda, n, data,
+                                                          max_size, rule):
+    """K1's loop steps (the cache, the fused bookkeeping) against the twin
+    step on a copy of the state, every step and past the step limit, and
+    each step's pair against a stateless K1 call on the same inputs."""
+    x = _features(data, n, n + max_size)
+    xp = torch.zeros((ward._pad_len(n), x.shape[1]))
+    xp[:n] = torch.from_numpy(x)
+    xp = xp.to(cuda)
+    limit = n - ward.calculate_optimal_clusters(n, min(3, max_size),
+                                                max_size)
+    st_k, c_k = ward._loop_state(xp, n, limit, max_size)
+    st_p, c_p = ward._loop_state(xp, n, limit, max_size)
+    for _ in range(limit + 3):
+        sl = mk.merge_update_argmin(
+            st_k.D.clone(), st_k.dvec, st_k.ctl[mk.CTL_SA:mk.CTL_SA + 1],
+            st_k.ctl[mk.CTL_DO:mk.CTL_DO + 1], st_k.births, st_k.sizes,
+            st_k.active, max_size)
+        before = mk.launches
+        mk.merge_step(st_k)
+        assert mk.launches == before + 1
+        mk.merge_step_plain(st_p)
+        _same_state(st_k, st_p)
+        assert torch.equal(sl[1].view(torch.int32),
+                           st_k.out_d[0].view(torch.int32))
+        assert torch.equal(torch.stack(sl[2:]), st_k.out_pair)
+        ward._float_step(st_k, c_k, rule)
+        ward._float_step(st_p, c_p, rule)
+    assert int(st_k.ctl[mk.CTL_STEP]) > 0 and not bool(st_k.found)
+    assert int(st_k.ctl[mk.CTL_RESCAN_MAX]) >= 1
+
+
+@pytest.mark.parametrize("rule", ["centroid", "lance_williams"])
+@pytest.mark.parametrize("data", ["grid", "grid_d2", "normal"])
+def test_engine_on_card_matches_twin_loop(cuda, rule, data):
+    """The exact engine on the card: K1 in CUDA graphs against the plain
+    twin's loop run step by step; the launches are the merges plus at most
+    FOUND_READ_EVERY - 1 gated no-op steps of the last replay."""
+    x = _features(data, 700, 3)
     kw = dict(min_size=3, max_size=6, update_rule=rule,
               reassign_dropped=False, mesh=None, device=cuda)
     mk.launches = 0
-    got = ward._constrained_ward(x, None, merge_step=mk.merge_update_argmin,
-                                 **kw)
-    assert mk.launches == len(got.merges)
-    want = ward._constrained_ward(
-        x, None, merge_step=mk.merge_update_argmin_plain, **kw)
+    got = ward._constrained_ward(x, None, merge_step=mk.merge_step, **kw)
+    merges = len(got.merges)
+    assert merges == 700 - got.n_clusters_target
+    assert merges <= mk.launches <= merges + ward.FOUND_READ_EVERY - 1
+    want = ward._constrained_ward(x, None, merge_step=mk.merge_step_plain,
+                                  eager=True, **kw)
     np.testing.assert_array_equal(got.merges, want.merges)
     assert got.cluster_map == want.cluster_map
+    eager = ward._constrained_ward(x, None, merge_step=mk.merge_step,
+                                   eager=True, **kw)
+    np.testing.assert_array_equal(eager.merges, want.merges)
+
+
+def test_graphed_loop_stops_on_a_stall(cuda):
+    """Tight triplets under (4, 5): the merges stop at 2 per triplet, far
+    below the step limit; the graphed loop notices within one replay."""
+    rng = np.random.default_rng(14)
+    centers = rng.normal(size=(256, 4)).astype(np.float32) * 100
+    x = np.repeat(centers, 3, axis=0) + rng.integers(
+        -1, 2, (768, 4)).astype(np.float32)
+    kw = dict(min_size=4, max_size=5, update_rule="lance_williams",
+              reassign_dropped=False, mesh=None, device=cuda)
+    mk.launches = 0
+    got = ward._constrained_ward(x, None, merge_step=mk.merge_step, **kw)
+    assert len(got.merges) == 512
+    assert 512 < mk.launches <= 512 + ward.FOUND_READ_EVERY
+    want = ward._constrained_ward(x, None, merge_step=mk.merge_step_plain,
+                                  eager=True, **kw)
+    np.testing.assert_array_equal(got.merges, want.merges)
 
 
 @pytest.mark.parametrize("rule", ["lance_williams", "centroid"])

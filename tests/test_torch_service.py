@@ -269,6 +269,28 @@ class TestParity:
         assert a[5] <= b[5]  # the port adds the CUDA version
         assert "cuda" in b[5]
 
+    def test_head_answers_as_get(self, both):
+        """aiohttp's add_get answers HEAD on every GET route: GET's status,
+        Content-Type and CORS headers, and no body."""
+        def scenario(c):
+            out = []
+            for path in ("/api/jobs", "/healthz", "/",
+                         "/api/image/nope.png"):
+                r = c.request("HEAD", path)
+                out.append((path, r.status, r.ctype, r.body,
+                            c.request("GET", path).status,
+                            {k: r.headers.get(k) for k in (
+                                "Access-Control-Allow-Origin",
+                                "Access-Control-Allow-Methods",
+                                "Access-Control-Allow-Headers")}))
+            return out
+
+        a, b = _both(both, scenario)
+        assert a == b
+        assert [r[1] for r in a] == [200, 200, a[2][4], 404]
+        assert all(r[1] == r[4] and r[3] == b"" for r in a)
+        assert all(r[5]["Access-Control-Allow-Origin"] == "*" for r in a)
+
     def test_async_submit_and_poll(self, both, rng):
         names, blobs = color_group_images(rng, n_groups=1, per_group=3)
 

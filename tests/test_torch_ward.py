@@ -121,9 +121,9 @@ class TestLoopControl:
     def _counting(self):
         calls = []
 
-        def step(*args):
+        def step(state):
             calls.append(1)
-            return mk.merge_update_argmin_plain(*args)
+            mk.merge_step_plain(state)
 
         return step, calls
 
