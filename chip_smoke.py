@@ -76,10 +76,12 @@ line and raises on any failure:
 16. K4 (``pref_topk_block``) against its twin on the card: a 2M-row job's
     summarize pass (2,000,000 x 5209 centroids at d = 512 in bf16 and f32,
     d = 1024 in int8; every row compared), small shapes, ties
-    across tiles and k = 5 < kk; integer-grid inputs bit-identical, normal
-    inputs equal up to near ties; times of the three dtypes (CUDA events
-    around a burst, the profiler beside them) beside their bounds, the
-    twin's and a ``torch.matmul`` + ``torch.topk`` yardstick;
+    across tiles, k = 5 < kk, an odd width (d = 1037), and the
+    streaming-row path at 262,144 x 4100 (bf16 d = 1000, int8 d = 2000,
+    f32 d = 1000); integer-grid inputs bit-identical, normal inputs equal
+    up to near ties; times of each dtype and row path (CUDA events around
+    a burst, the profiler beside them) beside their bounds, the twin's and
+    a ``torch.matmul`` + ``torch.topk`` yardstick (bf16 and f32);
 17. the bucketed engine at n = 2,000,000 (5209 buckets: one K4 launch) on
     seeded normal features in int8 (d = 1024), bf16 and f32 (d = 512):
     sizes in [3, 6], no image lost; the int8 run identical to a run with
@@ -160,10 +162,17 @@ K5_TOL = {"bfloat16": 0.02, "float32": 1e-5}  # tests/test_attention.py
 INT8_OPS_PER_S = 1979e12  # H100 SXM data sheet, dense int8 tensor cores
 # phase 16: K4 at a 2M-row job's summarize pass (k = ceil(2M / 384) buckets),
 # every row held against the twin; then small shapes, ties across tiles
-# (n, k, d, duplicated centroids) and k = 5 < kk
+# (n, k, d, duplicated centroids), k = 5 < kk and an odd width (zero-padded
+# centroids for TMA, byte-wise row copies; bf16 rows stream)
 K4_N, K4_K, K4_KK = 2_000_000, 5209, 8
 K4_SMALL = ((600, 19, 48, False), (16, 384, 128, False),
-            (8, 256, 128, True), (300, 5, 64, False))
+            (8, 256, 128, True), (300, 5, 64, False), (513, 389, 1037, False))
+# phase 16: the streaming-row path of the tensor-core kernel at a mid size
+# (rows wider than 1 KB stream beside the centroid slabs: bf16 d = 1000,
+# int8 d = 2000); f32 has one row path, timed at d = 1000 beside them
+K4_STREAM_N, K4_STREAM_K = 262_144, 4100
+K4_STREAM_D = {"bfloat16": 1000, "int8": 2000, "float32": 1000}
+K4_KERNELS = ("pref_topk",)  # K4's kernels' names in a profile
 K4_NEAR_TIE = 1e-5  # relative, float64 distances of differing picks
 # phase 17: least share of f32/bf16 k-means assignments equal to a twin
 # summarize's on the same centroids (they may differ only at near ties)
@@ -1634,6 +1643,12 @@ def phase_k4(card: str):
             x, c = _k4_inputs(gen, K4_N, K4_K, d, dts[name], grid)
             cases.append(_k4_compare(x, c, K4_KK, grid))
             del x, c
+    for name, d in K4_STREAM_D.items():
+        for grid in (True, False) if name != "int8" else (True,):
+            x, c = _k4_inputs(gen, K4_STREAM_N, K4_STREAM_K, d, dts[name],
+                              grid)
+            cases.append(_k4_compare(x, c, K4_KK, grid))
+            del x, c
     max_err = max(cs["max_abs_err"] for cs in cases
                   if cs["data"] == "integer grid")
     emit({"phase": "k4_parity", "cases": cases,
@@ -1642,47 +1657,61 @@ def phase_k4(card: str):
                     "float64)", "max_abs_err": max_err})
 
     times = {}
-    for name, d in (("bfloat16", 512), ("int8", 1024), ("float32", 512)):
+    shapes = [(name, K4_N, K4_K, d,
+               "resident" if name != "float32" else "cp.async")
+              for name, d in (("bfloat16", 512), ("int8", 1024),
+                              ("float32", 512))]
+    shapes += [(name, K4_STREAM_N, K4_STREAM_K, d,
+                "streaming" if name != "float32" else "cp.async")
+               for name, d in K4_STREAM_D.items()]
+    for name, n, k, d, row_path in shapes:
         dt = dts[name]
-        x, c = _k4_inputs(gen, K4_N, K4_K, d, dt, dt == torch.int8)
+        x, c = _k4_inputs(gen, n, k, d, dt, dt == torch.int8)
         cn = pk.row_norms(c)
         call = lambda: pk.pref_topk_block(x, c, cn, K4_KK)  # noqa: E731
         call_ms = cuda_ms(call, 3, 1)
         dev_ms = burst_ms(call, 3, 1)
-        prof_ms = device_ms(call, ("pref_topk_kernel",), 3)
-        bound_ms, bound_by, bytes_moved, ops = _k4_bound(K4_N, K4_K, d, dt)
-        rec = {"dtype": name, "n": K4_N, "k": K4_K, "d": d,
+        prof_ms = device_ms(call, K4_KERNELS, 3)
+        bound_ms, bound_by, bytes_moved, ops = _k4_bound(n, k, d, dt)
+        rec = {"dtype": name, "n": n, "k": k, "d": d, "row_path": row_path,
                "device_ms": dev_ms, "profiler_device_ms": prof_ms,
                "call_ms": call_ms, "bound_ms": bound_ms,
                "bound_by": bound_by, "bytes": bytes_moved, "ops": ops}
-        if name == "bfloat16":
+        if n == K4_N:
             rec["plain_ms"] = cuda_ms(
                 lambda: pk.pref_topk_block_plain(x, c, cn, K4_KK), 1, 1)
+        if n == K4_N and dt != torch.int8:  # int8 has no such PyTorch call
             ct = c.T.contiguous()
 
             def two_calls():  # context only: no one PyTorch call is K4
-                for s in range(0, K4_N, 1 << 18):
+                for s in range(0, n, 1 << 18):
                     torch.topk(torch.matmul(x[s:s + (1 << 18)], ct), K4_KK,
                                dim=1)
             rec["matmul_topk_ms"] = cuda_ms(two_calls, 1, 1)
-        times[name] = rec
+        times[(name, row_path if n == K4_N else "stream_shape")] = rec
         emit({"phase": "k4_time", "card": card, **rec,
               "timing": "call_ms: CUDA events around one call, median of 3 "
                         "warm calls; device_ms: CUDA events around 3 "
                         "back-to-back calls, per call; profiler_device_ms: "
                         "torch.profiler kernel time, mean of 3; plain_ms: "
                         "the twin, one warm call; "
-                        "matmul_topk_ms: torch.matmul (bf16) + torch.topk(8) "
-                        "over 2^18-row chunks, one warm call, context only"})
+                        "matmul_topk_ms: torch.matmul (bf16, or f32 with "
+                        "TF32 off) + torch.topk(8) over 2^18-row chunks, one "
+                        "warm call, context only (int8: no such call)"})
         del x, c, cn
         torch.cuda.empty_cache()
-    t = times["bfloat16"]
+    t = times[("bfloat16", "resident")]
+    f = times[("float32", "cp.async")]
     return max_err, {"ms": t["device_ms"], "call_ms": t["call_ms"],
                      "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "matmul_topk_ms": t["matmul_topk_ms"],
-                     "int8_ms": times["int8"]["device_ms"],
-                     "float32_ms": times["float32"]["device_ms"]}
+                     "int8_ms": times[("int8", "resident")]["device_ms"],
+                     "float32_ms": f["device_ms"],
+                     "float32_bound_ms": f["bound_ms"],
+                     "float32_matmul_topk_ms": f["matmul_topk_ms"],
+                     "streaming_ms": {name: times[(name, "stream_shape")][
+                         "device_ms"] for name in K4_STREAM_D}}
 
 
 def phase_engine_2m(card: str):

@@ -117,7 +117,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ic_short_seq_attention.argtypes = [
         p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
     lib.ic_short_seq_attention.restype = i
-    lib.ic_pref_topk_block.argtypes = [p, p, p, i, i, i, i, i, p, p, p]
+    lib.ic_pref_topk_block.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p]
     lib.ic_pref_topk_block.restype = i
     return lib
 

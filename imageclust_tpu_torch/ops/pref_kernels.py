@@ -12,21 +12,26 @@ and own distance, which the bucketed engine's fused summarize uses.
 
 On a CUDA tensor it launches the hand-written Hopper kernel
 (``csrc/pref_topk_block.cu``; design notes there): one pass over the rows,
-tensor-core grams for bf16 (f32 accumulate) and int8 (s32 accumulate), an
-IEEE f32 gram for f32, a streaming top-k epilogue; the (n, k) score matrix
-never reaches device memory. On a CPU tensor it runs
-:func:`pref_topk_block_plain`, the Pallas body in plain torch. The kernel
-sums each row's squared norm itself, from the row slices it stages for its
-first centroid tile (as the Pallas body does from its row block), so the
-rows are read once; the twin takes :func:`row_norms`. The summation orders
-of the norms and the gram are the only differences between them: on
-integer-valued data they are bit-identical, on other data they can differ
-only at near ties. No other device is accepted, and nothing falls back.
+``wgmma`` grams fed by TMA for bf16 (f32 accumulate) and int8 (s32
+accumulate), a register-blocked IEEE f32 gram for f32, a top-k epilogue
+held in registers; the (n, k) score matrix never reaches device memory. On
+a CPU tensor it runs :func:`pref_topk_block_plain`, the Pallas body in
+plain torch. The kernel sums each row's squared norm itself before its
+centroid tiles (as the Pallas body does from its row block); the twin
+takes :func:`row_norms`. The summation orders of the norms and the gram
+are the only differences between them: on integer-valued data they are
+bit-identical, on other data they can differ only at near ties. No other
+device is accepted, and nothing falls back.
 
 The JAX wrapper pads d to 128 lanes and k to its 512-row chunks with +inf
-norms because of the TPU's tiling; the Hopper kernel checks its bounds and
-needs neither. It keeps up to 8 per row (the JAX kernel 128), what the
-bucketed engine asks for.
+norms because of the TPU's tiling. The Hopper kernel's copies zero-fill
+past d, n and k themselves; the wrapper only hands bf16 and int8
+centroids whose rows are not a multiple of 16 bytes over as a zero-padded
+copy, since TMA needs 16-byte-aligned rows (:func:`tma_centroids`; zeros
+add nothing to products or norms), and the centroid norms with +inf up to
+the kernel's next 128-centroid tile, so the kernel needs no bounds test
+on its columns. The rows are never copied. It keeps up to 8 per row (the
+JAX kernel 128), what the bucketed engine asks for.
 
 The module also holds the two rules of the stored feature values that the
 engine, the embedder and the pipeline share: :func:`to_grid` (the int8
@@ -38,12 +43,14 @@ from __future__ import annotations
 import torch
 
 __all__ = ["pref_topk_block", "pref_topk_block_plain", "row_norms", "gram",
-           "to_grid", "launches", "MAX_KK"]
+           "to_grid", "tma_centroids", "launches", "MAX_KK"]
 
 MAX_KK = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _NORM_BLOCK = 1 << 16  # rows per row-norm reduction
 _TILE_BYTES = 3 << 29  # the twin's (rows, k) tile, capped as _kmeans_block's
+_SLAB_BYTES = 128  # the kernel's k-slab; padded centroid rows are multiples
+_TILE_COLS = 128  # the kernel's centroid tile; its norms are read padded
 
 # Launches of the CUDA kernel by pref_topk_block (one per call on a CUDA
 # tensor). Plain-twin calls are not counted.
@@ -108,6 +115,34 @@ def pref_topk_block_plain(rows, cents, cnorms, kk: int):
     return torch.cat(idx), torch.cat(vals)
 
 
+def tma_centroids(cents: torch.Tensor):
+    """(centroids, row stride in elements) as the kernel's TMA copies take
+    them: ``cents`` itself when its rows are 16-byte multiples on a
+    16-byte-aligned base (always for float32, which the kernel copies by
+    cp.async), else a zero-padded copy whose rows are multiples of the
+    kernel's 128-byte k-slab. The padding is zeros, so products, norms and
+    scores are those of ``cents``."""
+    k, d = cents.shape
+    es = cents.element_size()
+    if cents.dtype == torch.float32 or (
+            (d * es) % 16 == 0 and cents.data_ptr() % 16 == 0):
+        return cents, d
+    ld = -(-d * es // _SLAB_BYTES) * _SLAB_BYTES // es
+    out = torch.zeros((k, ld), dtype=cents.dtype, device=cents.device)
+    out[:, :d] = cents
+    return out, ld
+
+
+def _padded_norms(cnorms: torch.Tensor) -> torch.Tensor:
+    """The centroid norms as the kernel reads them: +inf from k to the next
+    multiple of its 128-centroid tile, so those columns never score."""
+    k = cnorms.shape[0]
+    out = torch.full((-(-k // _TILE_COLS) * _TILE_COLS,), float("inf"),
+                     dtype=torch.float32, device=cnorms.device)
+    out[:k] = cnorms
+    return out
+
+
 def _check(rows, cents, cnorms, kk):
     if rows.dim() != 2 or cents.dim() != 2 or rows.shape[1] != cents.shape[1]:
         raise ValueError(f"rows (n, d) and cents (k, d) must share d, got "
@@ -154,12 +189,13 @@ def pref_topk_block(rows, cents, cnorms, kk: int):
     lib = load_kernels()
     rows = rows.contiguous()
     cents = cents.contiguous()
-    cnorms = cnorms.contiguous()
     with torch.cuda.device(rows.device):
+        cents, c_ld = tma_centroids(cents)
+        cnorms = _padded_norms(cnorms)
         stream = torch.cuda.current_stream(rows.device).cuda_stream
         rc = lib.ic_pref_topk_block(
             rows.data_ptr(), cents.data_ptr(), cnorms.data_ptr(),
-            n, k, d, kk, _DTYPES[rows.dtype],
+            n, k, d, c_ld, kk, _DTYPES[rows.dtype],
             idx.data_ptr(), vals.data_ptr(), stream)
     _raise_on(lib, rc, "pref_topk_block")
     launches += 1

@@ -264,19 +264,14 @@ def test_bucketed_engine_on_card_matches_twin_run(cuda, monkeypatch, rule):
 _K4_DTYPES = [torch.float32, torch.bfloat16, torch.int8]
 
 
-@pytest.mark.parametrize("dtype", _K4_DTYPES)
-@pytest.mark.parametrize("n,k,d,kk", [(600, 19, 48, 8), (1000, 5209, 512, 8),
-                                      (77, 130, 1000, 8), (65, 300, 33, 8),
-                                      (300, 5, 64, 5)])
-def test_pref_topk_block_bit_identical_to_twin(cuda, dtype, n, k, d, kk):
-    """K4 on integer-grid data (every product and sum exact in f32) equals
-    its twin bit for bit: indices, distances and tie order. d = 1000 int8
-    and d = 33 take the 4-byte and byte-wise copies."""
+def _k4_grid_case(dev, dtype, n, k, d, kk):
+    """K4 against its twin on integer-grid data with exact ties across
+    centroid tiles: indices, distances and tie order bit for bit."""
     from imageclust_tpu_torch.ops import pref_kernels as pk
 
-    gen = torch.Generator(device=cuda).manual_seed(n + k + d)
+    gen = torch.Generator(device=dev).manual_seed(n + k + d)
     hi = 127 if dtype == torch.int8 else 8
-    x, c = (torch.randint(-hi, hi + 1, (m, d), generator=gen, device=cuda,
+    x, c = (torch.randint(-hi, hi + 1, (m, d), generator=gen, device=dev,
                           dtype=torch.int16).to(dtype) for m in (n, k))
     c[k // 2:k // 2 + k // 4] = c[:k // 4]  # exact ties across tiles
     cn = pk.row_norms(c)
@@ -286,6 +281,31 @@ def test_pref_topk_block_bit_identical_to_twin(cuda, dtype, n, k, d, kk):
     want = pk.pref_topk_block_plain(x, c, cn, kk)
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", _K4_DTYPES)
+@pytest.mark.parametrize("n,k,d,kk", [(600, 19, 48, 8), (1000, 5209, 512, 8),
+                                      (77, 130, 1000, 8), (65, 300, 33, 8),
+                                      (300, 5, 64, 5), (513, 389, 1037, 8),
+                                      (257, 389, 1000, 8), (130, 389, 2000, 8),
+                                      (1, 5, 64, 5), (257, 128, 512, 8),
+                                      (129, 1, 7, 1)])
+def test_pref_topk_block_bit_identical_to_twin(cuda, dtype, n, k, d, kk):
+    """K4 on integer-grid data (every product and sum exact in f32) equals
+    its twin bit for bit: indices, distances and tie order. d = 33, 1037
+    and 7 take zero-padded centroids and byte-wise row copies (4-byte ones
+    in f32); bf16 rows of d = 1000 and 1037 and int8 rows of d = 1037 and
+    2000 stream beside the centroid slabs, narrower ones stay resident;
+    k = 5 and 1 are below one tile, 389 and 5209 end in a ragged one; n = 1
+    and 257 leave a block mostly empty."""
+    _k4_grid_case(cuda, dtype, n, k, d, kk)
+
+
+@pytest.mark.parametrize("dtype", _K4_DTYPES)
+@pytest.mark.parametrize("kk", range(1, 9))
+def test_pref_topk_block_every_kk(cuda, dtype, kk):
+    """Every list length the kernel takes, on the resident (d = 200) path."""
+    _k4_grid_case(cuda, dtype, 257, 389, 200, kk)
 
 
 @pytest.mark.parametrize("feature_dtype", ["float32", "bfloat16", "int8"])
