@@ -37,8 +37,15 @@ line and raises on any failure:
 6. K3 (``merge_update_argmin_batched``) against its twin on the card: C in
    {1, 8, 261} buckets of B in {128, 512}, random and integer-grid
    matrices, mixed ``do_update``, ``absorb_min`` -1 and 3, an all-infeasible
-   bucket; bit-identical (D, dmin, bhi, blo) required; times at C = 261,
-   B = 512 (a 100,000-image job's one chunk);
+   bucket; bit-identical (D, dmin, bhi, blo) required; then whole lockstep
+   chunks (both phases, both rules, normal, integer-grid and d = 2 tied
+   features, B in {128, 200, 512}, C up to 261), K3's loop steps (its
+   per-bucket row cache, the fused bookkeeping) against the twin steps on
+   a copy of the state: the whole state bit-identical after every
+   iteration, with the rows rescanned per bucket and call; then the times
+   of a call without a loop (one full scan) and of a cached call after 100
+   iterations, at C = 261, B = 512 (a 100,000-image job's one chunk),
+   beside their bounds;
 7. K2 (``merge_loop_whole``) against its twin and against the K3 lockstep
    loop under Lance-Williams: C in {3, 64, 256}, B in {128, 512}, counts
    mixing 0.75 B, 37, 5 and 0, absorb on and off, normal, integer-grid and
@@ -50,10 +57,13 @@ line and raises on any failure:
    bucket's merge count beside it;
 8. the bucketed engine (``constrained_ward_bucketed``) at n = 100,000,
    d = 1000 on seeded normal features, Lance-Williams (K2) and centroid
-   (K3), each also with the kernels swapped for their twins: identical
-   merge logs and clusters, sizes in [3, 6], no image lost; K2's summed
-   device time (CUDA events around each call) beside the bucket-merges
-   phase;
+   (K3 in CUDA graph replays), each also with the kernels swapped for
+   their twins (the lockstep loop then runs the twin step eagerly):
+   identical merge logs and clusters, sizes in [3, 6], no image lost; K2's
+   summed device time (CUDA events around each call) beside the
+   bucket-merges phase; for the centroid rule the lockstep loop's seconds,
+   its peak device memory, and one iteration split into K3, the float work
+   and the gaps (torch.profiler over a third run);
 9. ``cli run`` on 6000 BMPs (above ``exact_limit``): streamed ingest, the
    bucketed engine on K2, the report;
 10. ``Pipeline.run_stream`` on 16,384 images made on the card as CUDA
@@ -98,7 +108,8 @@ K = ``FOUND_READ_EVERY`` (the steps of one CUDA graph replay: the loop
 reads ``found`` after each, so the last replay may run gated no-op
 steps; a replay counts the K1 launches captured in it). K2: one launch per chunk the
 bucket dispatcher formed. K3: each lockstep phase launches between its
-iterations and its iterations + K - 1 times. K4: one launch per job with
+iterations + 1 and its iterations + K times (64 iterations a CUDA graph
+replay, one host read of the chunk's "a bucket ran" flag after each). K4: one launch per job with
 k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
@@ -113,6 +124,7 @@ after the build (a development run: no summary, no result line).
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -131,12 +143,17 @@ REPO = Path(__file__).resolve().parent
 OUT = REPO / os.environ.get("IMAGECLUST_SMOKE_OUT", "build/chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 K1_KERNEL = ("merge_update_argmin_kernel",)  # K1's name in a profile
+K3_KERNEL = ("lockstep_step_kernel",)  # K3's
 TIMING_REPS = 25
 DEVICE = "cuda"
 ENGINE_N = 4096     # phase 3: the exact engine's largest padded size
 CLI_GROUPS = 800    # phase 5: 800 groups x 5 = 4000 images (< exact_limit)
 SERVER_GROUPS = 40  # phase 4: 40 groups x 5 = 200 images in one request
 BIG_N, BIG_D = 100_000, 1000  # phase 8: the bucketed engine's job
+# phase 6: K3 at the 100,000-image job's one chunk (261 buckets of 512
+# slots, 384 items each), its cached call timed after 100 iterations
+K3_C, K3_B, K3_ITEMS, K3_WARM_ITERS = 261, 512, 384, 100
+SPIN_CYCLES = 200_000  # about 0.1 ms of device spin ahead of a queued call
 BIG_CLI_GROUPS = 1200  # phase 9: 1200 groups x 5 = 6000 images
 STREAM_N = 16_384      # phase 10
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
@@ -901,8 +918,10 @@ def _counters() -> dict:
 def _check_scale_launches(what: str, c: dict, rule: str,
                           k4: int = 0) -> None:
     """K2: one launch per chunk. K3: each lockstep phase launches between
-    its iterations and its iterations + K - 1 times. K4: ``k4`` launches
-    (one summarize pass at k >= 4096 buckets, none below)."""
+    its iterations + 1 and its iterations + K times (its first iteration,
+    then whole graph replays of K until one ends with an iteration that ran
+    no bucket). K4: ``k4`` launches (one summarize pass at k >= 4096
+    buckets, none below)."""
     from imageclust_tpu_torch.cluster.ward import FOUND_READ_EVERY
 
     if c["k4"] != k4:
@@ -910,10 +929,10 @@ def _check_scale_launches(what: str, c: dict, rule: str,
     if rule == "lance_williams":
         ok = c["k2"] == c["chunks"] > 0 and c["k3"] == 0
     else:
-        hi = c["lockstep_iterations"] + (FOUND_READ_EVERY - 1) * c[
+        lo = c["lockstep_iterations"] + c["lockstep_phases"]
+        hi = c["lockstep_iterations"] + FOUND_READ_EVERY * c[
             "lockstep_phases"]
-        ok = (c["k2"] == 0 and c["chunks"] > 0
-              and c["lockstep_iterations"] <= c["k3"] <= hi)
+        ok = c["k2"] == 0 and c["chunks"] > 0 and lo <= c["k3"] <= hi
     if not ok:
         raise AssertionError(f"{what}: launch counts {c} for {rule}")
 
@@ -985,8 +1004,25 @@ def phase_k3(card: str):
     emit({"phase": "k3_parity", "cases": cases, "parity": "bit-identical",
           "max_abs_err": 0.0})
 
+    # the loop's calls: the kernel's cached lockstep steps against the twin
+    # steps on a copy of the state, over whole chunks and both phases
+    runs = [_k3_sequence(C, B, data, rule, counts)
+            for C, B, data, rule, counts in (
+                (8, 128, "normal", "centroid", None),
+                (8, 128, "grid", "lance_williams", None),
+                (8, 128, "ties", "centroid", [128, 96, 37, 5, 0, 1, 64, 2]),
+                (8, 128, "ties", "lance_williams", None),
+                (3, 200, "grid", "centroid", [200, 150, 7]),
+                (32, 512, "ties", "lance_williams", None),
+                (K3_C, K3_B, "normal", "centroid", [K3_ITEMS] * K3_C))]
+    emit({"phase": "k3_cached_parity", "runs": runs,
+          "parity": "bit-identical: the whole state (D, births, sizes, "
+                    "active, dvec, log, the pair and its sizes, proceed, "
+                    "dmin/bhi/blo, the control words, the chunk's flags) "
+                    "after every iteration"})
+
     # a 100,000-image job's one chunk: every slot active, updates pending
-    C, B = 261, 512
+    C, B = K3_C, K3_B
     D, dvec, sa, do, births, sizes, active = _k3_state(gen, C, B, dev, False,
                                                        1.0)
     do = torch.ones_like(do)
@@ -995,23 +1031,185 @@ def phase_k3(card: str):
     plain = lambda: mk.merge_update_argmin_batched_plain(D, *args)  # noqa
     call_ms = cuda_ms(call)
     plain_ms = cuda_ms(plain)
-    dev_ms = device_ms(call, ("batched_step_rows", "reduce_bucket_partials"))
+    dev_ms = device_ms(call, K3_KERNEL)
     plain_dev_ms = device_ms(plain)
     n_act = int(active.sum())
     # each active row of every D read once, one row + one column written per
     # bucket, dvec/births/sizes/active read once, sa/do and outputs
     bytes_moved = n_act * B * 4 + C * 2 * B * 4 + 4 * C * B * 4 + 5 * C * 4
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    cached = _k3_cached_times()
     emit({"phase": "k3_time", "card": card, "C": C, "B": B,
-          "device_ms": dev_ms, "call_ms": call_ms, "plain_ms": plain_ms,
-          "plain_device_ms": plain_dev_ms, "bound_ms": bound_ms,
-          "bound_by": "bytes", "bytes": bytes_moved,
-          "timing": f"call_ms/plain_ms: CUDA events, median of {TIMING_REPS} "
-                    "warm calls; *device_ms: torch.profiler kernel time, mean "
-                    f"of {TIMING_REPS}"})
-    return 0.0, {"ms": dev_ms or call_ms, "call_ms": call_ms,
-                 "plain_ms": plain_dev_ms or plain_ms, "bound_ms": bound_ms,
-                 "bound_by": "bytes"}
+          "full_scan": {"device_ms": dev_ms, "call_ms": call_ms,
+                        "plain_ms": plain_ms, "plain_device_ms": plain_dev_ms,
+                        "bound_ms": bound_ms, "bytes": bytes_moved},
+          "cached": cached, "bound_by": "bytes",
+          "timing": f"*call_ms / plain_ms: CUDA events, median of "
+                    f"{TIMING_REPS} warm calls; cached device_ms: CUDA events "
+                    f"around each call queued behind a device spin, median "
+                    f"of {TIMING_REPS}; other *device_ms: torch.profiler "
+                    f"kernel time, mean of {TIMING_REPS}"})
+    return 0.0, {"ms": cached["device_ms"], "call_ms": cached["call_ms"],
+                 "plain_ms": cached["plain_device_ms"],
+                 "bound_ms": cached["bound_ms"], "bound_by": "bytes",
+                 "rescans_per_bucket_call": cached["rescans_per_bucket_call"],
+                 "full_scan_ms": dev_ms or call_ms,
+                 "full_scan_call_ms": call_ms,
+                 "full_scan_plain_ms": plain_dev_ms or plain_ms,
+                 "full_scan_bound_ms": bound_ms}
+
+
+def _k3_loop_states(C, B, data, counts=None, d=16, seed=0):
+    """Two copies of a lockstep chunk's initial state on the card:
+    [(LockstepState, centroids)] * 2, and the chunk's counts."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import sharded
+
+    gen = torch.Generator().manual_seed(seed + C + B)
+    x, bidx, ct, tg = _k2_inputs(gen, C, B, data, d=d, counts=counts)
+    return [sharded._lockstep_state(x, bidx, ct, tg) for _ in range(2)], ct
+
+
+def _lockstep_diff(a, b):
+    """Count of differing bits-equal entries between two LockstepStates, as
+    a device tensor (no host synchronisation)."""
+    import torch
+
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    bad = torch.zeros((), dtype=torch.int64, device=a.D.device)
+    for name in ("D", "births", "sizes", "active", "dvec", "log", "pair",
+                 "pair_f", "proceed", "out_d", "out_pair"):
+        ta, tb = getattr(a, name), getattr(b, name)
+        if ta.dtype == torch.float32:
+            ta, tb = ta.view(torch.int32), tb.view(torch.int32)
+        bad += (ta != tb).sum()
+    bad += (a.ctl[:, :mk.LCTL_TICKET + 1] != b.ctl[:, :mk.LCTL_TICKET + 1]).sum()
+    bad += (a.flags[:mk.LFLAG_TICKET + 1]
+            != b.flags[:mk.LFLAG_TICKET + 1]).sum()
+    return bad
+
+
+def _k3_sequence(C, B, data, rule, counts=None):
+    """A whole chunk (both phases, and gated no-op iterations past each
+    phase's end) with K3's lockstep steps and, on a copy of the state, the
+    twin's steps, both eager: the whole state compared after every
+    iteration; the rows a cached call rescans per bucket."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    ((st_k, c_k), (st_p, c_p)), _ = _k3_loop_states(C, B, data, counts)
+    bad = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    iterations = 0
+    for amin in (-1, 3):
+        st_k.begin_phase(amin)
+        st_p.begin_phase(amin)
+        idle = 0
+        while idle < 3 and iterations < 4 * B:
+            mk.lockstep_step(st_k, 6)
+            mk.lockstep_step_plain(st_p, 6)
+            bad += _lockstep_diff(st_k, st_p)
+            sharded._lockstep_float(st_k, c_k, rule)
+            sharded._lockstep_float(st_p, c_p, rule)
+            iterations += 1
+            idle = 0 if int(st_k.flags[mk.LFLAG_ANY_RAN]) else idle + 1
+    torch.cuda.synchronize()
+    merges = int(st_k.ctl[:, mk.LCTL_STEP].sum())
+    if int(bad) or merges == 0:
+        raise AssertionError(f"K3 cached steps != twin steps at C={C} B={B} "
+                             f"{data} {rule}: {int(bad)} differing entries, "
+                             f"{merges} merges")
+    cached_calls = int(st_k.ctl[:, mk.LCTL_CACHED_CALLS].sum())
+    return {"C": C, "B": B, "data": data, "rule": rule,
+            "iterations": iterations, "merges": merges,
+            "cached_bucket_calls": cached_calls,
+            "rows_rescanned_per_bucket_call":
+                int(st_k.ctl[:, mk.LCTL_RESCAN_TOTAL].sum())
+                / max(cached_calls, 1),
+            "rows_rescanned_max": int(st_k.ctl[:, mk.LCTL_RESCAN_MAX].max())}
+
+
+def _k3_cached_times():
+    """K3's cached lockstep call in a 100,000-image job's chunk (C = 261,
+    B = 512, 384 items a bucket, normal d = 64 data, the centroid rule)
+    after K3_WARM_ITERS iterations, eager steps: call ms (CUDA events
+    around the wrapper), device ms (CUDA events around the call queued
+    behind a device spin, so the host's launch falls outside the window),
+    the profiler's kernel time beside it (it loses or under-reads these
+    one-call sessions after earlier phases' profiler sessions), the twin
+    step's times on a copy of the state in step with it, and the bound of
+    what a cached call moves."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    ((st, cents), (sp, cp)), _ = _k3_loop_states(
+        K3_C, K3_B, "normal", [K3_ITEMS] * K3_C, d=64)
+    for state in (st, sp):
+        state.begin_phase(-1)
+    steps = ((st, cents, mk.lockstep_step), (sp, cp, mk.lockstep_step_plain))
+    for _ in range(K3_WARM_ITERS):
+        for state, c, step in steps:
+            step(state, 6)
+            sharded._lockstep_float(state, c, "centroid")
+    torch.cuda.synchronize()
+
+    def timed(state, c, step, queued=False):
+        events = []
+        for _ in range(TIMING_REPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            if queued:
+                torch.cuda._sleep(SPIN_CYCLES)
+            a.record()
+            step(state, 6)
+            b.record()
+            sharded._lockstep_float(state, c, "centroid")
+            events.append((a, b))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in events)
+
+    def profiled(state, c, step, match):
+        # the float work runs outside the window, unprofiled
+        total_us = 0.0
+        for _ in range(TIMING_REPS):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                step(state, 6)
+                torch.cuda.synchronize()
+            total_us += _kernel_us(prof, match)
+            sharded._lockstep_float(state, c, "centroid")
+        return total_us / TIMING_REPS / 1e3 if total_us else None
+
+    ctl = st.ctl
+    r0 = int(ctl[:, mk.LCTL_RESCAN_TOTAL].sum())
+    n0 = int(ctl[:, mk.LCTL_CACHED_CALLS].sum())
+    call_ms = timed(st, cents, mk.lockstep_step)
+    rescans = ((int(ctl[:, mk.LCTL_RESCAN_TOTAL].sum()) - r0)
+               / max(int(ctl[:, mk.LCTL_CACHED_CALLS].sum()) - n0, 1))
+    running = int(st.proceed.sum())
+    device = timed(st, cents, mk.lockstep_step, queued=True)
+    profiler = profiled(st, cents, mk.lockstep_step, K3_KERNEL)
+    plain_call_ms = timed(sp, cp, mk.lockstep_step_plain)
+    plain_device = profiled(sp, cp, mk.lockstep_step_plain, ())
+    B = K3_B
+    # per running bucket: row and column sa written, the rescanned rows
+    # read, the cache (16 bytes a row), births/sizes/active and dvec read
+    # once; the control word and outputs are noise
+    nbytes = running * (2 * B * 4 + rescans * B * 4 + 16 * B + 12 * B
+                        + 4 * B)
+    return {"device_ms": device, "profiler_device_ms": profiler,
+            "call_ms": call_ms,
+            "plain_device_ms": plain_device or plain_call_ms,
+            "plain_call_ms": plain_call_ms,
+            "rescans_per_bucket_call": rescans, "running_buckets": running,
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "iterations_before": K3_WARM_ITERS}
 
 
 def _k2_inputs(gen, C, B, data, d=16, counts=None):
@@ -1166,22 +1364,22 @@ def _k2_timed():
 
 @contextlib.contextmanager
 def _twins():
-    """The bucketed engine with K2, K3 and K4 swapped for their plain twins
-    on the card, to hold the kernel run against."""
+    """The bucketed engine with K2, K3 (the lockstep step) and K4 swapped
+    for their plain twins on the card, to hold the kernel run against."""
     from imageclust_tpu_torch.cluster import sharded
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
     from imageclust_tpu_torch.ops import pref_kernels as pk
 
-    saved = (sharded.merge_loop_whole, sharded.merge_update_argmin_batched,
+    saved = (sharded.merge_loop_whole, sharded.lockstep_step,
              sharded.pref_topk_block)
     sharded.merge_loop_whole = bk.merge_loop_whole_plain
-    sharded.merge_update_argmin_batched = mk.merge_update_argmin_batched_plain
+    sharded.lockstep_step = mk.lockstep_step_plain  # the loop then runs eager
     sharded.pref_topk_block = pk.pref_topk_block_plain
     try:
         yield
     finally:
-        (sharded.merge_loop_whole, sharded.merge_update_argmin_batched,
+        (sharded.merge_loop_whole, sharded.lockstep_step,
          sharded.pref_topk_block) = saved
 
 
@@ -1195,6 +1393,86 @@ def _check_columnar(what: str, res, n: int, lo: int = 3, hi: int = 6):
     if int(sizes.sum()) + len(res._dropped_idx) != n:
         raise AssertionError(f"{what}: images lost")
     return sizes
+
+
+@contextlib.contextmanager
+def _lockstep_timed(profiled: bool = False):
+    """The bucketed engine with each lockstep phase (``_lockstep_phase``)
+    timed on the host clock, synchronised before and after, and its peak
+    device memory above what it started with (the state, the eager first
+    iteration's temporaries and the CUDA graph's pool), with the host
+    seconds spent capturing and instantiating CUDA graphs (from entering
+    ``torch.cuda.graph`` to leaving it); with ``profiled`` each phase also
+    runs under torch.profiler: K3's device time and launches, and every
+    other kernel's (the float work). Yields a dict filled as the phases
+    run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.cluster import sharded
+
+    saved = sharded._lockstep_phase
+    saved_graph = torch.cuda.graph
+    rec = {"loop_s": 0.0, "phases": 0, "peak_bytes": 0, "k3_device_s": 0.0,
+           "other_device_s": 0.0, "k3_events": 0, "capture_s": 0.0,
+           "captures": 0}
+
+    class timed_graph(saved_graph):
+        def __enter__(self):
+            self._t0 = time.perf_counter()
+            return super().__enter__()
+
+        def __exit__(self, *exc):
+            out = super().__exit__(*exc)
+            rec["capture_s"] += time.perf_counter() - self._t0
+            rec["captures"] += 1
+            return out
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        at = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with (profile(activities=[ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            out = saved(*args, **kw)
+            torch.cuda.synchronize()
+        rec["loop_s"] += time.perf_counter() - t0
+        rec["peak_bytes"] = max(rec["peak_bytes"],
+                                torch.cuda.max_memory_allocated() - at)
+        rec["phases"] += 1
+        if profiled:
+            k3_us = _kernel_us(prof, K3_KERNEL)
+            rec["k3_device_s"] += k3_us / 1e6
+            rec["other_device_s"] += (_kernel_us(prof) - k3_us) / 1e6
+            rec["k3_events"] += sum(e.count for e in prof.key_averages()
+                                    if any(m in e.key for m in K3_KERNEL))
+        return out
+
+    sharded._lockstep_phase = timed
+    torch.cuda.graph = timed_graph
+    try:
+        yield rec
+    finally:
+        sharded._lockstep_phase = saved
+        torch.cuda.graph = saved_graph
+
+
+def _lockstep_split(timed: dict, prof: dict, launches: int) -> dict:
+    """One lockstep iteration of the centroid run split into K3's device
+    time, the float work's (every other kernel in the loop) and the rest of
+    the loop's wall time (gaps: host work, launch and graph overheads)."""
+    if not prof["k3_events"]:
+        return {"note": "the profiler recorded no K3 event"}
+    k3_ms = prof["k3_device_s"] * 1e3 / prof["k3_events"]
+    float_ms = prof["other_device_s"] * 1e3 / prof["k3_events"]
+    wall_ms = timed["loop_s"] * 1e3 / max(launches, 1)
+    return {"iteration_ms": wall_ms, "k3_ms": k3_ms, "float_work_ms": float_ms,
+            "gaps_ms": wall_ms - k3_ms - float_ms,
+            "graph_capture_ms": timed["capture_s"] * 1e3 / max(launches, 1),
+            "k3_events_profiled": prof["k3_events"],
+            "device_busy_share": (prof["k3_device_s"] + prof["other_device_s"])
+            / timed["loop_s"]}
 
 
 def phase_engine_100k(card: str):
@@ -1212,7 +1490,7 @@ def phase_engine_100k(card: str):
         _zero_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with _k2_timed() as k2:
+        with _k2_timed() as k2, _lockstep_timed() as loop:
             res = constrained_ward_bucketed(x, **kw)
         wall_s = time.perf_counter() - t0
         c = _counters()
@@ -1220,7 +1498,7 @@ def phase_engine_100k(card: str):
         launches["k2" if rule == "lance_williams" else "k3"] = c[
             "k2" if rule == "lance_williams" else "k3"]
         sizes = _check_columnar(f"engine {rule}", res, BIG_N)
-        with _twins():
+        with _twins(), _lockstep_timed() as twin_loop:
             t0 = time.perf_counter()
             ref = constrained_ward_bucketed(x, **kw)
             twin_s = time.perf_counter() - t0
@@ -1229,16 +1507,40 @@ def phase_engine_100k(card: str):
                 and np.array_equal(res._offsets, ref._offsets)
                 and list(res._dropped_idx) == list(ref._dropped_idx)):
             raise AssertionError(f"engine {rule}: kernel run != twin run")
-        emit({"phase": "bucketed_engine", "card": card, "n": BIG_N,
-              "d": BIG_D, "update_rule": rule, "wall_s": wall_s,
-              "phases_s": res.phases_s, "k2_device_s": k2["device_s"],
-              "k2_calls": k2["calls"], "twin_wall_s": twin_s,
-              "twin_phases_s": ref.phases_s, "host_paths": res.host_paths,
-              "buckets": res.n_buckets,
-              "clusters": int(len(sizes)), "dropped": len(res._dropped_idx),
-              "merges": int(len(res.merges)),
-              "size_histogram": np.bincount(sizes).tolist(),
-              "launches": c, "logs_identical_to_twin_run": True})
+        rec = {"phase": "bucketed_engine", "card": card, "n": BIG_N,
+               "d": BIG_D, "update_rule": rule, "wall_s": wall_s,
+               "phases_s": res.phases_s, "k2_device_s": k2["device_s"],
+               "k2_calls": k2["calls"], "twin_wall_s": twin_s,
+               "twin_phases_s": ref.phases_s, "host_paths": res.host_paths,
+               "buckets": res.n_buckets,
+               "clusters": int(len(sizes)), "dropped": len(res._dropped_idx),
+               "merges": int(len(res.merges)),
+               "merges_sha256": hashlib.sha256(
+                   np.ascontiguousarray(res.merges).tobytes()).hexdigest(),
+               "size_histogram": np.bincount(sizes).tolist(),
+               "launches": c, "logs_identical_to_twin_run": True}
+        if rule == "centroid":
+            # a third run under the profiler, phase by phase: the split of
+            # one iteration (the runs are deterministic, so it launches K3
+            # as often as the first)
+            with _lockstep_timed(profiled=True) as prof:
+                constrained_ward_bucketed(x, **kw)
+            rec["lockstep"] = {
+                "loop_s": loop["loop_s"], "phases": loop["phases"],
+                "peak_device_bytes": loop["peak_bytes"],
+                "graph_capture_s": loop["capture_s"],
+                "graph_captures": loop["captures"],
+                "twin_loop_s": twin_loop["loop_s"],
+                "iterations_with_a_bucket_running": c["lockstep_iterations"],
+                "k3_launches": c["k3"],
+                "split": _lockstep_split(loop, prof, c["k3"]),
+                "timing": "loop_s: host clock around each lockstep phase, "
+                          "synchronised; split: torch.profiler kernel time "
+                          "of a third run, per K3 launch; gaps = loop_s per "
+                          "launch - K3 - float work, graph_capture_ms the "
+                          "share of the gaps spent capturing and "
+                          "instantiating the graphs"}
+        emit(rec)
     del os.environ["IMAGECLUST_CLUSTER_PROFILE"]
     return launches
 
@@ -1949,7 +2251,9 @@ def main(argv: list[str] | None = None) -> int:
         "max_abs_err": k3_err,
         **k3_t,
         "library_ms": None,
-        "shape": "C=261, B=512",
+        "shape": "C=261, B=512, 384 items a bucket: a cached lockstep call "
+                 "after 100 iterations (ms, call_ms, plain_ms, bound_ms) and "
+                 "the full scan of a call without a loop (full_scan_*)",
         "parity": "bit-identical",
     }, {
         "name": "short_seq_attention",

@@ -28,7 +28,8 @@ the same observable semantics:
    them. Lance-Williams runs the whole loop per bucket in one launch of K2
    (:mod:`imageclust_tpu_torch.ops.bucket_kernels`); the centroid rule runs
    the lockstep loop whose step is K3
-   (:func:`imageclust_tpu_torch.ops.merge_kernels.merge_update_argmin_batched`).
+   (:func:`imageclust_tpu_torch.ops.merge_kernels.lockstep_step`, 64
+   iterations a CUDA graph replay on the card).
    A CUDA tensor runs the kernels, a CPU tensor their plain twins.
 3. **Host tail.** Merge logs are re-stamped into one dendrogram, members
    expanded (the native ``ic_reconstruct_members`` when
@@ -72,6 +73,7 @@ from imageclust_tpu_torch.cluster.ward import (
     ClusterResult,
     DefaultIds,
     _leaf_indices,
+    _run_graphed,
     calculate_optimal_clusters,
     constrained_ward,
     pairwise_ward_singleton,
@@ -79,9 +81,7 @@ from imageclust_tpu_torch.cluster.ward import (
 )
 from imageclust_tpu_torch.device import resolve_device
 from imageclust_tpu_torch.ops.bucket_kernels import merge_loop_whole
-from imageclust_tpu_torch.ops.merge_kernels import (
-    merge_update_argmin_batched,
-)
+from imageclust_tpu_torch.ops import merge_kernels as mk
 from imageclust_tpu_torch.ops.pref_kernels import (
     gram,
     pref_topk_block,
@@ -98,8 +98,9 @@ _ROADMAP = "ROADMAP.md, queue 1"
 
 # Chunks dispatched by _all_buckets (one K2 launch, or one K3 lockstep loop,
 # each), and the K3 loop's iterations in which some bucket still ran, with
-# the number of loop phases: a phase launches K3 between its iterations and
-# its iterations + FOUND_READ_EVERY - 1 times.
+# the number of loop phases: a phase launches K3 between its iterations + 1
+# and its iterations + FOUND_READ_EVERY times (the first iteration, then
+# whole graph replays until one ends with an iteration that ran no bucket).
 chunks_dispatched = 0
 lockstep_iterations = 0
 lockstep_phases = 0
@@ -361,117 +362,137 @@ def _bucket_chunk_whole(feats, bucket_idx, counts, targets, max_size: int,
                             min_size if absorb else 0)
 
 
-class _Lockstep:
-    """The carry of the K3 lockstep loop (sharded.py:681-702), as tensors."""
+# One lockstep iteration on a LockstepState: K3 on the card. Tests and the
+# chip smoke run swap in mk.lockstep_step_plain, which the loop then runs
+# step by step.
+lockstep_step = mk.lockstep_step
 
-    def __init__(self, xs, counts, update_rule):
-        C, B, _ = xs.shape
-        dev = xs.device
-        i32 = torch.int32
-        self.C, self.B = C, B
-        self.rule = update_rule
-        self.col = torch.arange(B, dtype=i32, device=dev)[None, :]
-        self.ar = torch.arange(C, device=dev)
-        active0 = self.col < counts[:, None]
-        self.D = pairwise_ward_singleton(xs)
-        self.sizes = active0.to(i32)
-        self.births = torch.where(active0, self.col,
-                                  _BIG_I32 - B + self.col).to(i32)
-        self.cents = xs
-        self.active = active0.to(i32)
-        self.counter = counts.clone()
-        self.num_active = counts.clone()
-        self.n_log = max(B - 1, 1)
-        self.log = torch.zeros((C, self.n_log, 3), dtype=i32, device=dev)
-        self.step = torch.zeros(C, dtype=i32, device=dev)
-        self.found = torch.ones(C, dtype=torch.bool, device=dev)
-        self.p_sa = torch.zeros(C, dtype=i32, device=dev)
-        self.p_dvec = torch.zeros((C, B), dtype=torch.float32, device=dev)
-        self.p_do = torch.zeros(C, dtype=i32, device=dev)
 
-    def body(self, run, max_size: int, amin: int) -> None:
-        """One lockstep iteration (sharded.py:705-765): K3 applies every
-        bucket's pending update and finds its next pair; the small state
-        updates where the bucket ran and found a pair."""
-        f32, i32 = torch.float32, torch.int32
-        C, ar, col = self.C, self.ar, self.col
-        self.D, dmin, m1, m2 = merge_update_argmin_batched(
-            self.D, self.p_dvec, self.p_sa, self.p_do, self.births,
-            self.sizes, self.active, max_size, amin)
-        fin = torch.isfinite(dmin)
-        proceed = run & fin
-        pro = proceed[:, None]
-        sa = torch.argmax((self.births == m1[:, None]).to(i32), dim=1)
-        sb = torch.argmax((self.births == m2[:, None]).to(i32), dim=1)
-        s_a = self.sizes[ar, sa]
-        s_b = self.sizes[ar, sb]
-        s_new = s_a + s_b
-        c_a = self.cents[ar, sa]
-        c_new = ((s_a.to(f32)[:, None] * c_a
-                  + s_b.to(f32)[:, None] * self.cents[ar, sb])
-                 / s_new.to(f32)[:, None])
-        d_a = self.D[ar, sa]
+def _lockstep_float(st: mk.LockstepState, cents: torch.Tensor,
+                    update_rule: str) -> None:
+    """The float work of one lockstep iteration (sharded.py:717-745 of the
+    JAX package), shared by the kernel's and the twin's loops and written
+    in place: each bucket's merged centroid into ``cents`` and its next
+    pending row into ``st.dvec``, both where the bucket merged. The JAX
+    expression tree op for op; ``sizes`` are already the merged ones, so
+    s_b goes back at sb first (the row at sa is zeroed anyway)."""
+    C, B = st.C, st.B
+    pair, pf = st.pair, st.pair_f
+    s_a_f, s_b_f, s_new_f = pf[:, 0:1], pf[:, 1:2], pf[:, 2:3]
+    pro = st.proceed[:, None]
+    sizes_f = st.sizes.to(torch.float32).scatter_(1, pair[:, 1:], s_b_f)
+    if update_rule == "centroid":
+        d = cents.shape[2]
+        ab = cents.gather(1, pair[:, :, None].expand(C, 2, d))
+        c_a = ab[:, 0]
+        c_new = (s_a_f * c_a + s_b_f * ab[:, 1]) / s_new_f
         dvec = ward_update_vector(
-            self.rule, sizes_f=self.sizes.to(f32),
-            s_a_f=s_a.to(f32)[:, None], s_b_f=s_b.to(f32)[:, None],
-            s_new_f=s_new.to(f32)[:, None], d_a=d_a, d_b=self.D[ar, sb],
-            d_ab=d_a[ar, sb][:, None], cents=self.cents, c_new=c_new)
-        is_sa = col == sa[:, None]
-        is_sb = col == sb[:, None]
-        dvec = torch.where(is_sa, 0.0, dvec)
+            update_rule, sizes_f=sizes_f, s_a_f=s_a_f, s_b_f=s_b_f,
+            s_new_f=s_new_f, cents=cents, c_new=c_new)
+        cents.scatter_(1, pair[:, :1, None].expand(C, 1, d),
+                       torch.where(pro, c_new, c_a)[:, None])
+    else:  # Lance-Williams never reads cents
+        rows = st.D.gather(1, pair[:, :, None].expand(C, 2, B))
+        d_a = rows[:, 0]
+        dvec = ward_update_vector(
+            update_rule, sizes_f=sizes_f, s_a_f=s_a_f, s_b_f=s_b_f,
+            s_new_f=s_new_f, d_a=d_a, d_b=rows[:, 1],
+            d_ab=d_a.gather(1, pair[:, 1:]))
+    dvec.scatter_(1, pair[:, :1], 0.0)
+    st.dvec.copy_(torch.where(pro, dvec, st.dvec))
 
-        self.sizes = torch.where(pro & is_sa, s_new[:, None],
-                                 torch.where(pro & is_sb, 0, self.sizes))
-        self.births = torch.where(pro & is_sa, self.counter[:, None],
-                                  self.births)
-        if self.rule == "centroid":  # LW never reads cents
-            self.cents[ar, sa] = torch.where(pro, c_new, c_a)
-        self.active = torch.where(pro & is_sb, 0, self.active)
-        row = self.step.clamp(max=self.n_log - 1).to(torch.int64)
-        triple = torch.stack([m1, m2, self.counter], dim=1)
-        self.log[ar, row] = torch.where(pro, triple, self.log[ar, row])
-        step1 = proceed.to(i32)
-        self.counter = self.counter + step1
-        self.num_active = self.num_active - step1
-        self.step = self.step + step1
-        self.found = torch.where(run, fin, self.found)
-        self.p_sa = torch.where(proceed, sa.to(i32), self.p_sa)
-        self.p_dvec = torch.where(pro, dvec, self.p_dvec)
-        self.p_do = torch.where(run, fin.to(i32), self.p_do)
 
-    def loop(self, run_fn, max_size: int, amin: int) -> None:
-        """One phase: JAX's ``while_loop(any(run), body)``. The host reads
-        ``any(run)`` every FOUND_READ_EVERY iterations; the iterations in
-        between after the last bucket stopped are gated no-ops (K3 re-applies
-        each frozen bucket's last pending update, which writes the same
-        values)."""
-        global lockstep_iterations, lockstep_phases
-        ran = torch.zeros((), dtype=torch.int64, device=self.D.device)
-        for k in range(self.B):
-            run = run_fn()
-            if k % FOUND_READ_EVERY == 0 and not bool(run.any()):
-                break
-            ran += run.any().to(torch.int64)
-            self.body(run, max_size, amin)
-        lockstep_iterations += int(ran)
-        lockstep_phases += 1
+def _lockstep_phase(st: mk.LockstepState, cents: torch.Tensor,
+                    update_rule: str, max_size: int, amin: int,
+                    graph=None):
+    """One phase of the lockstep loop: JAX's ``while_loop(any(run), body)``
+    (``amin`` -1 for the main phase, the minimum size for the absorb
+    phase), in blocks of :data:`FOUND_READ_EVERY` iterations, each followed
+    by one host read of the chunk's "a bucket ran" flag; the phase ends
+    after the first block whose last iteration ran no bucket. The
+    iterations after the last bucket stopped are gated no-ops: each
+    re-applies every frozen bucket's last pending update, which writes the
+    same values. With the kernel's step on the card the blocks are replays
+    of one CUDA graph (ward._run_graphed): the first phase runs its first
+    iteration alone and captures the graph, which it returns; a later
+    phase given that ``graph`` replays it from its first iteration (the
+    kernel reads the phase from ``st.flags``). A capture that fails
+    raises. On the CPU, or with the twin's step, the iterations run one by
+    one in the same blocks (:func:`_run_eager`), so both give the same
+    final state."""
+    global lockstep_iterations, lockstep_phases
+    step = lockstep_step
+    st.begin_phase(amin)
+
+    def body():
+        step(st, max_size)
+        _lockstep_float(st, cents, update_rule)
+
+    go = st.flags[mk.LFLAG_ANY_RAN:mk.LFLAG_ANY_RAN + 1]
+    limit = st.B + 1  # a bucket runs at most B iterations of a phase
+    if st.D.device.type == "cuda" and step is mk.lockstep_step:
+        graph = _run_graphed(body, st.D.device, go, limit, graph)
+    else:
+        graph = _run_eager(body, go, limit, graph)
+    lockstep_iterations += int(st.flags[mk.LFLAG_ITERS])
+    lockstep_phases += 1
+    return graph
+
+
+def _run_eager(body, go, limit: int, block=None):
+    """ward._run_graphed's steps, run one by one in the same blocks (so the
+    same final state): the first step alone, then blocks of
+    FOUND_READ_EVERY until ``go`` reads false after one or ``limit`` steps
+    have run. Given the ``block`` length that an earlier call returned, it
+    runs blocks of that length from the first step. Returns the block
+    length (None if the first step ended the run)."""
+    done = 0
+    if block is None:
+        body()
+        done = 1
+        if done >= limit or not bool(go):
+            return None
+        block = min(FOUND_READ_EVERY, limit - done)
+    while done < limit:
+        for _ in range(block):
+            body()
+        done += block
+        if not bool(go):
+            break
+    return block
+
+
+def _lockstep_state(feats, bucket_idx, counts, targets):
+    """A chunk's lockstep state (sharded.py:681-702 of the JAX package):
+    (LockstepState, centroids (C, B, d)). Padding slots are inactive with
+    births above every stamp the loop hands out."""
+    xs = _gather_buckets(feats, bucket_idx)
+    C, B, _ = xs.shape
+    i32 = torch.int32
+    col = torch.arange(B, dtype=i32, device=xs.device)[None, :]
+    active0 = col < counts[:, None]
+    st = mk.LockstepState(
+        pairwise_ward_singleton(xs).contiguous(),
+        births=torch.where(active0, col, _BIG_I32 - B + col).to(i32),
+        sizes=active0.to(i32), active=active0.to(i32), counter=counts,
+        num_active=counts, target=targets)
+    return st, xs
 
 
 def _bucket_chunk_fused(feats, bucket_idx, counts, targets, max_size: int,
                         min_size: int, update_rule: str = "lance_williams",
                         absorb: bool = True):
-    """One chunk through the lockstep loop on K3 (sharded.py:665-788):
-    every iteration streams every bucket matrix once through K3, which
-    applies the previous iteration's pending update and finds the next
-    pair. Identical results to the whole loop (K2) under Lance-Williams."""
-    st = _Lockstep(_gather_buckets(feats, bucket_idx), counts, update_rule)
-    st.loop(lambda: st.found & (st.num_active > targets), max_size, -1)
+    """One chunk through the lockstep loop on K3 (sharded.py:665-788): each
+    iteration is one :data:`lockstep_step` (every bucket's pending update,
+    its next pair from the cached row minima, the bookkeeping) and the
+    float work. Identical results to the whole loop (K2) under
+    Lance-Williams."""
+    st, cents = _lockstep_state(feats, bucket_idx, counts, targets)
+    graph = _lockstep_phase(st, cents, update_rule, max_size, -1)
     if absorb:
-        st.found = torch.ones_like(st.found)
-        st.loop(lambda: st.found & torch.any(
-            (st.active > 0) & (st.sizes < min_size), dim=1),
-            max_size, min_size)
-    return st.log, st.step, st.births, st.sizes, st.active > 0
+        _lockstep_phase(st, cents, update_rule, max_size, min_size, graph)
+    return (st.log, st.ctl[:, mk.LCTL_STEP].contiguous(), st.births,
+            st.sizes, st.active > 0)
 
 
 def _chunk_width(bucket_size: int, d: int) -> int:

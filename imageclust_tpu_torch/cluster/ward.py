@@ -278,7 +278,7 @@ def _merge_loop(x: torch.Tensor, n_items: int, n_target: int, max_size: int,
         _float_step(st, cents, update_rule)
 
     if limit and x.device.type == "cuda" and not eager:
-        _run_graphed(body, st, limit)
+        _run_graphed(body, st.D.device, st.found, limit)
     elif limit:
         for k in range(limit):
             body()
@@ -333,35 +333,44 @@ def _float_step(st, cents: torch.Tensor, update_rule: str) -> None:
     st.dvec.copy_(dvec.index_fill_(0, pair[:1], 0.0))
 
 
-def _run_graphed(body, st, limit: int) -> None:
-    """Runs ``body`` (one loop step on ``st``) on the card: once eagerly on
-    a side stream, then in a CUDA graph of :data:`FOUND_READ_EVERY` steps
-    replayed until ``st.found`` reads false or ``limit`` steps have run
-    (the steps past either are gated no-ops). One host read of ``found``
-    per replay."""
-    dev = st.D.device
-    cur = torch.cuda.current_stream(dev)
-    side = torch.cuda.Stream(dev)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        body()
-    cur.wait_stream(side)
-    done = 1
-    if done >= limit or not bool(st.found):
-        return
-    reps = min(FOUND_READ_EVERY, limit - done)
-    graph = torch.cuda.CUDAGraph()
-    before = mk.captured_launches
-    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-        for _ in range(reps):
+def _run_graphed(body, dev, go, limit: int, graph=None):
+    """Runs ``body`` (one loop step) on the card ``dev``: once eagerly on a
+    side stream, then in a CUDA graph of :data:`FOUND_READ_EVERY` steps
+    replayed until ``go`` (a one-element device tensor that the steps
+    write) reads false or ``limit`` steps have run (the steps past either
+    are gated no-ops). One host read of ``go`` per replay. Given the
+    ``graph`` that an earlier call returned (the same steps on the same
+    tensors), it skips the eager step and the capture and replays that
+    graph from the first step. Returns the graph (None if the eager step
+    ended the run). The K1 and K3 launches captured in the graph count as
+    launches at every replay."""
+    done = 0
+    if graph is None:
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
             body()
-    k1_per_replay = mk.captured_launches - before
+        cur.wait_stream(side)
+        done = 1
+        if done >= limit or not bool(go):
+            return None
+        steps = min(FOUND_READ_EVERY, limit - done)
+        graph = torch.cuda.CUDAGraph()
+        before = (mk.captured_launches, mk.captured_batched_launches)
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(steps):
+                body()
+        graph.per_replay = (mk.captured_launches - before[0],
+                            mk.captured_batched_launches - before[1])
+        graph.steps = steps
     while done < limit:
         graph.replay()
-        mk.count_replay(k1_per_replay)
-        done += reps
-        if not bool(st.found):
+        mk.count_replay(*graph.per_replay)
+        done += graph.steps
+        if not bool(go):
             break
+    return graph
 
 
 def _pad_len(n: int) -> int:

@@ -24,10 +24,9 @@
 // at zero. Nothing synchronises with the host and nothing is allocated.
 //
 // The cache: per row r, the minimum over r's feasible columns in ic::take's
-// (d, max birth, min birth) order, kept as a 64-bit key (d mapped to an
-// order-preserving code with -0 onto +0, which `==` finds equal, then the
-// max birth as an order-preserving 32-bit code), the min birth's code and
-// the column (-1: none). Births keep all 32 bits: in the exact engine they
+// (d, max birth, min birth) order, kept as cache_key.cuh's key (a 64-bit
+// code of d and the max birth, the min birth's code) and the column (-1:
+// none). Births keep all 32 bits: in the exact engine they
 // reach 2 n_items, so the 13 bits of K2's key would not hold them. The
 // cache lives in the caller's workspace in device memory (16 bytes a row:
 // 64 KiB at n = 4096, L2-resident) and persists across a loop's calls.
@@ -82,21 +81,16 @@
 // so results are bit-identical to the plain PyTorch twin. Built with
 // -fmad=false like every kernel of the port.
 
-#include "lexmin.cuh"
+#include "cache_key.cuh"
 
 namespace {
 
-using ic::kBig;
-using u64 = unsigned long long;  // the __ldcg overloads name this type
+using namespace ic;  // the cache's key (cache_key.cuh) and ic::kBig
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerBlock = 32;  // warp 0 has a lane per row
 constexpr int kBatch = 8;          // rows scanned together by the block
-constexpr int kNone = -1;
-constexpr u64 kNoKey = ~0ull;
-constexpr uint32_t kNoLo = ~0u;
-constexpr uint32_t kFull = 0xffffffffu;
 
 // ctl: int32 fields shared with ops/merge_kernels.py (CTL_*).
 enum Ctl {
@@ -111,64 +105,6 @@ enum Ctl {
   kRescanTotal = 8,  // rows rescanned by every cached call so far
   kRescanMax = 9,    // most rows rescanned by one cached call
 };
-
-// order-preserving codes: a key compares as an unsigned integer
-__device__ __forceinline__ uint32_t dcode(float d) {
-  uint32_t u = __float_as_uint(d);
-  if (u == 0x80000000u) u = 0u;
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-__device__ __forceinline__ float dvalue(uint32_t u) {
-  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
-}
-__device__ __forceinline__ uint32_t bcode(int32_t b) {
-  return static_cast<uint32_t>(b) ^ 0x80000000u;
-}
-__device__ __forceinline__ int32_t bvalue(uint32_t u) {
-  return static_cast<int32_t>(u ^ 0x80000000u);
-}
-
-struct Key {
-  u64 k;        // dcode << 32 | bcode(max birth)
-  uint32_t lo;  // bcode(min birth)
-};
-
-__device__ __forceinline__ Key no_key() { return Key{kNoKey, kNoLo}; }
-
-__device__ __forceinline__ bool less(const Key& a, const Key& b) {
-  return a.k < b.k || (a.k == b.k && a.lo < b.lo);
-}
-
-// ic::take's Best as a key; the identity (no pair taken) as no_key.
-__device__ __forceinline__ Key to_key(const ic::Best& b, int col) {
-  if (col == kNone) return no_key();
-  return Key{(static_cast<u64>(dcode(b.d)) << 32) | bcode(b.hi), bcode(b.lo)};
-}
-
-// ic::take, remembering the column of the pair taken.
-__device__ __forceinline__ void take_at(ic::Best& b, int& col, float d, int32_t hi, int32_t lo,
-                                        int c) {
-  if (d < b.d || (d == b.d && (hi < b.hi || (hi == b.hi && lo < b.lo)))) {
-    b = ic::Best{d, hi, lo};
-    col = c;
-  }
-}
-
-// Warp minimum of (key, a, b), in every lane; among equal keys, the lowest
-// lane's (a, b).
-__device__ __forceinline__ void warp_min(Key& key, int& a, int& b) {
-  const uint32_t w0 = static_cast<uint32_t>(key.k >> 32);
-  const uint32_t w1 = static_cast<uint32_t>(key.k);
-  const uint32_t m0 = __reduce_min_sync(kFull, w0);
-  const uint32_t m1 = __reduce_min_sync(kFull, w0 == m0 ? w1 : kFull);
-  const bool top = w0 == m0 && w1 == m1;
-  const uint32_t m2 = __reduce_min_sync(kFull, top ? key.lo : kNoLo);
-  const uint32_t won = __ballot_sync(kFull, top && key.lo == m2);
-  const int src = __ffs(won) - 1;
-  a = __shfl_sync(kFull, a, src);
-  b = __shfl_sync(kFull, b, src);
-  key = Key{(static_cast<u64>(m0) << 32) | m1, m2};
-}
 
 struct Args {
   float* D;

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 Every source (the merge kernels include ``lexmin.cuh``, the shared
-lexicographic reduce) is compiled by ``nvcc`` for ``sm_90a`` into a position-
+lexicographic reduce, and K1 and K3 ``cache_key.cuh``, their cached row
+minimum's key) is compiled by ``nvcc`` for ``sm_90a`` into a position-
 independent object (one ``nvcc`` process per source, all started together)
 and the objects are linked into ``build/kernels/<hash>/libimageclust_kernels.so``
 at the repository root. The sources expose a plain C interface, loaded with
@@ -32,7 +33,7 @@ _BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
            "merge_loop_whole.cu", "short_seq_attention.cu",
            "pref_topk_block.cu")
-HEADERS = ("lexmin.cuh",)
+HEADERS = ("lexmin.cuh", "cache_key.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -104,11 +105,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ic_merge_update_argmin.argtypes = [
         p, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p]
     lib.ic_merge_update_argmin.restype = i
-    lib.ic_batched_rows_per_block.argtypes = []
-    lib.ic_batched_rows_per_block.restype = ctypes.c_int
-    lib.ic_merge_update_argmin_batched.argtypes = [
-        p, p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p]
-    lib.ic_merge_update_argmin_batched.restype = ctypes.c_int
+    lib.ic_lockstep_workspace_bytes.argtypes = [i, i]
+    lib.ic_lockstep_workspace_bytes.restype = ctypes.c_longlong
+    lib.ic_lockstep_step.argtypes = [
+        p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
+    lib.ic_lockstep_step.restype = i
     lib.ic_merge_loop_whole_max_b.argtypes = []
     lib.ic_merge_loop_whole_max_b.restype = ctypes.c_int
     lib.ic_merge_loop_whole.argtypes = [

@@ -31,10 +31,14 @@ K3, :func:`merge_update_argmin_batched`, replaces
 ``pallas_kernels.py:merge_update_argmin_batched`` (body
 ``_merge_step_kernel_batched`` :202-266, per-bucket reduce :342-350): K1 over
 a chunk of C buckets, each with its own pending update, plus the absorb
-phase's under-min mask. Its CUDA source is
-``csrc/merge_update_argmin_batched.cu``; its twin is
+phase's under-min mask. :func:`lockstep_step` is the same kernel as one
+iteration of the bucketed engine's lockstep loop on a
+:class:`LockstepState`, on K1's pattern: per-bucket cached row minima and
+the loop's integer bookkeeping in the same launch; its twin is
+:func:`lockstep_step_plain`. Its CUDA source is
+``csrc/merge_update_argmin_batched.cu``; the stateless twin is
 :func:`merge_update_argmin_batched_plain`. It also only selects and takes
-exact minima, so kernel and twin are bit-identical.
+exact minima, so kernel and twins are bit-identical.
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ __all__ = [
     "merge_step_plain",
     "merge_update_argmin",
     "merge_update_argmin_plain",
+    "LockstepState",
+    "lockstep_step",
+    "lockstep_step_plain",
     "merge_update_argmin_batched",
     "merge_update_argmin_batched_plain",
     "masked_argmin_pair_plain",
@@ -79,8 +86,9 @@ launches = 0
 # K1 launches recorded into CUDA graphs while they were captured; a capture
 # runs nothing, so these are not launches until a replay.
 captured_launches = 0
-# The same count for merge_update_argmin_batched (K3).
+# The same counts for K3 (merge_update_argmin_batched, lockstep_step).
 batched_launches = 0
+captured_batched_launches = 0
 
 
 def masked_argmin_pair_plain(D, births, sizes, active, max_size,
@@ -247,11 +255,12 @@ def merge_step(st: MergeState) -> None:
             st.pair_f, st.found)
 
 
-def count_replay(k1_launches: int) -> None:
-    """Counts the K1 launches made by one replay of a CUDA graph into which
-    ``k1_launches`` calls were captured."""
-    global launches
+def count_replay(k1_launches: int, k3_launches: int = 0) -> None:
+    """Counts the K1 and K3 launches made by one replay of a CUDA graph into
+    which ``k1_launches`` and ``k3_launches`` calls were captured."""
+    global launches, batched_launches
     launches += int(k1_launches)
+    batched_launches += int(k3_launches)
 
 
 def _check(D, dvec, births, sizes, active, sa, do_update):
@@ -357,6 +366,31 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 # -- K3 ---------------------------------------------------------------------
 
+# The int32 fields of LockstepState.ctl, one row per bucket, as
+# csrc/merge_update_argmin_batched.cu reads and writes them.
+LCTL_SA = 0            # pending slot of the next call's update
+LCTL_DO = 1            # the next call applies it
+LCTL_COUNTER = 2       # next birth stamp
+LCTL_STEP = 3          # merges performed: the next log row
+LCTL_NUM_ACTIVE = 4    # active slots
+LCTL_TARGET = 5        # the main phase runs while num_active > target
+LCTL_FOUND = 6         # the last running call found a pair
+LCTL_FILLED = 7        # the kernel's cache is filled
+LCTL_TICKET = 8        # the kernel's block ticket (0 between calls)
+LCTL_RESCANS = 9       # the kernel's rows rescanned in the running call
+LCTL_RESCAN_TOTAL = 10  # rows rescanned by the kernel's cached calls
+LCTL_RESCAN_MAX = 11   # most rows rescanned by one cached call
+LCTL_CACHED_CALLS = 12  # running calls that used the cache
+LCTL_LEN = 13
+# The int32 fields of LockstepState.flags, the chunk's.
+LFLAG_ANY_RAN = 0      # some bucket ran in the last call
+LFLAG_ITERS = 1        # calls in which some bucket ran, this phase
+LFLAG_TICKET = 2       # the kernel's bucket ticket (0 between calls)
+LFLAG_RAN_ACC = 3      # the kernel's "ran" in the running call
+LFLAG_AMIN = 4         # the phase: -1 main, else the absorb phase's min size
+LFLAG_LEN = 5
+
+
 def merge_update_argmin_batched_plain(D, dvec, sa, do_update, births, sizes,
                                       active, max_size: int,
                                       absorb_min: int):
@@ -389,19 +423,166 @@ def merge_update_argmin_batched_plain(D, dvec, sa, do_update, births, sizes,
     return D, dmin, m1, m2
 
 
-def _check_batched(D, dvec, sa, do_update, births, sizes, active):
+class LockstepState:
+    """The bucketed engine's lockstep loop over a chunk of C buckets on one
+    device, updated IN PLACE by every :func:`lockstep_step` (the kernel) or
+    :func:`lockstep_step_plain` (the twin), so a CUDA graph can replay
+    iterations on it.
+
+    ``D`` (C, B, B) f32, ``births``/``sizes``/``active`` (C, B) int32 are
+    taken as given (not copied); ``counter``, ``num_active`` and ``target``
+    (C,) start the per-bucket counters. ``dvec`` (C, B) f32 is the pending
+    update's row, which the loop's float work writes between iterations;
+    ``ctl`` (C, LCTL_LEN) int32 the ``LCTL_*`` fields; ``log`` (C,
+    max(B - 1, 1), 3) int32 the merge logs; ``flags`` (LFLAG_LEN,) int32 the
+    chunk's ``LFLAG_*`` fields, among them the running phase's ``amin``
+    (also kept as a Python int): the kernel reads it from device memory,
+    so one CUDA graph of loop iterations serves both phases. Each
+    iteration leaves, per bucket, the pair
+    it merged for the float work: ``pair`` (C, 2) int64 (sa, sb),
+    ``pair_f`` (C, 3) f32 (their sizes before the merge and the sum) and
+    ``proceed`` (C,) bool, all zero where nothing merged; and ``out_d``
+    (C,) f32 / ``out_pair`` (C, 2) int32, K3's (dmin, bhi, blo) for the
+    buckets that ran, (+inf, INT32_MAX, INT32_MAX) for the others. ``ws``
+    is the kernel's workspace (the per-row cache and the per-block
+    partials), None on the CPU."""
+
+    def __init__(self, D, births, sizes, active, counter, num_active,
+                 target):
+        dev = D.device
+        i32 = torch.int32
+        self.dvec = torch.zeros(D.shape[:2], dtype=torch.float32, device=dev)
+        _check_batched(D, self.dvec, births, sizes, active)
+        C, B, _ = D.shape
+        self.C, self.B = C, B
+        self.D, self.births, self.sizes, self.active = D, births, sizes, active
+        self.ctl = torch.zeros((C, LCTL_LEN), dtype=i32, device=dev)
+        for field, v in ((LCTL_COUNTER, counter),
+                         (LCTL_NUM_ACTIVE, num_active),
+                         (LCTL_TARGET, target)):
+            self.ctl[:, field] = torch.as_tensor(v, device=dev).to(i32)
+        self.ctl[:, LCTL_FOUND] = 1
+        self.log = torch.zeros((C, max(B - 1, 1), 3), dtype=i32, device=dev)
+        self.pair = torch.zeros((C, 2), dtype=torch.int64, device=dev)
+        self.pair_f = torch.zeros((C, 3), dtype=torch.float32, device=dev)
+        self.proceed = torch.zeros(C, dtype=torch.bool, device=dev)
+        self.out_d = torch.zeros(C, dtype=torch.float32, device=dev)
+        self.out_pair = torch.zeros((C, 2), dtype=i32, device=dev)
+        self.flags = torch.zeros(LFLAG_LEN, dtype=i32, device=dev)
+        self.amin = -1
+        self.flags[LFLAG_AMIN] = -1
+        self.ws = None
+        if dev.type == "cuda":
+            self.ws = _batched_workspace(C, B, dev)
+
+    def begin_phase(self, amin: int) -> None:
+        """Starts a loop phase, ``amin`` -1 for the main phase (run while
+        num_active > target) or the minimum size for the absorb phase (run
+        while an active slot is under it; pairs need an under-min side):
+        every bucket's ``found`` set, every cache unfilled (the absorb
+        phase changes every pair's feasibility), the chunk's counts
+        cleared. Device writes only: no host synchronisation."""
+        self.amin = int(amin)
+        self.ctl[:, LCTL_FOUND] = 1
+        self.ctl[:, LCTL_FILLED] = 0
+        self.flags.zero_()
+        self.flags[LFLAG_AMIN] = self.amin
+
+
+def lockstep_step_plain(st: LockstepState, max_size: int) -> None:
+    """One lockstep iteration in torch ops, the twin of
+    :func:`lockstep_step`: which buckets run (JAX's run_fns: the main phase,
+    ``st.amin < 0``, while ``found & (num_active > target)``; the absorb
+    phase while ``found & any(active & (sizes < amin))``), K3's plain twin
+    over every bucket, then the lockstep body's integer bookkeeping
+    (sharded.py:705-765 of the JAX package) gated on ``run`` and a finite
+    dmin. Runs on any device."""
+    i32 = torch.int32
+    ctl = st.ctl
+    C = st.C
+    amin = st.amin
+    found = ctl[:, LCTL_FOUND] != 0
+    if amin < 0:
+        run = found & (ctl[:, LCTL_NUM_ACTIVE] > ctl[:, LCTL_TARGET])
+    else:
+        run = found & ((st.active > 0) & (st.sizes < amin)).any(dim=1)
+    _, dmin, m1, m2 = merge_update_argmin_batched_plain(
+        st.D, st.dvec, ctl[:, LCTL_SA], ctl[:, LCTL_DO], st.births,
+        st.sizes, st.active, max_size, amin)
+    fin = torch.isfinite(dmin)
+    proceed = run & fin
+    pro = proceed[:, None]
+    sa = torch.argmax((st.births == m1[:, None]).to(i32), dim=1)
+    sb = torch.argmax((st.births == m2[:, None]).to(i32), dim=1)
+    pair = torch.where(pro, torch.stack([sa, sb], dim=1), 0)
+    s = st.sizes.gather(1, pair)  # (s_a, s_b) before the merge
+    s_new = s[:, 0] + s[:, 1]
+    merged = torch.stack([s_new, torch.zeros_like(s_new)], dim=1)
+    st.sizes.scatter_(1, pair, torch.where(pro, merged, s))
+    sa1, sb1 = pair[:, :1], pair[:, 1:]
+    st.active.scatter_(1, sb1, torch.where(pro, 0, st.active.gather(1, sb1)))
+    counter = ctl[:, LCTL_COUNTER]
+    st.births.scatter_(1, sa1, torch.where(pro, counter[:, None],
+                                           st.births.gather(1, sa1)))
+    ar = torch.arange(C, device=st.D.device)
+    row = ctl[:, LCTL_STEP].clamp(max=st.log.shape[1] - 1).to(torch.int64)
+    triple = torch.stack([m1, m2, counter], dim=1).to(i32)
+    st.log[ar, row] = torch.where(pro, triple, st.log[ar, row])
+    p = proceed.to(i32)
+    ctl[:, LCTL_COUNTER] += p
+    ctl[:, LCTL_STEP] += p
+    ctl[:, LCTL_NUM_ACTIVE] -= p
+    ctl[:, LCTL_FOUND] = torch.where(run, fin, found).to(i32)
+    ctl[:, LCTL_DO] = torch.where(run, fin.to(i32), ctl[:, LCTL_DO])
+    ctl[:, LCTL_SA] = torch.where(proceed, pair[:, 0].to(i32),
+                                  ctl[:, LCTL_SA])
+    ctl[:, LCTL_FILLED] |= run.to(i32)
+    st.pair.copy_(pair)
+    st.pair_f.copy_(torch.where(pro, torch.stack([s[:, 0], s[:, 1], s_new],
+                                                 dim=1), 0).to(torch.float32))
+    st.proceed.copy_(proceed)
+    st.out_d.copy_(torch.where(run, dmin, float("inf")))
+    st.out_pair.copy_(torch.where(run[:, None], torch.stack([m1, m2], dim=1),
+                                  _BIG_I32))
+    ran = run.any().to(i32)
+    st.flags[LFLAG_ANY_RAN] = ran
+    st.flags[LFLAG_ITERS] += ran
+
+
+def lockstep_step(st: LockstepState, max_size: int) -> None:
+    """K3 as one iteration of the lockstep loop on ``st`` in the phase that
+    ``st.begin_phase`` started (see :class:`LockstepState`): applies every
+    bucket's pending update, finds
+    each running bucket's next pair from the kernel's per-row cache (filled
+    by one full scan at the bucket's first call of a phase) and does the
+    bookkeeping for it, in one launch on the current stream, with no host
+    synchronisation and no allocation, so it can be captured in a CUDA
+    graph. On a CPU tensor it runs :func:`lockstep_step_plain`."""
+    dev = st.D.device
+    if dev.type == "cpu":
+        lockstep_step_plain(st, max_size)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"lockstep_step runs on cuda or cpu, not {dev}")
+    # amin 0: a loop call reads the phase from st.flags
+    _launch_batched(st.D, st.dvec, st.births, st.sizes, st.active, st.ctl,
+                    max_size, 0, st.ws, st.out_d, st.out_pair, st.log,
+                    st.pair, st.pair_f, st.proceed, st.flags)
+
+
+def _check_batched(D, dvec, births, sizes, active, sa=None, do_update=None):
     if D.dim() != 3 or D.shape[1] != D.shape[2]:
         raise ValueError(f"D must be (C, B, B), got {tuple(D.shape)}")
     C, B, _ = D.shape
-    if D.dtype != torch.float32:
-        raise TypeError(f"D must be float32, got {D.dtype}")
-    for name, t, shape, dt in (("D", D, (C, B, B), torch.float32),
-                               ("dvec", dvec, (C, B), torch.float32),
-                               ("births", births, (C, B), torch.int32),
-                               ("sizes", sizes, (C, B), torch.int32),
-                               ("active", active, (C, B), torch.int32),
-                               ("sa", sa, (C,), torch.int32),
-                               ("do_update", do_update, (C,), torch.int32)):
+    checks = [("D", D, (C, B, B), torch.float32),
+              ("dvec", dvec, (C, B), torch.float32),
+              ("births", births, (C, B), torch.int32),
+              ("sizes", sizes, (C, B), torch.int32),
+              ("active", active, (C, B), torch.int32)]
+    if sa is not None:
+        checks += [("sa", sa, (C,), torch.int32),
+                   ("do_update", do_update, (C,), torch.int32)]
+    for name, t, shape, dt in checks:
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if t.dtype != dt:
@@ -412,15 +593,50 @@ def _check_batched(D, dvec, sa, do_update, births, sizes, active):
             raise ValueError(f"{name} is on {t.device}, D on {D.device}")
 
 
+def _batched_workspace(C: int, B: int, dev) -> torch.Tensor:
+    from imageclust_tpu_torch.ops._build import load_kernels
+
+    nbytes = load_kernels().ic_lockstep_workspace_bytes(C, B)
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+
+def _launch_batched(D, dvec, births, sizes, active, ctl, max_size, amin, ws,
+                    out_d, out_pair, log=None, pair=None, pair_f=None,
+                    proceed=None, flags=None) -> None:
+    """One K3 launch on the current stream; counted as a launch, or as a
+    captured launch while the stream is being captured into a CUDA graph."""
+    global batched_launches, captured_batched_launches
+    from imageclust_tpu_torch.ops._build import load_kernels
+
+    lib = load_kernels()
+    C, B, _ = D.shape
+    loop = [0 if t is None else t.data_ptr()
+            for t in (log, pair, pair_f, proceed, flags)]
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream(D.device)
+        rc = lib.ic_lockstep_step(
+            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
+            sizes.data_ptr(), active.data_ptr(), ctl.data_ptr(), C, B,
+            int(max_size), int(amin), ws.data_ptr(), out_d.data_ptr(),
+            out_pair.data_ptr(), *loop, stream.cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
+    _raise_on(lib, rc, "merge_update_argmin_batched")
+    if capturing:
+        captured_batched_launches += 1
+    else:
+        batched_launches += 1
+
+
 def merge_update_argmin_batched(D, dvec, sa, do_update, births, sizes,
                                 active, max_size: int, absorb_min: int):
-    """K3. D (C, B, B) f32 contiguous (any B >= 1); dvec (C, B) f32; births,
-    sizes, active (C, B) int32; sa, do_update (C,) int32, all on D's device;
-    max_size and absorb_min Python ints (absorb_min <= 0: no absorb mask).
-    D is updated in place; returns (D, dmin (C,), bhi (C,), blo (C,)) on
-    D's device, without a host synchronisation on CUDA."""
-    global batched_launches
-    _check_batched(D, dvec, sa, do_update, births, sizes, active)
+    """K3 without a loop. D (C, B, B) f32 contiguous (any B >= 1); dvec (C,
+    B) f32; births, sizes, active (C, B) int32; sa, do_update (C,) int32,
+    all on D's device; max_size and absorb_min Python ints (absorb_min <= 0:
+    no absorb mask). D is updated in place; returns (D, dmin (C,), bhi
+    (C,), blo (C,)) on D's device, without a host synchronisation on CUDA.
+    The kernel scans every active row of every bucket (its cache is scratch
+    here)."""
+    _check_batched(D, dvec, births, sizes, active, sa, do_update)
     if D.device.type == "cpu":
         return merge_update_argmin_batched_plain(
             D, dvec, sa, do_update, births, sizes, active, int(max_size),
@@ -428,26 +644,14 @@ def merge_update_argmin_batched(D, dvec, sa, do_update, births, sizes,
     if D.device.type != "cuda":
         raise ValueError(f"merge_update_argmin_batched runs on cuda or cpu, "
                          f"not {D.device}")
-    from imageclust_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
     dev = D.device
     C, B, _ = D.shape
-    rows = lib.ic_batched_rows_per_block()
-    m = (B + rows - 1) // rows
-    part_d = torch.empty(C * m, dtype=torch.float32, device=dev)
-    part_i = torch.empty((2, C * m), dtype=torch.int32, device=dev)
+    ctl = torch.zeros((C, LCTL_LEN), dtype=torch.int32, device=dev)
+    ctl[:, LCTL_SA] = sa
+    ctl[:, LCTL_DO] = do_update
     out_d = torch.empty(C, dtype=torch.float32, device=dev)
-    out_i = torch.empty((2, C), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ic_merge_update_argmin_batched(
-            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
-            sizes.data_ptr(), active.data_ptr(), sa.data_ptr(),
-            do_update.data_ptr(), C, B, int(max_size), int(absorb_min),
-            part_d.data_ptr(), part_i[0].data_ptr(), part_i[1].data_ptr(),
-            out_d.data_ptr(), out_i[0].data_ptr(), out_i[1].data_ptr(),
-            stream)
-    _raise_on(lib, rc, "merge_update_argmin_batched")
-    batched_launches += 1
-    return D, out_d, out_i[0], out_i[1]
+    out_pair = torch.empty((C, 2), dtype=torch.int32, device=dev)
+    _launch_batched(D, dvec, births, sizes, active, ctl, max_size,
+                    absorb_min, _batched_workspace(C, B, dev), out_d,
+                    out_pair)
+    return D, out_d, out_pair[:, 0], out_pair[:, 1]

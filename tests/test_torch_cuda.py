@@ -105,6 +105,101 @@ def test_batched_kernel_bit_identical_to_twin(cuda, C, B, tied, absorb_min):
         assert torch.isinf(got[1][0])  # the all-infeasible bucket
 
 
+def _lockstep_inputs(dev, C, B, data, counts=None, d=16, seed=0):
+    """(features, bucket index, counts, targets) of one lockstep chunk on
+    ``dev``: counts 0.75 B, 37, 5 and 0 in turn unless given; "grid_d2"
+    gives heavy ties."""
+    from imageclust_tpu_torch.cluster import sharded
+
+    rng = np.random.default_rng(seed + C + B)
+    if data == "normal":
+        x = rng.normal(size=(C * B, d))
+    else:
+        x = rng.integers(-3, 4, (C * B, 2 if data == "grid_d2" else d))
+    if counts is None:
+        counts = np.resize([int(0.75 * B), 37, 5, 0], C)
+    counts = np.minimum(np.asarray(counts, np.int32), B)
+    targets = np.array([sharded._bucket_target(int(c), 3, 6) if c else 0
+                        for c in counts], np.int32)
+    bidx = np.arange(C * B, dtype=np.int32).reshape(C, B)
+    return [torch.from_numpy(np.asarray(a)).to(dev) for a in (
+        x.astype(np.float32), bidx, counts, targets)]
+
+
+def _same_lockstep(a, b):
+    for name in ("D", "births", "sizes", "active", "dvec", "log", "pair",
+                 "pair_f", "proceed", "out_d", "out_pair"):
+        ta, tb = getattr(a, name), getattr(b, name)
+        if ta.dtype == torch.float32:
+            ta, tb = ta.view(torch.int32), tb.view(torch.int32)
+        assert torch.equal(ta, tb), name
+    assert torch.equal(a.ctl[:, :mk.LCTL_TICKET + 1],
+                       b.ctl[:, :mk.LCTL_TICKET + 1])
+    assert torch.equal(a.flags[:mk.LFLAG_TICKET + 1],
+                       b.flags[:mk.LFLAG_TICKET + 1])
+
+
+@pytest.mark.parametrize("C,B,counts", [(4, 128, None), (8, 512, None),
+                                        (3, 200, (200, 150, 7)),
+                                        (2, 33, (33, 0))])
+@pytest.mark.parametrize("data", ["normal", "grid", "grid_d2"])
+@pytest.mark.parametrize("rule", ["centroid", "lance_williams"])
+def test_lockstep_steps_bit_identical_to_twin(cuda, C, B, counts, data,
+                                              rule):
+    """K3's loop calls (the per-bucket cache, the fused bookkeeping) against
+    the twin step on a copy of the state, after every iteration of both
+    phases and a few gated no-op iterations past each phase's end."""
+    from imageclust_tpu_torch.cluster import sharded
+
+    args = _lockstep_inputs(cuda, C, B, data, counts)
+    (st_k, c_k), (st_p, c_p) = (sharded._lockstep_state(*args)
+                                for _ in range(2))
+    for amin in (-1, 3):
+        st_k.begin_phase(amin)
+        st_p.begin_phase(amin)
+        for k in range(B + 4):
+            before = mk.batched_launches
+            mk.lockstep_step(st_k, 6)
+            assert mk.batched_launches == before + 1
+            mk.lockstep_step_plain(st_p, 6)
+            _same_lockstep(st_k, st_p)
+            sharded._lockstep_float(st_k, c_k, rule)
+            sharded._lockstep_float(st_p, c_p, rule)
+            if k > 2 and not int(st_k.flags[mk.LFLAG_ANY_RAN]):
+                break
+        assert not int(st_k.flags[mk.LFLAG_ANY_RAN])
+    assert int(st_k.ctl[:, mk.LCTL_STEP].sum()) > 0
+    assert int(st_k.ctl[:, mk.LCTL_CACHED_CALLS].sum()) > 0
+
+
+@pytest.mark.parametrize("C,B", [(8, 512), (5, 200), (64, 128)])
+@pytest.mark.parametrize("data", ["normal", "grid_d2"])
+@pytest.mark.parametrize("rule", ["centroid", "lance_williams"])
+def test_graphed_lockstep_chunk_matches_eager_twin(cuda, monkeypatch, C, B,
+                                                   data, rule):
+    """``_bucket_chunk_fused`` on the card (K3 in CUDA graph replays)
+    against the eager twin loop; each phase launches K3 between its
+    iterations + 1 and its iterations + FOUND_READ_EVERY times."""
+    from imageclust_tpu_torch.cluster import sharded
+
+    args = _lockstep_inputs(cuda, C, B, data)
+    it0, ph0, k3 = (sharded.lockstep_iterations, sharded.lockstep_phases,
+                    mk.batched_launches)
+    got = sharded._bucket_chunk_fused(*args, 6, 3, rule)
+    iters = sharded.lockstep_iterations - it0
+    phases = sharded.lockstep_phases - ph0
+    launches = mk.batched_launches - k3
+    assert phases == 2 and iters > 0
+    assert iters + phases <= launches <= (
+        iters + ward.FOUND_READ_EVERY * phases)
+    monkeypatch.setattr(sharded, "lockstep_step", mk.lockstep_step_plain)
+    k3 = mk.batched_launches
+    want = sharded._bucket_chunk_fused(*args, 6, 3, rule)
+    assert mk.batched_launches == k3  # the twin launches nothing
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 # (C, B, counts (None: 0.75 B, 37, 5, 0 in turn), max_size)
 _WHOLE_CASES = [(3, 128, None, 6), (64, 512, None, 6), (5, 200, None, 6),
                 (4, 2, (0, 1, 2, 2), 6), (4, 33, (0, 1, 2, 33), 6),
@@ -254,8 +349,7 @@ def test_bucketed_engine_on_card_matches_twin_run(cuda, monkeypatch, rule):
     assert (bk.launches, mk.batched_launches) != before
     monkeypatch.setattr(sharded, "merge_loop_whole",
                         bk.merge_loop_whole_plain)
-    monkeypatch.setattr(sharded, "merge_update_argmin_batched",
-                        mk.merge_update_argmin_batched_plain)
+    monkeypatch.setattr(sharded, "lockstep_step", mk.lockstep_step_plain)
     want = sharded.constrained_ward_bucketed(x, **kw)
     np.testing.assert_array_equal(got.merges, want.merges)
     assert got.cluster_map == want.cluster_map
