@@ -100,7 +100,22 @@ line and raises on any failure:
     ``ASSIGN_MATCH_FLOOR``; K2's summed device time beside bucket-merges;
 18. ``Pipeline.run_stream`` on 1,600,000 images made on the card, with
     ``embed.model=vit_b32`` and ``cluster.feature_dtype=bfloat16`` (4167
-    buckets): 12 K5 launches a batch, one K4 launch, the naming budget.
+    buckets): 12 K5 launches a batch, one K4 launch, the naming budget;
+19. ONNX at full width: the seeded ResNet50 (1000 classes) exported twice
+    through the port's exporter into ``$IMAGECLUST_SMOKE_OUT`` (equal
+    sha256), loaded through ``embed.onnx_path`` (weights bit-identical to
+    the seeded ones), 256 images through both towers (max abs difference,
+    per-row cosine >= ``ONNX_COS_FLOOR``), then one 200-image
+    ``POST /api/cluster`` and a 500-image ``cli run`` from the file (which
+    is deleted after);
+20. the int8 PTQ towers at full width, ResNet50 and ViT-B/32: calibration
+    seconds, images/s on 4096 images beside the bf16 tower's (turns bf16,
+    int8, int8, bf16), per-row cosine of int8 against bf16; ViT-B/32's int8
+    tower on K5 (12 launches a batch) against the same tower on the twin's
+    attention, per-row cosine >= ``VIT_COS_FLOOR``; one 200-image
+    ``POST /api/cluster`` with ``embed.model=vit_b32`` and
+    ``embed.quantize=int8`` (12 K5 launches), and a 500-image ``cli run``
+    with ``embed.quantize=int8`` (ResNet50).
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -113,7 +128,8 @@ replay, one host read of the chunk's "a bucket ran" flag after each). K4: one la
 k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
-phase, K4's from the 1.6M-image ``run_stream``); the last line is
+phase and the int8 ViT server request of phase 20, K4's from the
+1.6M-image ``run_stream``); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -196,6 +212,11 @@ K4_NEAR_TIE = 1e-5  # relative, float64 distances of differing picks
 ASSIGN_MATCH_FLOOR = 0.9999
 ENGINE_2M = 2_000_000    # phase 17: 5209 buckets, the K4 path
 STREAM_BIG_N = 1_600_000  # phase 18: 4167 buckets (>= 4096 from 1,572,864)
+ONNX_SEED = 0          # phase 19: the seeded tower written to ONNX
+ONNX_EMBED_N = 256     # phase 19: images through the seeded and loaded towers
+ONNX_COS_FLOOR = 0.99999  # phase 19: per-row cosine, loaded vs seeded
+INT8_N = 4096          # phase 20: images through each int8 and bf16 tower
+INT8_CLI_GROUPS = 100  # phases 19-20: 100 groups x 5 = 500 images, cli run
 
 
 def emit(obj) -> None:
@@ -723,7 +744,11 @@ def _check_sizes(clusters: dict, lo: int = 3, hi: int = 6) -> None:
             raise AssertionError(f"{key} has {len(c['images'])} images")
 
 
-def phase_server(card: str, model: str = "resnet50"):
+def phase_server(card: str, model: str = "resnet50", embed_kw=None,
+                 which=("18_images", "200_images", "18_images_async"),
+                 name: str = "server"):
+    """The server with ``embed.model=model`` (and ``embed_kw``): the
+    requests named in ``which``, then the GET routes."""
     import numpy as np
 
     from imageclust_tpu_torch.config import (
@@ -738,7 +763,7 @@ def phase_server(card: str, model: str = "resnet50"):
 
     work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_jobs_"))
     cfg = AppConfig(service=ServiceConfig(work_dir=str(work)),
-                    embed=EmbedConfig(model=model))
+                    embed=EmbedConfig(model=model, **(embed_kw or {})))
     t0 = time.perf_counter()
     pipeline = Pipeline(cfg, device=DEVICE)
     build_s = time.perf_counter() - t0
@@ -753,8 +778,10 @@ def phase_server(card: str, model: str = "resnet50"):
     try:
         mk.launches = at.launches = 0
         for label, (names, blobs, groups), query in (
-                ("18_images", small, ""), ("200_images", big, ""),
-                ("18_images_async", small, "?async=1")):
+                (label, batch, query) for label, batch, query in (
+                    ("18_images", small, ""), ("200_images", big, ""),
+                    ("18_images_async", small, "?async=1"))
+                if label in which):
             body, ctype = _multipart(names, blobs, {"minClusterSize": 3,
                                                     "maxClusterSize": 6})
             if len(body) > cfg.service.max_upload_bytes:
@@ -812,7 +839,7 @@ def phase_server(card: str, model: str = "resnet50"):
                 "k5_launches": at.launches - k5_before})
         main_path_launches = {"k1": mk.launches, "k5": at.launches}
         for path in (f"/api/result?job={job}", "/api/view",
-                     f"/api/image/{small[0][0]}", "/healthz"):
+                     f"/api/image/{names[0]}", "/healthz"):
             status, ctype, raw = _http(base, path)
             if status != 200 or not raw:
                 raise AssertionError(f"GET {path}: HTTP {status}")
@@ -831,13 +858,17 @@ def phase_server(card: str, model: str = "resnet50"):
             raise AssertionError(f"server {model}: {k5} K5 launches")
     elif main_path_launches["k5"]:
         raise AssertionError(f"server {model}: K5 launched")
-    emit({"phase": "server", "card": card, "model": model,
+    emit({"phase": name, "card": card, "model": model,
+          "embed": embed_kw or {}, "embedder_tag": pipeline.embedder.tag,
           "pipeline_build_s": build_s, "requests": requests,
           "healthz": health, "launches": main_path_launches})
     return main_path_launches
 
 
-def phase_cli(card: str):
+def phase_cli(card: str, groups: int = CLI_GROUPS, extra=(),
+              name: str = "cli_run"):
+    """``cli run`` on ``groups`` x 5 BMPs (below ``exact_limit``), with the
+    ``extra`` arguments."""
     import numpy as np
 
     from imageclust_tpu_torch import cli
@@ -846,24 +877,24 @@ def phase_cli(card: str):
     tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_cli_"))
     try:
         rng = np.random.default_rng(5)
-        names, blobs, _ = group_images(rng, CLI_GROUPS, 5, "c")
+        names, blobs, _ = group_images(rng, groups, 5, "c")
         img_dir = tmp / "images"
         img_dir.mkdir()
-        for name, blob in zip(names, blobs):
-            (img_dir / name).write_bytes(blob)
+        for fname, blob in zip(names, blobs):
+            (img_dir / fname).write_bytes(blob)
         out = io.StringIO()
         mk.launches = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["run", "--images", str(img_dir), "--device",
-                           DEVICE, "--out", str(tmp / "work")])
+                           DEVICE, "--out", str(tmp / "work"), *extra])
         wall_s = time.perf_counter() - t0
         launches = mk.launches
         if rc != 0:
             raise AssertionError(f"cli run exited {rc}")
         result = json.loads(out.getvalue())
         OUT.mkdir(parents=True, exist_ok=True)
-        (OUT / "cli_result.json").write_text(out.getvalue())
+        (OUT / f"{name}_result.json").write_text(out.getvalue())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _check_sizes(result["clusters"])
@@ -878,12 +909,13 @@ def phase_cli(card: str):
     placed = sum(len(c["images"]) for c in result["clusters"].values())
     if placed + len(result["dropped"]) != n:
         raise AssertionError("cli: images lost")
-    emit({"phase": "cli_run", "card": card, "images": n, "wall_s": wall_s,
+    emit({"phase": name, "card": card, "images": n, "args": list(extra),
+          "wall_s": wall_s,
           "stages_s": result["metrics"]["stages_s"],
           "embed_images_per_s": result["metrics"].get("images_per_sec_embed"),
           "clusters": len(result["clusters"]), "merges": merges,
           "k1_launches": launches,
-          "output": os.path.relpath(OUT / "cli_result.json", REPO)})
+          "output": os.path.relpath(OUT / f"{name}_result.json", REPO)})
 
 
 # -- the scale path (phases 6-10) ----------------------------------------------
@@ -2145,6 +2177,233 @@ def phase_stream_big(card: str):
     return c
 
 
+# -- the towers users bring weights to (phases 19-20) -------------------------
+
+def _sha256(path) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as fh:
+        for block in iter(lambda: fh.read(1 << 20), b""):
+            h.update(block)
+    return h.hexdigest()
+
+
+def _cosines(a, b):
+    import numpy as np
+
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                             * np.linalg.norm(b, axis=1))
+
+
+def phase_onnx(card: str):
+    """ONNX at full width: the seeded ResNet50 (1000 classes) exported
+    twice through the port's exporter (equal sha256), loaded back through
+    ``embed.onnx_path`` (bit-identical weights), embedded beside the seeded
+    tower, then served and run through ``cli run`` from the file."""
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+
+    seeded = create_embedder(EmbedConfig(onnx_path=""), device=DEVICE,
+                             seed=ONNX_SEED)
+    OUT.mkdir(parents=True, exist_ok=True)
+    paths = [OUT / "resnet50_seeded.onnx", OUT / "resnet50_seeded_2.onnx"]
+    try:
+        _onnx_round_trip(card, seeded, paths)
+    finally:  # 102 MB each: never brought back with the outputs
+        for path in paths:
+            path.unlink(missing_ok=True)
+
+
+def _onnx_round_trip(card: str, seeded, paths):
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
+
+    export_s = []
+    for path in paths:
+        t0 = time.perf_counter()
+        export_resnet50_onnx(seeded.model, str(path))
+        export_s.append(time.perf_counter() - t0)
+    digests = [_sha256(path) for path in paths]
+    if digests[0] != digests[1]:
+        raise AssertionError(f"two exports differ: {digests}")
+    t0 = time.perf_counter()
+    loaded = create_embedder(EmbedConfig(onnx_path=str(paths[0])),
+                             device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want = seeded.model.state_dict()
+    got = loaded.model.state_dict()
+    if got.keys() != want.keys() or not all(
+            torch.equal(got[k], want[k]) for k in want):
+        raise AssertionError("loaded weights differ from the seeded ones")
+    if not loaded.weights_loaded or ":torch-randominit" in loaded.tag:
+        raise AssertionError(f"ONNX not loaded: {loaded.tag}")
+    images = _noise_images(ONNX_EMBED_N, 224, 19)
+    a = seeded.embed(images)
+    b = loaded.embed(images)
+    cos = _cosines(a, b)
+    if a.shape != (ONNX_EMBED_N, 1000) or not np.isfinite(b).all() or not (
+            cos.min() >= ONNX_COS_FLOOR):
+        raise AssertionError(f"ONNX tower vs seeded: {b.shape}, min cosine "
+                             f"{cos.min()}")
+    emit({"phase": "onnx", "card": card, "file": os.path.relpath(paths[0],
+                                                               REPO),
+          "bytes": paths[0].stat().st_size, "sha256": digests[0],
+          "exports_equal": True, "export_s": export_s, "load_s": load_s,
+          "weights_bit_identical": True, "images": ONNX_EMBED_N,
+          "max_abs_diff": float(np.abs(a - b).max()),
+          "cosine_min": float(cos.min()), "embedder_tag": loaded.tag})
+    del loaded
+    torch.cuda.empty_cache()
+    phase_server(card, "resnet50", {"onnx_path": str(paths[0])},
+                 ("200_images",), "server_onnx")
+    phase_cli(card, INT8_CLI_GROUPS,
+              ("--set", f"embed.onnx_path={paths[0]}"), "cli_run_onnx")
+
+
+def _batch_split(emb, images) -> dict:
+    """One batch's forward under torch.profiler: device ms of the int8
+    GEMMs (cuBLASLt), of the other matrix products and convolutions, of K5
+    and of everything else (casts, quantize, dequantize, im2col copies,
+    norms), with the five costliest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.from_numpy(images[:emb.batch_size]).to(DEVICE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        emb._forward(x)
+        torch.cuda.synchronize()
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us:
+            kernels.append((evt.key, us / 1e3))
+    groups = {"int8_gemm_ms": 0.0, "float_gemm_conv_ms": 0.0, "k5_ms": 0.0,
+              "other_ms": 0.0}
+    for key, ms in kernels:
+        low = key.lower()
+        if "short_seq_attention" in low:
+            groups["k5_ms"] += ms
+        elif any(m in low for m in ("i8", "imma", "int8", "s8")) and any(
+                m in low for m in ("gemm", "cutlass", "sm90", "xmma")):
+            groups["int8_gemm_ms"] += ms
+        elif any(m in low for m in ("gemm", "cutlass", "conv", "sm90",
+                                    "xmma", "cudnn", "fprop")):
+            groups["float_gemm_conv_ms"] += ms
+        else:
+            groups["other_ms"] += ms
+    top = sorted(kernels, key=lambda kv: -kv[1])[:5]
+    return {"device_ms": sum(ms for _, ms in kernels), **groups,
+            "top": [[k[:120], ms] for k, ms in top]}
+
+
+def phase_int8_towers(card: str):
+    """The int8 PTQ towers at full width (ResNet50, ViT-B/32): calibration
+    seconds, images/s through ``Embedder.embed`` beside the bf16 tower's,
+    per-row cosine of int8 against bf16; for ViT-B/32 the int8 tower on K5
+    against the same tower on the twin's attention, then one int8
+    ``POST /api/cluster``; a ResNet50 int8 ``cli run``. Returns the int8
+    request's launches."""
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models import quantize_vit
+    from imageclust_tpu_torch.models.registry import DEFAULT_BATCH, _quantize
+    from imageclust_tpu_torch.ops import attention as at
+
+    towers = []
+    for model in ("resnet50", "vit_b32"):
+        t0 = time.perf_counter()
+        bf16 = create_embedder(EmbedConfig(model=model), device=DEVICE)
+        bf16_build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        int8 = create_embedder(EmbedConfig(model=model, quantize="int8"),
+                               device=DEVICE)
+        torch.cuda.synchronize()
+        int8_build_s = time.perf_counter() - t0
+        # the calibration alone, on the bf16 tower's (the same seeded)
+        # weights: one float32 forward of 8 images and the statistics
+        t0 = time.perf_counter()
+        _quantize(bf16.model, bf16.spec, EmbedConfig(model=model,
+                                                     quantize="int8"), False)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        images = _noise_images(INT8_N, 224, 20)
+        for emb in (bf16, int8):  # warm: cuBLAS plans, the allocator
+            emb.embed(images[:emb.batch_size])
+        torch.cuda.synchronize()
+        walls = {"bfloat16": [], "int8": []}
+        outs = {}
+        at.launches = 0
+        for label, emb in (("bfloat16", bf16), ("int8", int8),
+                           ("int8", int8), ("bfloat16", bf16)):
+            k5_before = at.launches
+            t0 = time.perf_counter()
+            outs[label] = emb.embed(images)
+            walls[label].append(time.perf_counter() - t0)
+            if label == "int8":
+                k5_int8 = at.launches - k5_before
+        batches = -(-INT8_N // int8.batch_size)
+        want_k5 = VIT_B32_DEPTH * batches if model == "vit_b32" else 0
+        if k5_int8 != want_k5:
+            raise AssertionError(f"int8 {model}: {k5_int8} K5 launches, want "
+                                 f"{want_k5}")
+        got = outs["int8"]
+        if got.shape != outs["bfloat16"].shape or not np.isfinite(got).all():
+            raise AssertionError(f"int8 {model}: output {got.shape}")
+        cos = _cosines(got, outs["bfloat16"])
+        split = {label: _batch_split(emb, images)
+                 for label, emb in (("bfloat16", bf16), ("int8", int8))}
+        rec = {"model": model, "batch": int8.batch_size,
+               "bf16_build_s": bf16_build_s, "int8_build_s": int8_build_s,
+               "calibration_s": calib_s, "int8_wall_s": walls["int8"],
+               "bf16_wall_s": walls["bfloat16"],
+               "int8_images_per_s": [INT8_N / w for w in walls["int8"]],
+               "bf16_images_per_s": [INT8_N / w for w in walls["bfloat16"]],
+               "cosine_int8_vs_bf16_min": float(cos.min()),
+               "cosine_int8_vs_bf16_median": float(np.median(cos)),
+               "int8_k5_launches": k5_int8, "batch_device_split": split}
+        if model == "vit_b32":
+            saved = quantize_vit.attention
+            quantize_vit.attention = at.short_seq_attention_plain
+            try:
+                twin = int8.embed(images)
+            finally:
+                quantize_vit.attention = saved
+            tcos = _cosines(got, twin)
+            if not tcos.min() >= VIT_COS_FLOOR:
+                raise AssertionError(f"int8 ViT-B/32 on K5 vs twin: min "
+                                     f"cosine {tcos.min()}")
+            rec["cosine_k5_vs_twin_min"] = float(tcos.min())
+        towers.append(rec)
+        del bf16, int8, outs
+        torch.cuda.empty_cache()
+    emit({"phase": "int8_towers", "card": card, "images": INT8_N,
+          "towers": towers,
+          "timing": "wall: host clock around Embedder.embed (host copy in, "
+                    "embeddings back to the host), turns bf16, int8, int8, "
+                    "bf16; calibration_s: registry._quantize on the bf16 "
+                    "tower's weights, synchronised"})
+    launches = phase_server(card, "vit_b32", {"quantize": "int8"},
+                            ("200_images",), "server_int8")
+    # 200 images: batches of the smallest power of two that covers them
+    bs = min(DEFAULT_BATCH["vit_b32"], 1 << (SERVER_GROUPS * 5 - 1).bit_length())
+    if launches["k5"] != VIT_B32_DEPTH * -(-SERVER_GROUPS * 5 // bs):
+        raise AssertionError(f"int8 server: {launches['k5']} K5 launches")
+    phase_cli(card, INT8_CLI_GROUPS, ("--set", "embed.quantize=int8"),
+              "cli_run_int8")
+    return launches
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
@@ -2152,7 +2411,7 @@ PHASES = {
     13: lambda card: phase_server(card, "vit_b32"),
     14: lambda card: phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32"),
     15: phase_other_towers, 16: phase_k4, 17: phase_engine_2m,
-    18: phase_stream_big,
+    18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
 }
 
 
@@ -2214,6 +2473,8 @@ def main(argv: list[str] | None = None) -> int:
     k4_err, k4_t = run(16)
     run(17)
     k4_launches = run(18)["k4"]
+    run(19)
+    int8_launches = run(20)["k5"]
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]
@@ -2260,7 +2521,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "imageclust_tpu_torch/csrc/short_seq_attention.cu",
         "replaces": "imageclust_tpu/ops/attention.py:64",
-        "launches": vit_launches,
+        "launches": vit_launches + int8_launches,
         "max_abs_err": k5_err,
         **k5_t,
         "shape": "B=1024, T=50, H=12, Dh=64 bf16 (ViT-B/32 at batch 1024)",

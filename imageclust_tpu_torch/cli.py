@@ -4,9 +4,11 @@
 clusters a directory offline and prints the result JSON: above
 ``cluster.exact_limit`` images (or with ``--stream``) it streams the files
 from disk through ``Pipeline.run_paths``, below it reads them as uploads
-into ``Pipeline.run``. ``serve`` starts the REST service. Both take ``--device`` (default
-``cuda``; ``cpu`` runs without a card). The JAX CLI's other subcommands
-(train, bank, export, verify, models, bench) are not ported yet.
+into ``Pipeline.run``. ``serve`` starts the REST service. ``export --out
+F`` writes the configured ResNet50 as a gluon-named ONNX model, and
+``models`` lists the towers. ``run``, ``serve`` and ``export`` take
+``--device`` (default ``cuda``; ``cpu`` runs without a card). The JAX CLI's
+other subcommands (train, bank, verify, bench) are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import logging
 import os
 import sys
 
-_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".gif", ".webp", ".bmp", ".ppm")
+# the JAX CLI's list (imageclust_tpu/cli.py:80-86)
+_IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".gif", ".webp", ".bmp")
 
 
 def _add_common(p: argparse.ArgumentParser) -> None:
@@ -137,6 +140,35 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_export(args) -> int:
+    """Export the configured ResNet50 (its float weights, unfolded, also
+    when ``embed.quantize`` is set) as a gluon-named ONNX model that
+    OpenCV DNN, and so the reference itself, can load."""
+    import dataclasses
+
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
+
+    config = _build_config(args)
+    if config.embed.model != "resnet50":
+        print("error: ONNX export currently supports resnet50", file=sys.stderr)
+        return 2
+    embedder = create_embedder(
+        dataclasses.replace(config.embed, quantize=""), device=args.device)
+    export_resnet50_onnx(embedder.model, args.out)
+    print(json.dumps({"onnx": args.out,
+                      "num_classes": config.embed.num_classes}))
+    return 0
+
+
+def cmd_models(args) -> int:
+    from imageclust_tpu_torch.models import list_models
+
+    for name in list_models():
+        print(name)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="imageclust-torch",
@@ -160,6 +192,15 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--port", type=int, default=0)
     _add_common(p_serve)
     p_serve.set_defaults(fn=cmd_serve)
+
+    p_export = sub.add_parser(
+        "export", help="export the embedder as an ONNX model")
+    p_export.add_argument("--out", default="embedder.onnx")
+    _add_common(p_export)
+    p_export.set_defaults(fn=cmd_export)
+
+    p_models = sub.add_parser("models", help="list embedder models")
+    p_models.set_defaults(fn=cmd_models)
     return parser
 
 

@@ -17,6 +17,12 @@ This module maps either onto :class:`~.resnet50.ResNet50V1` by name:
 The ViT towers (:func:`vit_state_dict_from_flax`) use the same kernel and
 LayerNorm rules; ``class_token`` and ``pos_embed`` carry over as they are.
 
+The int8 towers' qparams trees (JAX ``quantize_resnet50`` /
+``quantize_vit`` output, :func:`quant_resnet50_state_dict_from_jax`,
+:func:`quant_vit_state_dict_from_jax`) add the quantized leaves: an int8
+``kernel_q`` HWIO -> OHWI (conv) or (in, out) -> (out, in) (Dense), with
+``w_scale``, ``bias`` and the scalar ``act_scale`` as they are.
+
 Any missing, unexpected or mis-shaped tensor raises ValueError with the
 full list, like the JAX package's ``_shape_diff``.
 """
@@ -34,7 +40,9 @@ from imageclust_tpu_torch.models.resnet50 import (
 )
 from imageclust_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
-__all__ = ["resnet50_state_dict_from_flax", "vit_state_dict_from_flax"]
+__all__ = ["resnet50_state_dict_from_flax", "vit_state_dict_from_flax",
+           "quant_resnet50_state_dict_from_jax",
+           "quant_vit_state_dict_from_jax"]
 
 _BN = {"scale": "weight", "bias": "bias"}
 _STATS = {"mean": "running_mean", "var": "running_var"}
@@ -59,8 +67,15 @@ def _map_param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
         if arr.ndim == 2:  # Dense (in, out) -> (out, in)
             return f"{mod}.weight", arr.T
         raise ValueError(f"params/{'/'.join(path)}: kernel of rank {arr.ndim}")
-    if leaf == "bias":
-        return f"{mod}.bias", arr
+    if leaf == "kernel_q":
+        if arr.ndim == 4:  # HWIO -> OHWI
+            return f"{mod}.kernel_q", np.transpose(arr, (3, 0, 1, 2))
+        if arr.ndim == 2:  # Dense (in, out) -> (out, in)
+            return f"{mod}.kernel_q", arr.T
+        raise ValueError(f"params/{'/'.join(path)}: kernel_q of rank "
+                         f"{arr.ndim}")
+    if leaf in ("bias", "w_scale", "act_scale"):
+        return f"{mod}.{leaf}", arr
     if leaf == "scale":
         return f"{mod}.weight", arr
     raise ValueError(f"params/{'/'.join(path)}: unknown leaf {leaf!r}")
@@ -137,19 +152,56 @@ def vit_state_dict_from_flax(variables: Mapping,
     return _checked(got, ref, problems)
 
 
+def quant_resnet50_state_dict_from_jax(
+        qparams: Mapping) -> dict[str, torch.Tensor]:
+    """Convert the JAX package's int8 ResNet50 qparams (``quantize_resnet50``
+    output, as numpy) into a :class:`~.quantize.QuantResNet50` state_dict:
+    the float stem and head as in :func:`resnet50_state_dict_from_flax`,
+    each body conv's ``kernel_q`` HWIO -> OHWI with its ``w_scale``,
+    ``bias`` and ``act_scale``. Raises ValueError on any missing, extra or
+    mis-shaped tensor, or a float where an int8 kernel belongs."""
+    from imageclust_tpu_torch.models.quantize import QuantResNet50
+
+    got, problems = _map_params(qparams)
+    num_classes = int(np.asarray(qparams["dense0"]["bias"]).shape[0])
+    with torch.device("meta"):
+        ref = QuantResNet50(num_classes, _stage_layers(qparams))
+    return _checked(got, ref, problems)
+
+
+def quant_vit_state_dict_from_jax(qparams: Mapping,
+                                  cfg: ViTConfig) -> dict[str, torch.Tensor]:
+    """Convert the JAX package's int8 ViT qparams (``quantize_vit`` output,
+    as numpy) for ``cfg`` into a :class:`~.quantize_vit.QuantViT`
+    state_dict: the float parts as in :func:`vit_state_dict_from_flax`,
+    each encoder Dense's ``kernel_q`` (in, out) -> (out, in) with its
+    ``w_scale``, ``bias`` and ``act_scale``. Raises ValueError as the other
+    converters do."""
+    from imageclust_tpu_torch.models.quantize_vit import QuantViT
+
+    got, problems = _map_params(qparams)
+    with torch.device("meta"):
+        ref = QuantViT(cfg)
+    return _checked(got, ref, problems)
+
+
 def _checked(got: dict, ref: torch.nn.Module,
              problems: list[str]) -> dict[str, torch.Tensor]:
-    want = {k: tuple(v.shape) for k, v in ref.state_dict().items()}
-    for k, shape in want.items():
+    want = {k: (tuple(v.shape), v.dtype) for k, v in ref.state_dict().items()}
+    for k, (shape, dtype) in want.items():
         if k not in got:
             problems.append(f"{k}: missing")
         elif tuple(got[k].shape) != shape:
             problems.append(
                 f"{k}: shape {tuple(got[k].shape)} != expected {shape}")
+        elif (dtype == torch.int8) != (got[k].dtype == np.int8):
+            problems.append(f"{k}: dtype {got[k].dtype} != expected {dtype}")
     for k in got:
         if k not in want:
             problems.append(f"{k}: unexpected")
     if problems:
         raise ValueError(
             "Flax->torch conversion failed:\n  " + "\n  ".join(problems[:40]))
-    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in got.items()}
+    return {k: torch.tensor(np.asarray(
+        v, np.int8 if want[k][1] == torch.int8 else np.float32))
+        for k, v in got.items()}

@@ -5,8 +5,10 @@ Counterpart of ``imageclust_tpu/models/registry.py``: ``resnet50`` (the
 the 2048-d pooled features) and the ViT/SigLIP towers of
 :data:`~.vit.VIT_CONFIGS` (``vit_b32``, ``vit_b16``, ``vit_l14``,
 ``vit_l14_336``, ``siglip_so400m``; the projected embedding).
-``quantize="int8"`` is not ported yet and raises ``NotImplementedError``
-(ROADMAP.md queue 1, item 12).
+``quantize="int8"`` builds the int8 PTQ variant of either family
+(:mod:`.quantize`, :mod:`.quantize_vit`), calibrated after any weight
+load. ``embed.onnx_path`` loads the reference's resnet50-v1-7.onnx when
+the file exists (random init, with a warning, when it does not).
 
 Images arrive as one uint8 BGR (N, H, W, 3) batch. At the input size the
 ResNet50 batch goes straight into the s2d stem (raw uint8, scale and
@@ -29,6 +31,8 @@ import torch
 
 from imageclust_tpu_torch.config import EmbedConfig
 from imageclust_tpu_torch.device import resolve_device
+from imageclust_tpu_torch.models.quantize_vit import QuantViT
+from imageclust_tpu_torch.models.resnet50 import ResNet50V1
 from imageclust_tpu_torch.models.vit import (
     VIT_CONFIGS,
     VisionTransformer,
@@ -78,7 +82,7 @@ class Embedder:
                  pooled: bool = False, weights_loaded: bool = False):
         self.spec = spec
         self.model = model.to(device).eval()
-        self._vit = isinstance(model, VisionTransformer)
+        self._vit = isinstance(model, (VisionTransformer, QuantViT))
         self.batch_size = batch_size
         self.device = device
         self.tag = tag or spec.name  # identity for the embedding cache
@@ -89,18 +93,7 @@ class Embedder:
     def load_flax_variables(self, variables: Mapping) -> None:
         """Load the JAX package's Flax variables (nested numpy dicts) into
         the tower, so both packages run the same numbers."""
-        from imageclust_tpu_torch.models.convert import (
-            resnet50_state_dict_from_flax,
-            vit_state_dict_from_flax,
-        )
-
-        if self._vit:
-            sd = vit_state_dict_from_flax(variables, self.model.cfg)
-        else:
-            sd = resnet50_state_dict_from_flax(
-                variables, stage_layers=self.model.stage_layers,
-                num_classes=self.model.num_classes, fold_bn=self.model.fold_bn)
-        self.model.load_state_dict(sd)
+        _load_flax(self.model, variables)
         self.model.to(self.device)
 
     @torch.inference_mode()
@@ -254,39 +247,109 @@ class Embedder:
         return (outs[0] if len(outs) == 1 else torch.cat(outs)), scale
 
 
+def _load_flax(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load the JAX package's Flax variables (nested numpy dicts) into a
+    float tower."""
+    from imageclust_tpu_torch.models.convert import (
+        resnet50_state_dict_from_flax,
+        vit_state_dict_from_flax,
+    )
+
+    if isinstance(model, VisionTransformer):
+        sd = vit_state_dict_from_flax(variables, model.cfg)
+    elif isinstance(model, ResNet50V1):
+        sd = resnet50_state_dict_from_flax(
+            variables, stage_layers=model.stage_layers,
+            num_classes=model.num_classes, fold_bn=model.fold_bn)
+    else:
+        raise TypeError("Flax variables load into a float tower; build an "
+                        "int8 tower with create_embedder(..., variables=)")
+    model.load_state_dict(sd)
+
+
+def _calib_batch(size: int, weights_loaded: bool) -> np.ndarray:
+    """int8 calibration batch (JAX registry.py:390-409): the
+    IMAGECLUST_CALIB_NPY uint8 sample when set (its first 32 images), else
+    seeded uniform noise (8 images, the JAX package's). Production: point
+    IMAGECLUST_CALIB_NPY at a (B, size, size, 3) uint8 BGR sample of the
+    corpus (warned when real weights calibrate on noise)."""
+    calib_path = os.environ.get("IMAGECLUST_CALIB_NPY", "")
+    if calib_path and os.path.exists(calib_path):
+        return np.load(calib_path)[:32]
+    if weights_loaded:
+        log.warning(
+            "int8 calibration is running on SYNTHETIC uniform-noise images "
+            "against real (non-random-init) weights — the activation scales "
+            "will not reflect real data and may clip; set "
+            "IMAGECLUST_CALIB_NPY to a (B,%d,%d,3) uint8 sample of your "
+            "corpus", size, size,
+        )
+    return np.random.default_rng(0).integers(
+        0, 256, (8, size, size, 3), np.uint8)
+
+
+def _quantize(model: torch.nn.Module, spec: EmbedderSpec, cfg: EmbedConfig,
+              weights_loaded: bool) -> torch.nn.Module:
+    """The int8 tower of ``model`` (loaded weights, on its device),
+    calibrated on :func:`_calib_batch` normalised as the embedder
+    normalises a batch (BGR -> RGB, 1/255, the tower's mean/std)."""
+    from imageclust_tpu_torch.models.quantize import quantize_resnet50
+    from imageclust_tpu_torch.models.quantize_vit import quantize_vit
+
+    calib = _calib_batch(spec.input_size, weights_loaded).astype(
+        np.float32)[..., ::-1] / 255.0  # BGR -> RGB, as JAX builds it
+    calib = ((calib - np.asarray(spec.mean, np.float32))
+             / np.asarray(spec.std, np.float32))
+    if isinstance(model, VisionTransformer):
+        return quantize_vit(model, calib, calib_method=cfg.calib_method)
+    return quantize_resnet50(model, calib, calib_method=cfg.calib_method)
+
+
+def _quant_suffix(cfg: EmbedConfig) -> str:
+    return f":{cfg.quantize}-{cfg.calib_method}" if cfg.quantize else ""
+
+
 def _weights_tag(cfg: EmbedConfig, seed: int, checkpoint: str = "") -> str:
     """Embedding-cache identity. The port's random init differs from the JAX
     package's (torch.Generator vs jax.random), so its tag differs too: a
-    shared cache never mixes the two. A loaded ViT ``checkpoint`` is
-    fingerprinted as the JAX package does (its first MiB, size, mtime)."""
+    shared cache never mixes the two. A loaded ``checkpoint`` (ONNX or HF)
+    is fingerprinted as the JAX package does (its first MiB, size, mtime).
+    An int8 tower adds the JAX package's ``:{quantize}-{calib_method}``:
+    its embeddings differ from the float tower's, and the calibration
+    statistic changes them."""
+    q = _quant_suffix(cfg)
     if checkpoint:
         h = hashlib.sha256()
         with open(checkpoint, "rb") as fh:
             h.update(fh.read(1 << 20))
         st = os.stat(checkpoint)
         h.update(str((st.st_size, int(st.st_mtime))).encode())
-        return f"{cfg.model}:{cfg.output}:torch-{h.hexdigest()[:12]}"
-    return f"{cfg.model}:{cfg.output}:torch-randominit-{seed}"
+        return f"{cfg.model}:{cfg.output}{q}:torch-{h.hexdigest()[:12]}"
+    return f"{cfg.model}:{cfg.output}{q}:torch-randominit-{seed}"
 
 
 def _build_resnet50(cfg: EmbedConfig, seed: int):
-    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    """ResNet50 with the ONNX weights at ``embed.onnx_path`` when the file
+    exists (JAX registry.py:418-434), else seeded random init. Returns
+    (spec, model, pooled, loaded path or "")."""
+    from imageclust_tpu_torch.models.resnet50 import load_onnx_params
 
     if cfg.checkpoint_path:
         raise NotImplementedError(
             "embed.checkpoint_path (Orbax) is not ported yet (ROADMAP.md "
-            "queue 1, tooling)")
-    if cfg.onnx_path and os.path.exists(cfg.onnx_path):
-        raise NotImplementedError(
-            f"loading ONNX weights ({cfg.onnx_path}) is not ported yet "
-            "(ROADMAP.md queue 1, ONNX ingestion); move the file away to "
-            "run with random init")
-    log.warning("ONNX checkpoint %s not found — using random init "
-                "(torch.Generator seed %d)", cfg.onnx_path, seed)
+            "queue 1, item 14)")
     model = ResNet50V1(num_classes=cfg.num_classes, dtype=cfg.dtype,
                        norm_dtype=cfg.norm_dtype,
                        stem_mode="s2d_raw" if cfg.s2d_stem else "standard")
-    model.init_random(seed)
+    loaded = ""
+    if cfg.onnx_path and os.path.exists(cfg.onnx_path):
+        model.load_state_dict(load_onnx_params(cfg.onnx_path, model))
+        loaded = cfg.onnx_path
+        log.info("loaded ONNX weights from %s", cfg.onnx_path)
+    else:
+        log.warning("ONNX checkpoint %s not found — using random init "
+                    "(torch.Generator seed %d)", cfg.onnx_path, seed)
+        model.init_random(seed)
     pooled = cfg.output == "pooled"
     spec = EmbedderSpec(
         name="resnet50",
@@ -297,7 +360,7 @@ def _build_resnet50(cfg: EmbedConfig, seed: int):
         std=(1.0, 1.0, 1.0),
         bgr_input=True,
     )
-    return spec, model, pooled
+    return spec, model, pooled, loaded
 
 
 def _build_vit(name: str, cfg: EmbedConfig, seed: int):
@@ -309,7 +372,7 @@ def _build_vit(name: str, cfg: EmbedConfig, seed: int):
     if cfg.checkpoint_path:
         raise NotImplementedError(
             "embed.checkpoint_path (Orbax) is not ported yet (ROADMAP.md "
-            "queue 1, tooling)")
+            "queue 1, item 14)")
     vcfg = VIT_CONFIGS[name]
     model = VisionTransformer(vcfg, dtype=cfg.dtype, norm_dtype=cfg.norm_dtype)
     model.init_random(seed)
@@ -359,32 +422,32 @@ def create_embedder(
 ) -> Embedder:
     """Build the configured tower on ``device`` (default ``"cuda"``).
     ``variables``: Flax variables from the JAX package to load instead of
-    the seeded random init."""
+    the seeded random init. With ``embed.quantize="int8"`` the tower is
+    quantized after its weights are loaded (ONNX, HF checkpoint or
+    ``variables``), calibrating on the device."""
     cfg = cfg or EmbedConfig()
     dev = resolve_device(device)
     if cfg.quantize not in ("", "int8"):
         raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
     if cfg.model not in list_models():
         raise ValueError(f"unknown model {cfg.model!r}; know {list_models()}")
-    if cfg.quantize == "int8":
-        raise NotImplementedError(
-            f"embed.quantize='int8' ({cfg.model}) is not ported yet "
-            "(ROADMAP.md queue 1, item 12: int8 PTQ)")
-    loaded = ""
     if cfg.model == "resnet50":
-        spec, model, pooled = _build_resnet50(cfg, seed)
+        spec, model, pooled, loaded = _build_resnet50(cfg, seed)
     else:
         spec, model, loaded = _build_vit(cfg.model, cfg, seed)
         pooled = False
-    batch = cfg.batch_size or DEFAULT_BATCH[cfg.model]
-    emb = Embedder(spec, model, batch, dev,
-                   tag=_weights_tag(cfg, seed, loaded), pooled=pooled,
-                   weights_loaded=bool(loaded))
+    tag = _weights_tag(cfg, seed, loaded)
     if variables is not None:
-        emb.load_flax_variables(variables)
+        _load_flax(model, variables)
         h = hashlib.sha256()
-        for k, v in sorted(emb.model.state_dict().items()):
+        for k, v in sorted(model.state_dict().items()):
             h.update(k.encode())
             h.update(v.detach().cpu().numpy().tobytes())
-        emb.tag = f"{cfg.model}:{cfg.output}:flax-{h.hexdigest()[:12]}"
-    return emb
+        tag = (f"{cfg.model}:{cfg.output}{_quant_suffix(cfg)}:"
+               f"flax-{h.hexdigest()[:12]}")
+    weights_loaded = bool(loaded)
+    if cfg.quantize == "int8":
+        model = _quantize(model.to(dev), spec, cfg, weights_loaded)
+    batch = cfg.batch_size or DEFAULT_BATCH[cfg.model]
+    return Embedder(spec, model, batch, dev, tag=tag, pooled=pooled,
+                    weights_loaded=weights_loaded)

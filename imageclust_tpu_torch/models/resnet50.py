@@ -18,7 +18,9 @@ the card): the JAX package left them to XLA, so they are not TPU kernels.
 
 Parameter names follow the Flax tree (``conv0``, ``bn0``,
 ``stage{s}_block{b}.conv{i}`` ...) so :mod:`.convert` maps one onto the
-other by name.
+other by name. :func:`load_onnx_params` reads the reference's own
+checkpoint (resnet50-v1-7.onnx, Gluon initializer names) into the same
+``state_dict``.
 """
 
 from __future__ import annotations
@@ -26,11 +28,13 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ResNet50V1", "BottleneckV1", "fold_bn_variables",
+           "load_onnx_params", "s2d_kernel", "s2d_input",
            "GLUON_STAGE_LAYERS", "STAGE_WIDTHS"]
 
 GLUON_STAGE_LAYERS = (3, 4, 6, 3)
@@ -151,31 +155,10 @@ class ResNet50V1(nn.Module):
 
     # -- stems ---------------------------------------------------------------
 
-    def _s2d_kernel(self) -> torch.Tensor:
-        """(64, 12, 4, 4) OIHW kernel in ``dtype`` equivalent to conv0's
-        7x7/2 over the BGR uint8 2x2 space-to-depth input."""
-        w7 = self.conv0.weight.permute(2, 3, 1, 0)  # OIHW -> HWIO (7,7,3,64)
-        w8 = w7.new_zeros((8, 8, 3, 64))
-        w8[1:8, 1:8] = w7
-        parts = [w8[p::2, q::2, 2 - c, :]
-                 for p in (0, 1) for q in (0, 1) for c in (0, 1, 2)]
-        w12 = torch.stack(parts, dim=2) * (1.0 / 255.0)  # (4,4,12,64) HWIO
-        return w12.to(self.dtype).permute(3, 2, 0, 1).contiguous()
-
     def _stem_s2d(self, x: torch.Tensor) -> torch.Tensor:
-        if (x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 2
-                or x.shape[2] % 2):
-            raise ValueError(
-                f"s2d_raw stem needs raw NHWC (B,H,W,3) with even H/W, "
-                f"got {tuple(x.shape)}")
-        b, h, w, _ = x.shape
-        xs = x.reshape(b, h // 2, 2, w // 2, 2, 3)
-        # channel index p*6 + q*3 + c, as the JAX transpose/reshape builds it
-        xs = xs.permute(0, 2, 4, 5, 1, 3).reshape(b, 12, h // 2, w // 2)
-        xs = xs.to(self.dtype).contiguous(memory_format=torch.channels_last)
-        xs = F.pad(xs, (2, 1, 2, 1))  # JAX padding ((2, 1), (2, 1))
         bias = None if self.conv0.bias is None else self.conv0.bias.to(self.dtype)
-        return F.conv2d(xs, self._s2d_kernel(), bias)
+        return F.conv2d(s2d_input(x, self.dtype),
+                        s2d_kernel(self.conv0.weight, self.dtype), bias)
 
     def _stem_standard(self, x: torch.Tensor) -> torch.Tensor:
         if x.shape[1] != 3:  # NHWC -> NCHW (the JAX module accepts both)
@@ -232,6 +215,38 @@ class ResNet50V1(nn.Module):
         return self
 
 
+def s2d_kernel(w7: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(64, 12, 4, 4) OIHW kernel in ``dtype`` equivalent to the (64, 3, 7,
+    7) stem kernel ``w7`` (7x7/2) over the BGR uint8 2x2 space-to-depth
+    input, with the 1/255 scale and the BGR->RGB flip folded in (JAX
+    resnet50.py:139-155). Derived from ``w7`` at every call, so no copy
+    outlives a weight load."""
+    w7 = w7.permute(2, 3, 1, 0)  # OIHW -> HWIO (7,7,3,64)
+    w8 = w7.new_zeros((8, 8, 3, 64))
+    w8[1:8, 1:8] = w7
+    parts = [w8[p::2, q::2, 2 - c, :]
+             for p in (0, 1) for q in (0, 1) for c in (0, 1, 2)]
+    w12 = torch.stack(parts, dim=2) * (1.0 / 255.0)  # (4,4,12,64) HWIO
+    return w12.to(dtype).permute(3, 2, 0, 1).contiguous()
+
+
+def s2d_input(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Raw NHWC (B, H, W, 3) -> the padded (B, 12, H/2 + 3, W/2 + 3) 2x2
+    space-to-depth batch in ``dtype`` (channels_last) that
+    :func:`s2d_kernel`'s 4x4/1 convolution takes."""
+    if (x.dim() != 4 or x.shape[-1] != 3 or x.shape[1] % 2
+            or x.shape[2] % 2):
+        raise ValueError(
+            f"s2d_raw stem needs raw NHWC (B,H,W,3) with even H/W, "
+            f"got {tuple(x.shape)}")
+    b, h, w, _ = x.shape
+    xs = x.reshape(b, h // 2, 2, w // 2, 2, 3)
+    # channel index p*6 + q*3 + c, as the JAX transpose/reshape builds it
+    xs = xs.permute(0, 2, 4, 5, 1, 3).reshape(b, 12, h // 2, w // 2)
+    xs = xs.to(dtype).contiguous(memory_format=torch.channels_last)
+    return F.pad(xs, (2, 1, 2, 1))  # JAX padding ((2, 1), (2, 1))
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, gen: torch.Generator):
     """jax.nn.initializers.lecun_normal: truncated normal on [-2, 2]
     rescaled so the variance is 1/fan_in."""
@@ -264,3 +279,142 @@ def fold_bn_variables(model: ResNet50V1) -> ResNet50V1:
                          - bn.running_mean.double() * inv).float())
     folded.dense0.load_state_dict(model.dense0.state_dict())
     return folded.to(model.dense0.weight.device)
+
+
+# -- ONNX ingestion (resnet50-v1-7.onnx, Gluon names) --------------------------
+
+def _gluon_name_map(stage_layers: Sequence[int] = GLUON_STAGE_LAYERS):
+    """Map Gluon-ONNX initializer names (``resnetv17_*``) to Flax tree paths
+    (JAX resnet50.py:235-270).
+
+    Gluon numbers convs/batchnorms in creation order within each stage
+    scope: per block the 3 body convs first, then the projection conv of
+    the first block (BottleneckV1 creates body before downsample)."""
+    m: dict[str, tuple[str, ...]] = {}
+
+    def conv(onnx, *path):
+        m[f"{onnx}_weight"] = (*path, "kernel")
+
+    def bnorm(onnx, *path):
+        m[f"{onnx}_gamma"] = ("params_scale", *path, "scale")
+        m[f"{onnx}_beta"] = ("params_bias", *path, "bias")
+        m[f"{onnx}_running_mean"] = ("stats_mean", *path, "mean")
+        m[f"{onnx}_running_var"] = ("stats_var", *path, "var")
+
+    conv("resnetv17_conv0", "conv0")
+    bnorm("resnetv17_batchnorm0", "bn0")
+    for si, n_blocks in enumerate(stage_layers):
+        stage = f"resnetv17_stage{si + 1}"
+        k = 0
+        for bi in range(n_blocks):
+            blk = f"stage{si + 1}_block{bi}"
+            for ci in range(3):
+                conv(f"{stage}_conv{k}", blk, f"conv{ci}")
+                bnorm(f"{stage}_batchnorm{k}", blk, f"bn{ci}")
+                k += 1
+            if bi == 0:
+                conv(f"{stage}_conv{k}", blk, "conv_proj")
+                bnorm(f"{stage}_batchnorm{k}", blk, "bn_proj")
+                k += 1
+    m["resnetv17_dense0_weight"] = ("dense0", "kernel")
+    m["resnetv17_dense0_bias"] = ("dense0", "bias")
+    return m
+
+
+def _set_path(tree: dict, path: tuple[str, ...], value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def _flax_shapes(model: ResNet50V1) -> tuple[dict, dict]:
+    """The Flax ``params`` and ``batch_stats`` shape trees of ``model``
+    (HWIO conv kernels, (in, out) dense kernel): the structure the JAX
+    loader validates against."""
+    params: dict = {}
+    stats: dict = {}
+    for name, mod in model.named_modules():
+        path = tuple(name.split("."))
+        if isinstance(mod, _Conv):
+            o, i, kh, kw = mod.weight.shape
+            _set_path(params, (*path, "kernel"), (kh, kw, i, o))
+            if mod.bias is not None:
+                _set_path(params, (*path, "bias"), tuple(mod.bias.shape))
+        elif isinstance(mod, _BatchNorm):
+            c = (mod.weight.shape[0],)
+            _set_path(params, (*path, "scale"), c)
+            _set_path(params, (*path, "bias"), c)
+            _set_path(stats, (*path, "mean"), c)
+            _set_path(stats, (*path, "var"), c)
+    o, i = model.dense0.weight.shape
+    params["dense0"] = {"kernel": (i, o), "bias": (o,)}
+    return params, stats
+
+
+def _shape_diff(ref, got, prefix: str) -> list[str]:
+    """Every missing, unexpected or mis-shaped leaf of ``got`` against the
+    shape tree ``ref`` (JAX resnet50.py:330-344)."""
+    out = []
+    if isinstance(ref, dict):
+        for k in ref:
+            if not isinstance(got, dict) or k not in got:
+                out.append(f"{prefix}/{k}: missing")
+            else:
+                out += _shape_diff(ref[k], got[k], f"{prefix}/{k}")
+        if isinstance(got, dict):
+            for k in got:
+                if k not in ref:
+                    out.append(f"{prefix}/{k}: unexpected")
+    elif tuple(ref) != got.shape:
+        out.append(f"{prefix}: shape {got.shape} != expected {tuple(ref)}")
+    return out
+
+
+def load_onnx_params(onnx_path: str,
+                     model: ResNet50V1) -> dict[str, torch.Tensor]:
+    """Ingest resnet50-v1-7.onnx weights (Gluon initializer names) as a
+    ``state_dict`` for ``model``, an unfolded :class:`ResNet50V1` whose
+    structure and shapes validate the file (JAX resnet50.py:280-327).
+
+    The initializers go into a Flax-layout tree (conv OIHW -> HWIO, dense
+    (out, in) -> (in, out)), which is held against ``model``'s Flax shapes
+    as the JAX loader holds it against its init, then into torch's layout
+    through :func:`~.convert.resnet50_state_dict_from_flax`: both layout
+    changes are transposes, so the values keep their bits. Raises
+    ValueError listing every missing or mis-shaped tensor, in the JAX
+    loader's words."""
+    from imageclust_tpu_torch.models.convert import (
+        resnet50_state_dict_from_flax,
+    )
+    from imageclust_tpu_torch.models.onnx_io import read_onnx_initializers
+
+    tensors = read_onnx_initializers(onnx_path)
+    params: dict = {}
+    stats: dict = {}
+    problems: list[str] = []
+    for onnx_name, path in _gluon_name_map(model.stage_layers).items():
+        if onnx_name not in tensors:
+            problems.append(f"missing initializer: {onnx_name}")
+            continue
+        arr = tensors[onnx_name]
+        if path[0] in ("params_scale", "params_bias"):
+            _set_path(params, path[1:], arr)
+        elif path[0] in ("stats_mean", "stats_var"):
+            _set_path(stats, path[1:], arr)
+        elif path[-1] == "kernel" and arr.ndim == 4:
+            _set_path(params, path, np.transpose(arr, (2, 3, 1, 0)))
+        elif path[-1] == "kernel" and arr.ndim == 2:
+            _set_path(params, path, arr.T)
+        else:
+            _set_path(params, path, arr)
+    ref_params, ref_stats = _flax_shapes(model)
+    problems += _shape_diff(ref_params, params, "params")
+    problems += _shape_diff(ref_stats, stats, "batch_stats")
+    if problems:
+        raise ValueError(
+            "ONNX->Flax conversion failed:\n  " + "\n  ".join(problems[:40]))
+    return resnet50_state_dict_from_flax(
+        {"params": params, "batch_stats": stats},
+        stage_layers=model.stage_layers, num_classes=model.num_classes,
+        fold_bn=False)

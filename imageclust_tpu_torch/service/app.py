@@ -4,10 +4,12 @@ The same routes, JSON shapes, CORS headers and status codes as the JAX
 package's aiohttp app (``imageclust_tpu/service/app.py``), on
 ``http.server.ThreadingHTTPServer`` (GPU hosts may have no aiohttp):
 
-* ``POST /api/cluster`` — multipart ``images`` files (parsed with
-  ``email.parser.BytesParser``) plus optional ``minClusterSize`` /
-  ``maxClusterSize``; ``?async=1`` enqueues and returns 202, poll
-  ``GET /api/result``.
+* ``POST /api/cluster`` — multipart ``images`` files plus optional
+  ``minClusterSize`` / ``maxClusterSize``; ``?async=1`` enqueues and
+  returns 202, poll ``GET /api/result``. The body (``Content-Length`` or
+  chunked) is parsed as it arrives, in chunks of at most 64 KiB, and the
+  upload cap counts image bytes only, mid-stream, as the JAX app counts
+  them (413 past ``service.max_upload_bytes``).
 * ``GET /api/view`` (``?job=``, ``&page=``, ``&sec=``), ``/api/image/{name}``,
   ``/api/result``, ``/api/jobs``, ``/metrics``, ``/healthz`` and the SPA
   static fallback with the ``/view`` alias.
@@ -74,16 +76,101 @@ def _file(path: str, ctype: str | None = None) -> _Reply:
     return _Reply(200, body, ctype)
 
 
-def _parse_multipart(ctype: str, body: bytes):
-    """Yield (field name, filename or None, payload bytes) per part."""
-    msg = BytesParser(policy=HTTP).parsebytes(
-        b"Content-Type: " + ctype.encode("latin-1") + b"\r\n\r\n" + body)
-    if not msg.is_multipart():
-        raise ValueError("not multipart")
-    for part in msg.iter_parts():
-        name = part.get_param("name", header="content-disposition")
-        payload = part.get_payload(decode=True) or b""
-        yield name, part.get_filename(), payload
+_CHUNK = 1 << 16  # body reads, as the JAX app's read_chunk(64 KiB)
+_MAX_PART_HEADERS = 1 << 16
+_MAX_FIELD = 1 << 16  # a form field's value (minClusterSize, ...)
+
+
+class _MultipartStream:
+    """Incremental multipart/form-data parser. :meth:`feed` takes body
+    bytes as they arrive and returns events: ``("part", (name, filename))``
+    at a part's start, ``("data", bytes)`` for its raw content (no
+    transfer decoding, as the JAX app reads it), ``("end", None)`` at its
+    end. Raises ValueError on a content type that is not multipart with a
+    boundary (aiohttp's check) or on malformed part headers."""
+
+    def __init__(self, ctype: str):
+        msg = BytesParser(policy=HTTP).parsebytes(
+            b"Content-Type: " + ctype.encode("latin-1") + b"\r\n\r\n")
+        boundary = msg.get_param("boundary")
+        if msg.get_content_maintype() != "multipart" or not boundary:
+            raise ValueError("multipart/* content type with a boundary "
+                             "expected")
+        self._delim = b"--" + str(boundary).encode("latin-1")
+        self._buf = b""
+        self._state = "preamble"
+
+    def feed(self, data: bytes) -> list:
+        self._buf += data
+        events: list = []
+        while self._step(events):
+            pass
+        return events
+
+    def events(self, body):
+        """Every event of ``body`` (an iterable of byte chunks), lazily:
+        the caller stops reading where it stops iterating."""
+        for chunk in body:
+            yield from self.feed(chunk)
+        yield from self.close()
+
+    def close(self) -> list:
+        """Events at the end of the body: a part cut off by it ends there
+        (the lenient reading the email parser gave)."""
+        if self._state == "body":
+            self._state = "done"
+            return [("data", self._buf), ("end", None)]
+        return []
+
+    def _step(self, events: list) -> bool:
+        buf, delim = self._buf, self._delim
+        if self._state == "preamble":
+            i = buf.find(delim)
+            if i < 0:
+                self._buf = buf[max(0, len(buf) - len(delim) + 1):]
+                return False
+            self._buf, self._state = buf[i + len(delim):], "after_delim"
+            return True
+        if self._state == "after_delim":
+            if len(buf) < 2:
+                return False
+            if buf[:2] == b"--":  # the closing delimiter
+                self._buf, self._state = b"", "done"
+                return False
+            i = buf.find(b"\r\n")
+            if i < 0:
+                if len(buf) > _MAX_PART_HEADERS:
+                    raise ValueError("malformed delimiter line")
+                return False
+            self._buf, self._state = buf[i + 2:], "headers"
+            return True
+        if self._state == "headers":
+            i = buf.find(b"\r\n\r\n")
+            if i < 0:
+                if len(buf) > _MAX_PART_HEADERS:
+                    raise ValueError("part headers too long")
+                return False
+            part = BytesParser(policy=HTTP).parsebytes(buf[:i + 4])
+            name = part.get_param("name", header="content-disposition")
+            events.append(("part", (name, part.get_filename())))
+            self._buf, self._state = buf[i + 4:], "body"
+            return True
+        if self._state == "body":
+            i = buf.find(b"\r\n" + delim)
+            if i < 0:  # keep what could be the start of the delimiter
+                keep = len(delim) + 1
+                if len(buf) > keep:
+                    events.append(("data", buf[:-keep]))
+                    self._buf = buf[-keep:]
+                return False
+            if i:
+                events.append(("data", buf[:i]))
+            events.append(("end", None))
+            self._buf = buf[i + 2 + len(delim):]
+            self._state = "after_delim"
+            return True
+        self._buf = b""  # done: the epilogue is ignored
+        return False
 
 
 class ClusterService:
@@ -176,30 +263,50 @@ class ClusterService:
 
     # -- routes ----------------------------------------------------------------
 
-    def cluster(self, query: dict, ctype: str, body: bytes) -> _Reply:
+    def cluster(self, query: dict, ctype: str, body) -> _Reply:
+        """``POST /api/cluster``. ``body``: the request body as an iterable
+        of byte chunks, read only as far as the reply needs."""
         cfg = self.config
-        try:
-            parts = list(_parse_multipart(ctype, body))
-        except (ValueError, TypeError):
-            return _error(400, "Failed to parse form data")  # handlers.go:73
+        cap = cfg.service.max_upload_bytes
         uploads: list[UploadedImage] = []
-        min_size = cfg.cluster.min_size
-        max_size = cfg.cluster.max_size
-        for name, filename, payload in parts:
-            if name == "images" and filename:
-                if payload:
-                    uploads.append(
-                        UploadedImage(sanitize_filename(filename), payload))
-            elif name == "minClusterSize":
-                try:
-                    min_size = int(payload.decode().strip())
-                except (ValueError, UnicodeDecodeError):
-                    return _error(400, "invalid minClusterSize")
-            elif name == "maxClusterSize":
-                try:
-                    max_size = int(payload.decode().strip())
-                except (ValueError, UnicodeDecodeError):
-                    return _error(400, "invalid maxClusterSize")
+        sizes = {"minClusterSize": cfg.cluster.min_size,
+                 "maxClusterSize": cfg.cluster.max_size}
+        total_bytes = 0
+        name = filename = None
+        data: list[bytes] = []
+        field_len = 0
+        try:
+            for kind, value in _MultipartStream(ctype).events(body):
+                if kind == "part":
+                    (name, filename), data, field_len = value, [], 0
+                elif kind == "data" and name == "images" and filename:
+                    # the cap counts image bytes, mid-stream (JAX
+                    # app.py:151-169): one oversized request never
+                    # sits in memory whole
+                    total_bytes += len(value)
+                    if total_bytes > cap:
+                        return _error(
+                            413, f"upload exceeds {cap} bytes")
+                    data.append(value)
+                elif kind == "data" and name in sizes:
+                    field_len += len(value)
+                    if field_len <= _MAX_FIELD:
+                        data.append(value)
+                elif kind == "end" and name == "images" and filename:
+                    if data:
+                        uploads.append(UploadedImage(
+                            sanitize_filename(filename), b"".join(data)))
+                elif kind == "end" and name in sizes:
+                    try:
+                        if field_len > _MAX_FIELD:
+                            raise ValueError(name)
+                        sizes[name] = int(b"".join(data).decode().strip())
+                    except (ValueError, UnicodeDecodeError):
+                        return _error(400, f"invalid {name}")
+        except ValueError:
+            return _error(400, "Failed to parse form data")  # handlers.go:73
+        min_size = sizes["minClusterSize"]
+        max_size = sizes["maxClusterSize"]
         if not uploads:
             return _error(400, "No valid images uploaded")  # handlers.go:107
         if min_size < 1 or max_size < min_size:
@@ -309,7 +416,9 @@ class ClusterService:
             return _file(index, "text/html")
         return _error(404, "not found")
 
-    def handle(self, method: str, target: str, headers, body: bytes) -> _Reply:
+    def handle(self, method: str, target: str, headers, body) -> _Reply:
+        """Route one request. ``body``: an iterable of byte chunks, which
+        only ``POST /api/cluster`` reads."""
         url = urlsplit(target)
         path = unquote(url.path)
         query = {k: v[-1] for k, v in parse_qs(url.query).items()}
@@ -338,7 +447,7 @@ class ClusterService:
         return self.spa(path)
 
 
-def _handler_class(service: ClusterService, max_body: int):
+def _handler_class(service: ClusterService):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -355,24 +464,52 @@ def _handler_class(service: ClusterService, max_body: int):
             if self.command != "HEAD":
                 self.wfile.write(reply.body)
 
-        def _serve(self) -> None:
-            length = int(self.headers.get("Content-Length") or 0)
-            if length > max_body:
-                # drain in bounded chunks (the client is mid-send), then
-                # reply and drop the connection
+        def _body(self, state: dict):
+            """The request body in chunks of at most 64 KiB: its
+            ``Content-Length`` bytes, or a chunked transfer coding decoded.
+            ``state["done"]`` turns True once the body was read whole."""
+            if "chunked" in self.headers.get("Transfer-Encoding", "").lower():
+                while True:
+                    line = self.rfile.readline(_CHUNK + 1)
+                    size = int(line.split(b";")[0].strip(), 16)
+                    if size == 0:  # the last chunk, then trailers
+                        while self.rfile.readline(_CHUNK + 1) not in (
+                                b"\r\n", b"\n", b""):
+                            pass
+                        break
+                    while size > 0:
+                        data = self.rfile.read(min(size, _CHUNK))
+                        if not data:
+                            return
+                        size -= len(data)
+                        yield data
+                    self.rfile.readline(_CHUNK + 1)  # the chunk's CRLF
+            else:
+                length = int(self.headers.get("Content-Length") or 0)
                 while length > 0:
-                    length -= len(self.rfile.read(min(length, 1 << 16)) or
-                                  b"x" * length)
-                self.close_connection = True
-                self._send(_error(413, f"upload exceeds {max_body} bytes"))
-                return
-            body = self.rfile.read(length) if length else b""
+                    data = self.rfile.read(min(length, _CHUNK))
+                    if not data:
+                        return
+                    length -= len(data)
+                    yield data
+            state["done"] = True
+
+        def _serve(self) -> None:
+            state = {"done": False}
+            body = self._body(state)
             try:
                 reply = service.handle(self.command, self.path, self.headers,
                                        body)
             except Exception as exc:  # a route bug must not kill the server
                 log.exception("request %s %s failed", self.command, self.path)
                 reply = _error(500, str(exc))
+            try:
+                for _ in body:  # drain what the route left unread (the
+                    pass        # client may still be sending)
+            except ValueError:  # a malformed chunk size
+                pass
+            if not state["done"] or reply.status == 413:
+                self.close_connection = True
             self._send(reply)
 
         do_GET = do_HEAD = do_POST = do_OPTIONS = do_PUT = do_DELETE = _serve
@@ -403,7 +540,7 @@ def create_server(
     server = ThreadingHTTPServer(
         (config.service.host if host is None else host,
          config.service.port if port is None else port),
-        _handler_class(service, config.service.max_upload_bytes))
+        _handler_class(service))
     server.daemon_threads = True
     server.service = service
     return server

@@ -494,3 +494,122 @@ def test_tiny_vit_on_k5_matches_twin(cuda, monkeypatch, dtype):
         want = model(x)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
     assert float(cos.min()) >= (0.999 if dtype == "bfloat16" else 0.99999)
+
+
+# -- int8 products and the int8 towers (models/quantize*.py, ops/int8.py) ----
+
+@pytest.mark.parametrize("m,k,n", [(1, 8, 8), (5, 3, 7), (16, 64, 24),
+                                   (17, 33, 9), (49, 2048, 512),
+                                   (50, 768, 3072), (3000, 576, 64)])
+def test_int8_mm_on_card_equals_plain(cuda, m, k, n):
+    from imageclust_tpu_torch.ops.int8 import int8_mm
+
+    gen = torch.Generator().manual_seed(m * k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=gen, dtype=torch.int8)
+    want = int8_mm(a, b.t())
+    for bb in (b.t(), b.t().contiguous()):  # column- and row-major
+        got = int8_mm(a.to(cuda), bb.to(cuda))
+        assert got.device.type == "cuda" and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("k,stride,pad", [(1, 1, 0), (1, 2, 0), (3, 1, 1),
+                                          (3, 2, 1), (7, 2, 3)])
+@pytest.mark.parametrize("hw", [(7, 7), (9, 13), (56, 56)])
+def test_int8_conv2d_on_card_equals_plain(cuda, k, stride, pad, hw):
+    from imageclust_tpu_torch.ops.int8 import int8_conv2d
+
+    gen = torch.Generator().manual_seed(k + stride + hw[0])
+    x = torch.randint(-127, 128, (3, *hw, 24), generator=gen,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (40, k, k, 24), generator=gen,
+                      dtype=torch.int8)
+    want = int8_conv2d(x, w, stride, pad)
+    got = int8_conv2d(x.to(cuda), w.to(cuda), stride, pad)
+    assert torch.equal(got.cpu(), want)
+
+
+def test_int8_mm_refuses_mixed_devices(cuda):
+    from imageclust_tpu_torch.ops.int8 import int8_mm
+
+    a = torch.ones((32, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="operands on"):
+        int8_mm(a.to(cuda), a.t())
+
+
+def _cos_min(a, b):
+    return float(torch.nn.functional.cosine_similarity(
+        a.float().cpu(), b.float().cpu(), dim=1).min())
+
+
+def test_int8_resnet50_on_card_matches_cpu(cuda):
+    """The full-width int8 ResNet50 (seeded random init, calibrated on the
+    CPU) on the card against the same tower on the CPU, both input paths."""
+    import copy
+
+    from imageclust_tpu_torch.models.quantize import quantize_resnet50
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+
+    model = ResNet50V1(num_classes=1000).init_random(0)
+    gen = torch.Generator().manual_seed(2)
+    calib = torch.rand((4, 224, 224, 3), generator=gen)
+    q_cpu = quantize_resnet50(model, calib).eval()
+    q_gpu = copy.deepcopy(q_cpu).to(cuda)
+    u8 = torch.randint(0, 256, (6, 224, 224, 3), generator=gen,
+                       dtype=torch.uint8)
+    with torch.inference_mode():
+        for x in (u8, u8.flip(-1).float() / 255.0):
+            want = q_cpu(x, return_features=True)
+            got = q_gpu(x.to(cuda), return_features=True)
+            for g, w in zip(got, want):
+                assert torch.isfinite(g).all()
+                assert _cos_min(g, w) >= 0.999
+
+
+def test_int8_vit_b32_on_card_matches_cpu(cuda):
+    """The full-width int8 ViT-B/32 on the card (K5 in every block) against
+    the same tower on the CPU (the twin's attention)."""
+    import copy
+
+    from imageclust_tpu_torch.models import vit
+    from imageclust_tpu_torch.models.quantize_vit import quantize_vit
+    from imageclust_tpu_torch.ops import attention as at
+
+    model = vit.VisionTransformer(vit.VIT_CONFIGS["vit_b32"]).init_random(0)
+    gen = torch.Generator().manual_seed(3)
+    q_cpu = quantize_vit(model, torch.randn((4, 224, 224, 3), generator=gen))
+    q_gpu = copy.deepcopy(q_cpu).to(cuda)
+    x = torch.randn((8, 224, 224, 3), generator=gen)
+    with torch.inference_mode():
+        want = q_cpu(x)
+        before = at.launches
+        got = q_gpu(x.to(cuda))
+        assert at.launches == before + 12
+    assert torch.isfinite(got).all()
+    assert _cos_min(got, want) >= 0.999
+
+
+def test_onnx_load_on_card(cuda, tmp_path):
+    """``embed.onnx_path`` on the card: the loaded weights equal the
+    exported ones bit for bit, and the tower embeds."""
+    import numpy as np
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+
+    src = ResNet50V1(num_classes=1000).init_random(7)
+    path = tmp_path / "rn50.onnx"
+    export_resnet50_onnx(src, str(path))
+    emb = create_embedder(EmbedConfig(onnx_path=str(path), batch_size=8),
+                          device="cuda")
+    got = emb.model.state_dict()
+    for k, v in src.state_dict().items():
+        assert got[k].device.type == "cuda"
+        assert torch.equal(got[k].cpu(), v), k
+    u8 = np.random.default_rng(0).integers(
+        0, 256, (5, 224, 224, 3)).astype(np.uint8)
+    out = emb.embed(u8)
+    assert out.shape == (5, 1000) and np.isfinite(out).all()

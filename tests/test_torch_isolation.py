@@ -44,7 +44,10 @@ def test_port_has_modules():
                 "ops/merge_kernels.py", "ops/bucket_kernels.py",
                 "ops/_build.py", "ops/attention.py",
                 "models/resnet50.py", "models/convert.py", "models/vit.py",
-                "models/registry.py", "service/app.py", "data/loader.py"):
+                "models/registry.py", "models/onnx_io.py",
+                "models/onnx_export.py", "models/quantize.py",
+                "models/quantize_vit.py", "ops/int8.py", "service/app.py",
+                "data/loader.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
@@ -87,6 +90,10 @@ def test_import_and_cluster_without_jax(tmp_path):
         "m = VisionTransformer(ViTConfig(patch=8, width=32, depth=1, "
         "heads=4, proj_dim=8, image_size=16)).init_random(0)\n"
         "assert m(torch.zeros(2, 16, 16, 3)).shape == (2, 8)\n"
+        "from imageclust_tpu_torch.models.quantize_vit import quantize_vit\n"
+        "qm = quantize_vit(m, np.ones((2, 16, 16, 3), np.float32))\n"
+        "assert qm(torch.zeros(2, 16, 16, 3)).shape == (2, 8)\n"
+        "from imageclust_tpu_torch.models import onnx_export, quantize\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,

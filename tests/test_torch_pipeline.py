@@ -224,8 +224,10 @@ class TestErrors:
             create_embedder(EmbedConfig())
 
     @pytest.mark.parametrize("cfg,exc", [
-        (EmbedConfig(model="vit_b32", quantize="int8"), NotImplementedError),
-        (EmbedConfig(quantize="int8"), NotImplementedError),
+        (EmbedConfig(model="vit_b32", quantize="int8",
+                     checkpoint_path="ckpt"), NotImplementedError),
+        (EmbedConfig(quantize="int8", checkpoint_path="ckpt"),
+         NotImplementedError),
         (EmbedConfig(model="nope"), ValueError),
         (EmbedConfig(quantize="fp4"), ValueError)])
     def test_unported_towers_raise(self, cfg, exc):
@@ -371,6 +373,47 @@ class TestCli:
         assert sorted(placed + out["dropped"]) == sorted(
             n.replace(".png", ".bmp") for n in names)
         assert out["metrics"]["counters"]["merges"] == 9 - 2
+
+    @pytest.mark.parametrize("stream", [False, True])
+    def test_run_lists_the_jax_clis_files(self, tmp_path, monkeypatch,
+                                          stream):
+        """``cli run`` takes the files the JAX CLI takes: PPMs (which the
+        port's loader can decode) are not among them."""
+        import imageclust_tpu.pipeline as jax_pipeline
+        from imageclust_tpu import cli as jax_cli
+        from imageclust_tpu_torch import pipeline as port_pipeline
+
+        for name in ("a.bmp", "b.ppm", "c.PNG", "d.jpg", "e.txt", "f.webp",
+                     "g.PPM", "h.jpeg", "i.gif"):
+            (tmp_path / name).write_bytes(b"x")
+        seen = []
+
+        class Stop(Exception):
+            pass
+
+        class Recorder:
+            def __init__(self, *args, **kwargs):
+                pass
+
+            def run(self, uploads, *args, **kwargs):
+                seen.append(sorted(u.filename for u in uploads))
+                raise Stop
+
+            def run_paths(self, paths, *args, **kwargs):
+                seen.append(sorted(os.path.basename(p) for p in paths))
+                raise Stop
+
+        monkeypatch.setenv("IMAGECLUST_JAX_CACHE", "off")
+        monkeypatch.setattr(jax_pipeline, "Pipeline", Recorder)
+        monkeypatch.setattr(port_pipeline, "Pipeline", Recorder)
+        args = ["run", "--images", str(tmp_path), "--out",
+                str(tmp_path / "work")] + (["--stream"] if stream else [])
+        for main, extra in ((jax_cli.main, []),
+                            (cli.main, ["--device", "cpu"])):
+            with pytest.raises(Stop):
+                main(args + extra)
+        assert seen[0] == seen[1] == ["a.bmp", "c.PNG", "d.jpg", "f.webp",
+                                      "h.jpeg", "i.gif"]
 
     def test_run_rejects_missing_dir(self, tmp_path):
         assert cli.main(["run", "--images", str(tmp_path / "nope"),

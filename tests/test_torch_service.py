@@ -85,7 +85,10 @@ class PortClient:
         self.server = server
         self.base = f"http://127.0.0.1:{server.server_address[1]}"
 
-    def request(self, method, path, body=None, ctype=None):
+    def request(self, method, path, body=None, ctype=None, chunked=False):
+        if chunked:  # an iterable body: urllib sends it chunked
+            whole = body
+            body = (whole[i:i + 4096] for i in range(0, len(whole), 4096))
         req = urllib.request.Request(self.base + path, data=body,
                                      method=method)
         if ctype:
@@ -111,11 +114,12 @@ class JaxClient:
 
         self.client = self.loop.run_until_complete(start())
 
-    def request(self, method, path, body=None, ctype=None):
+    def request(self, method, path, body=None, ctype=None, chunked=False):
         async def go():
             headers = {"Content-Type": ctype} if ctype else {}
             r = await self.client.request(method, path, data=body,
-                                          headers=headers)
+                                          headers=headers,
+                                          chunked=chunked or None)
             return _Reply(r.status, dict(r.headers), await r.read())
 
         return self.loop.run_until_complete(go())
@@ -350,6 +354,53 @@ class TestParity:
 
         a, b = _both(both, scenario, max_upload_bytes=64 * 1024)
         assert a == b == (413, False)
+
+    @pytest.mark.parametrize("over", [False, True])
+    def test_cap_counts_image_bytes(self, both, rng, over):
+        """The cap counts image bytes only: many small parts whose images
+        sum to just under it get 200 from both servers although the whole
+        body (part headers, fields) is larger; one byte over gets 413."""
+        names, blobs = color_group_images(rng, n_groups=3, per_group=5,
+                                          size=16)
+        body, ctype = _form(names, blobs, minClusterSize=3, maxClusterSize=6)
+        images = sum(map(len, blobs))
+        cap = images - 1 if over else images
+        assert len(body) > cap + 1000  # the multipart overhead
+
+        def scenario(c):
+            r = c.request("POST", "/api/cluster", body, ctype)
+            data = r.json()
+            return r.status, data["success"] if over else sorted(
+                len(v["images"]) for v in data["clusters"].values())
+
+        a, b = _both(both, scenario, max_upload_bytes=cap)
+        assert a == b
+        assert a[0] == (413 if over else 200)
+        assert a[1] is False if over else sum(a[1]) >= 12
+
+    def test_chunked_body(self, both, rng):
+        """A chunked request (no Content-Length) is decoded, not read as
+        empty: the same clusters as the request sent whole."""
+        names, blobs = color_group_images(rng, n_groups=3, per_group=4)
+        body, ctype = _form(names, blobs, minClusterSize=3, maxClusterSize=6)
+
+        def scenario(c):
+            out = []
+            for chunked in (True, False):
+                r = c.request("POST", "/api/cluster", body, ctype,
+                              chunked=chunked)
+                out.append((r.sig(), {k: sorted(v["images"]) for k, v in
+                                      r.json()["clusters"].items()}))
+            r = c.request("POST", "/api/cluster", b"junk",
+                          "application/octet-stream", chunked=True)
+            out.append((r.status, r.json()))
+            return out
+
+        a, b = _both(both, scenario)
+        assert a == b
+        assert a[0] == a[1] and a[0][0][0] == 200
+        assert a[2] == (400, {"success": False,
+                              "error": "Failed to parse form data"})
 
     def test_spa_fallback(self, both, tmp_path):
         static = tmp_path / "static"

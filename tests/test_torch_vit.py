@@ -332,10 +332,20 @@ class TestRegistry:
         assert out.shape == (5, cfg.proj_dim) and np.isfinite(out).all()
 
     @pytest.mark.parametrize("name", ["vit_b32", "siglip_so400m"])
-    def test_int8_vit_not_ported(self, name):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            create_embedder(EmbedConfig(model=name, quantize="int8"),
-                            device="cpu")
+    def test_int8_vit_not_ported(self, tiny_towers, name):
+        """int8 PTQ is ported (it raised here before): the tower is a
+        QuantViT tagged with the JAX package's quantize suffix."""
+        from imageclust_tpu_torch.models.quantize_vit import QuantViT
+
+        cfg = vit.VIT_CONFIGS[name]
+        emb = create_embedder(EmbedConfig(model=name, quantize="int8",
+                                          batch_size=4), device="cpu")
+        assert isinstance(emb.model, QuantViT)
+        assert emb.tag == f"{name}:logits:int8-absmax:torch-randominit-0"
+        u8 = np.random.default_rng(0).integers(
+            0, 256, (5, cfg.image_size, cfg.image_size, 3)).astype(np.uint8)
+        out = emb.embed(u8)
+        assert out.shape == (5, cfg.proj_dim) and np.isfinite(out).all()
 
     @pytest.mark.parametrize("ext", [".npz", ".pt", ".bin"])
     def test_loads_hf_checkpoint(self, tiny_towers, tmp_path, ext):
