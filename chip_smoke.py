@@ -115,7 +115,27 @@ line and raises on any failure:
     attention, per-row cosine >= ``VIT_COS_FLOOR``; one 200-image
     ``POST /api/cluster`` with ``embed.model=vit_b32`` and
     ``embed.quantize=int8`` (12 K5 launches), and a 500-image ``cli run``
-    with ``embed.quantize=int8`` (ResNet50).
+    with ``embed.quantize=int8`` (ResNet50);
+21. the CLIP ViT-B/32 text tower at full width (vocab 49,408, width 512,
+    depth 12, heads 8, context 77, proj 512) from a seeded HF-named ``.pt``
+    in ``$IMAGECLUST_SMOKE_OUT`` through ``TextEncoder.from_checkpoint``
+    (the hashing tokenizer: no merges file in the repository): the card
+    against the same weights on the CPU (per-row cosine >=
+    ``TEXT_COS_FLOOR``, max abs difference), names/s through ``encode`` on
+    4096 names, one 256-row batch's device ms, no K5 launch; a zero-shot
+    bank over the builtin vocabulary with ``vit_b32`` (unit rows);
+22. ``cli bank --model vit_b32`` on three colour directories drawn like
+    phase 4's groups, then the server with ``embed.model=vit_b32``,
+    ``labels.backend=zero_shot`` (that bank), ``labels.fusion=text`` and
+    the phase-21 checkpoint: one 18-image request, labels fired, colour
+    groups recovered, K1 in its window, 12 K5 launches;
+23. ``Pipeline.run_stream`` on 1,600,000 images as in phase 18, with
+    ``labels.backend=zero_shot`` (a ``cli bank`` over four of the job's own
+    colour bases) and ``labels.fusion=text``: BASELINE config 5's joint
+    features, 512 + 512 bf16 columns into the engine, 12 K5 launches a
+    batch, one K4 launch, labels fired; then K4 on this job's centroids
+    against its twin at bf16 d = 1024, every differing pick a near tie of
+    the float32 score.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -129,7 +149,8 @@ k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
 phase and the int8 ViT server request of phase 20, K4's from the
-1.6M-image ``run_stream``); the last line is
+1.6M-image ``run_stream``; phases 21-23 print their launches on their
+own lines); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -217,6 +238,11 @@ ONNX_EMBED_N = 256     # phase 19: images through the seeded and loaded towers
 ONNX_COS_FLOOR = 0.99999  # phase 19: per-row cosine, loaded vs seeded
 INT8_N = 4096          # phase 20: images through each int8 and bf16 tower
 INT8_CLI_GROUPS = 100  # phases 19-20: 100 groups x 5 = 500 images, cli run
+TEXT_SEED = 21          # phase 21: the seeded CLIP text tower
+TEXT_N = 4096           # phase 21: names through TextEncoder.encode
+TEXT_CPU_N = 64         # phase 21: names through the card and the CPU tower
+TEXT_COS_FLOOR = 0.99999  # phase 21: per-row cosine, card vs CPU
+BANK_IMAGES_PER_LABEL = 4  # phases 22-23: BMPs per label directory
 
 
 def emit(obj) -> None:
@@ -746,14 +772,16 @@ def _check_sizes(clusters: dict, lo: int = 3, hi: int = 6) -> None:
 
 def phase_server(card: str, model: str = "resnet50", embed_kw=None,
                  which=("18_images", "200_images", "18_images_async"),
-                 name: str = "server"):
-    """The server with ``embed.model=model`` (and ``embed_kw``): the
-    requests named in ``which``, then the GET routes."""
+                 name: str = "server", labels_kw=None):
+    """The server with ``embed.model=model`` (and ``embed_kw``, and the
+    label config ``labels_kw``): the requests named in ``which``, then the
+    GET routes. Returns the main path's launches and the requests."""
     import numpy as np
 
     from imageclust_tpu_torch.config import (
         AppConfig,
         EmbedConfig,
+        LabelConfig,
         ServiceConfig,
     )
     from imageclust_tpu_torch.ops import attention as at
@@ -763,7 +791,8 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
 
     work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_jobs_"))
     cfg = AppConfig(service=ServiceConfig(work_dir=str(work)),
-                    embed=EmbedConfig(model=model, **(embed_kw or {})))
+                    embed=EmbedConfig(model=model, **(embed_kw or {})),
+                    labels=LabelConfig(**(labels_kw or {})))
     t0 = time.perf_counter()
     pipeline = Pipeline(cfg, device=DEVICE)
     build_s = time.perf_counter() - t0
@@ -835,6 +864,8 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
                 "sizes": sorted(len(c["images"])
                                 for c in data["clusters"].values()),
                 "dropped": len(data["dropped"]), "merges": merges,
+                "unique_labels": data["metrics"]["counters"].get(
+                    "unique_labels"),
                 "k1_launches": mk.launches - before,
                 "k5_launches": at.launches - k5_before})
         main_path_launches = {"k1": mk.launches, "k5": at.launches}
@@ -859,10 +890,11 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
     elif main_path_launches["k5"]:
         raise AssertionError(f"server {model}: K5 launched")
     emit({"phase": name, "card": card, "model": model,
-          "embed": embed_kw or {}, "embedder_tag": pipeline.embedder.tag,
+          "embed": embed_kw or {}, "labels": labels_kw or {},
+          "embedder_tag": pipeline.embedder.tag,
           "pipeline_build_s": build_s, "requests": requests,
           "healthz": health, "launches": main_path_launches})
-    return main_path_launches
+    return {**main_path_launches, "requests": requests}
 
 
 def phase_cli(card: str, groups: int = CLI_GROUPS, extra=(),
@@ -2404,6 +2436,349 @@ def phase_int8_towers(card: str):
     return launches
 
 
+# -- the text side (phases 21-23) ---------------------------------------------
+
+def _clip_text_checkpoint():
+    """A seeded HF-named state dict of CLIP ViT-B/32's text tower (vocab
+    49,408, width 512, depth 12, heads 8, context 77, proj 512) written to
+    ``$IMAGECLUST_SMOKE_OUT`` as ``.pt`` (254 MB, deleted at the script's
+    end); returns its path."""
+    import torch
+
+    from imageclust_tpu_torch.models import text
+
+    path = OUT / "clip_text_b32_seeded.pt"
+    if not path.exists():
+        cfg = text.TextConfig(eot_id=2)
+        tower = text.TextTransformer(cfg).init_random(TEXT_SEED)
+        state = tower.state_dict()
+        sd = {}
+        for ours, theirs in text._hf_pairs(cfg):
+            val = state[ours]
+            sd["text_model." + theirs] = val[0] if ours == "pos_embed" else val
+        sd["text_projection.weight"] = state["projection.weight"]
+        OUT.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.contiguous() for k, v in sd.items()}, path)
+    return path
+
+
+def _label_dirs(root: Path, colours: dict, per_label: int, seed: int):
+    """One directory of BMPs per label, each image ``base - 10 + noise in
+    [0, 20]`` like the jobs' images."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for label, base in colours.items():
+        (root / label).mkdir(parents=True)
+        for i in range(per_label):
+            noise = rng.integers(0, 21, (224, 224, 3), dtype=np.uint8)
+            img = np.clip(np.asarray(base, np.int16) - 10 + noise, 0,
+                          255).astype(np.uint8)
+            (root / label / f"{i}.bmp").write_bytes(encode_bmp(img))
+
+
+def _cli_bank(colours: dict, out: Path, seed: int) -> float:
+    """``cli bank --model vit_b32`` over ``_label_dirs``; returns its
+    seconds."""
+    from imageclust_tpu_torch import cli
+
+    tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_bank_"))
+    try:
+        _label_dirs(tmp, colours, BANK_IMAGES_PER_LABEL, seed)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(["bank", "--images", str(tmp), "--out", str(out),
+                           "--model", "vit_b32", "--device", DEVICE])
+        bank_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if rc != 0:
+        raise AssertionError(f"cli bank exited {rc}")
+    return bank_s
+
+
+def phase_text_tower(card: str):
+    """The CLIP text tower at full width from a seeded HF checkpoint through
+    ``TextEncoder.from_checkpoint`` (the hashing tokenizer: no merges file
+    in the repository): the card against the CPU, names/s through
+    ``encode``, one batch's device ms, and a zero-shot bank over the
+    builtin vocabulary with ``vit_b32``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.labels.fake import _VOCAB
+    from imageclust_tpu_torch.labels.zero_shot import ZeroShotLabeler
+    from imageclust_tpu_torch.models import create_embedder, text
+    from imageclust_tpu_torch.ops import attention as at
+
+    path = _clip_text_checkpoint()
+    t0 = time.perf_counter()
+    enc = text.TextEncoder.from_checkpoint(str(path), device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want_cfg = text.TextConfig(vocab=49408, width=512, depth=12, heads=8,
+                               proj_dim=512, context=77, eot_id=2)
+    if enc.cfg != want_cfg or enc.tokenizer is not None:
+        raise AssertionError(f"text tower config {enc.cfg}")
+    rng = np.random.default_rng(21)
+    words = [w.lower() for w in _VOCAB] + ["red", "green", "blue", "shoe",
+                                           "hat", "photo", "of", "a"]
+    names = [" ".join(rng.choice(words, rng.integers(1, 6)))
+             + f" {i}" for i in range(TEXT_N)]
+    cpu = text.TextEncoder(enc.cfg, state_dict={
+        k: v.cpu() for k, v in enc.model.state_dict().items()},
+        bpe_path="", device="cpu")
+    got = enc.encode(names[:TEXT_CPU_N])
+    want = cpu.encode(names[:TEXT_CPU_N])
+    cos = _cosines(got, want)
+    if got.shape != (TEXT_CPU_N, 512) or not cos.min() >= TEXT_COS_FLOOR:
+        raise AssertionError(f"text tower card vs CPU: min cosine "
+                             f"{cos.min()}")
+    max_err = float(np.abs(got - want).max())
+    del cpu
+    enc.encode(names[:enc._ENCODE_BATCH])  # warm: cuBLAS plans
+    torch.cuda.synchronize()
+    at.launches = 0
+    t0 = time.perf_counter()
+    out = enc.encode(names)
+    wall_s = time.perf_counter() - t0
+    if at.launches:
+        raise AssertionError("the text tower launched K5")
+    if out.shape != (TEXT_N, 512) or not np.isfinite(out).all():
+        raise AssertionError(f"text tower output {out.shape}")
+    toks = torch.from_numpy(np.stack(
+        [enc.tokenize(n) for n in names[:enc._ENCODE_BATCH]])).to(DEVICE)
+    with torch.inference_mode():
+        enc.model(toks)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            enc.model(toks)
+            torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    emb = create_embedder(EmbedConfig(model="vit_b32"), device=DEVICE)
+    zs = ZeroShotLabeler.from_texts(list(_VOCAB), emb, text_encoder=enc)
+    bank_s = time.perf_counter() - t0
+    norms = np.linalg.norm(zs.bank, axis=1)
+    if (zs.bank.shape != (len(_VOCAB), 512) or not np.isfinite(zs.bank).all()
+            or not np.allclose(norms, 1.0, atol=1e-5)):
+        raise AssertionError(f"zero-shot bank {zs.bank.shape}")
+    emit({"phase": "text_tower", "card": card,
+          "config": {k: getattr(enc.cfg, k) for k in
+                     ("vocab", "width", "depth", "heads", "proj_dim",
+                      "context", "eot_id")},
+          "tokenizer": "hash_tokenize (no merges file in the repository)",
+          "checkpoint_load_s": load_s,
+          "card_vs_cpu": {"names": TEXT_CPU_N,
+                          "cosine_min": float(cos.min()),
+                          "cosine_floor": TEXT_COS_FLOOR,
+                          "max_abs_diff": max_err},
+          "names": TEXT_N, "batch": enc._ENCODE_BATCH, "wall_s": wall_s,
+          "names_per_s": TEXT_N / wall_s,
+          "batch_device_ms": _kernel_us(prof) / 1e3, "k5_launches": 0,
+          "zero_shot_bank": {"labels": len(_VOCAB), "dim": 512,
+                             "build_s": bank_s},
+          "timing": "wall: host clock around TextEncoder.encode (hashing, "
+                    "transfers, embeddings back to the host); "
+                    "batch_device_ms: torch.profiler kernel time of one "
+                    "256-row forward"})
+    del enc, emb, zs
+    torch.cuda.empty_cache()
+
+
+def phase_server_zero_shot(card: str):
+    """``cli bank --model vit_b32`` on three colour directories drawn like
+    phase 4's groups, then the server with ``embed.model=vit_b32``,
+    ``labels.backend=zero_shot`` (that bank), ``labels.fusion=text`` and
+    the phase-21 checkpoint: one 18-image ``POST /api/cluster``."""
+    from imageclust_tpu_torch.ops import attention as at
+
+    colours = {"blue": (220, 30, 30), "green": (30, 220, 30),
+               "red": (30, 30, 220)}  # BGR: group_images' three bases
+    bank = OUT / "bank_server.npz"
+    OUT.mkdir(parents=True, exist_ok=True)
+    bank_s = _cli_bank(colours, bank, seed=22)
+    saved = os.environ.get("IMAGECLUST_LABEL_BANK")
+    os.environ["IMAGECLUST_LABEL_BANK"] = str(bank)
+    try:
+        res = phase_server(
+            card, "vit_b32", which=("18_images",), name="server_zero_shot",
+            labels_kw={"backend": "zero_shot", "fusion": "text",
+                       "text_checkpoint_path": str(_clip_text_checkpoint())})
+    finally:
+        if saved is None:
+            del os.environ["IMAGECLUST_LABEL_BANK"]
+        else:
+            os.environ["IMAGECLUST_LABEL_BANK"] = saved
+    req = res["requests"][0]
+    if not (req["unique_labels"] or 0) >= 2:
+        raise AssertionError(f"zero-shot request: {req['unique_labels']} "
+                             "unique labels")
+    if res["k5"] != VIT_B32_DEPTH:  # 18 images: one batch
+        raise AssertionError(f"zero-shot request: {res['k5']} K5 launches")
+    emit({"phase": "server_zero_shot_bank", "card": card,
+          "bank": {"labels": sorted(colours), "images_per_label":
+                   BANK_IMAGES_PER_LABEL, "cli_bank_s": bank_s,
+                   "built_from": "cli bank --model vit_b32 over one BMP "
+                                 "directory per colour of phase 4's groups "
+                                 "(base - 10 + noise in [0, 20])"},
+          "unique_labels": req["unique_labels"], "k1_launches": res["k1"],
+          "k5_launches": res["k5"], "merges": req["merges"]})
+    return res
+
+
+def phase_stream_joint(card: str):
+    """``Pipeline.run_stream`` on 1,600,000 images made on the card (as in
+    phase 18: ``vit_b32``, bf16 residency) with ``labels.backend=zero_shot``
+    (a ``cli bank`` over four of the job's own colour bases) and
+    ``labels.fusion=text`` (the phase-21 tower): BASELINE config 5's joint
+    visual+text features, 512 + 512 bf16 columns into the engine. Then K4
+    on this job's centroids against its twin: the share of equal picks
+    beside ``ASSIGN_MATCH_FLOOR``, and every differing pick a near tie."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import sharded
+    from imageclust_tpu_torch.config import (
+        AppConfig,
+        ClusterConfig,
+        EmbedConfig,
+        LabelConfig,
+    )
+    from imageclust_tpu_torch.pipeline import Pipeline
+
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    dev = torch.device(DEVICE)
+    n = STREAM_BIG_N
+    bases = torch.randint(0, 256, (n // 4 + 1, 3), generator=gen, device=dev)
+    picks = [0, n // 16, n // 8, n // 5]  # groups whose base names a label
+    colours = {f"base{g}": tuple(int(v) for v in bases[g].tolist())
+               for g in picks}
+    bank = OUT / "bank_stream.npz"
+    OUT.mkdir(parents=True, exist_ok=True)
+    bank_s = _cli_bank(colours, bank, seed=23)
+
+    def chunks(batch):
+        for s in range(0, n, batch):
+            e = min(s + batch, n)
+            g = torch.arange(s, e, device=dev) // 4
+            noise = torch.randint(0, 21, (e - s, 224, 224, 3), generator=gen,
+                                  device=dev, dtype=torch.int16)
+            img = bases[g][:, None, None, :] - 10 + noise
+            yield img.clamp(0, 255).to(torch.uint8)
+
+    cfg = AppConfig(
+        labels=LabelConfig(backend="zero_shot", fusion="text",
+                           text_checkpoint_path=str(_clip_text_checkpoint())),
+        embed=EmbedConfig(model="vit_b32"),
+        cluster=ClusterConfig(feature_dtype="bfloat16"))
+    work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_joint_"))
+    saved = os.environ.get("IMAGECLUST_LABEL_BANK")
+    os.environ["IMAGECLUST_LABEL_BANK"] = str(bank)
+    try:
+        pipeline = Pipeline(cfg, device=DEVICE)
+        seen = {}
+        cluster_big = pipeline._cluster_big
+
+        def spy(features, *args, **kw):  # the features the engine gets
+            seen["features"] = features
+            return cluster_big(features, *args, **kw)
+
+        pipeline._cluster_big = spy
+        _zero_counters()
+        t0 = time.perf_counter()
+        res = pipeline.run_stream(chunks(pipeline.embedder.batch_size), n,
+                                  str(work))
+        wall_s = time.perf_counter() - t0
+        c = _counters()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        if saved is None:
+            del os.environ["IMAGECLUST_LABEL_BANK"]
+        else:
+            os.environ["IMAGECLUST_LABEL_BANK"] = saved
+    feats = seen["features"]
+    if tuple(feats.shape) != (n, 1024) or feats.dtype != torch.bfloat16:
+        raise AssertionError(f"run_stream joint: the engine got "
+                             f"{tuple(feats.shape)} {feats.dtype}")
+    _check_scale_launches("run_stream joint", c, "lance_williams", k4=1)
+    batches = -(-n // pipeline.embedder.batch_size)
+    if c["k5"] != VIT_B32_DEPTH * batches:
+        raise AssertionError(f"run_stream joint: {c['k5']} K5 launches for "
+                             f"{batches} batches")
+    metrics = res.metrics.to_dict()
+    unique = metrics["counters"].get("unique_labels", 0)
+    if unique < 2 or not {"label", "fuse"} <= set(metrics["stages_s"]):
+        raise AssertionError(f"run_stream joint: {unique} unique labels, "
+                             f"stages {sorted(metrics['stages_s'])}")
+    sizes = [len(d.images) for d in res.clusters.values()]
+    if not all(3 <= s <= 6 for s in sizes):
+        raise AssertionError("run_stream joint: cluster sizes out of bounds")
+    if sum(sizes) + len(res.dropped) != n:
+        raise AssertionError("run_stream joint: images lost")
+    labelled = sum(1 for d in res.clusters.values() if d.labels)
+    del res
+    # K4 on this job's centroids against its twin (phase 17's check), the
+    # first engine run of K4 at bf16 d = 1024
+    k = -(-n // 384)
+    cents = sharded.kmeans(feats, k, summarize_fused=True)[0]
+    a_k = sharded._kmeans_summarize_fused(feats, cents, 8, True)[0]
+    with _twins():
+        a_t = sharded._kmeans_summarize_fused(feats, cents, 8, True)[0]
+    share = float((a_k == a_t).float().mean())
+    # The features of this job are near duplicates (four images a colour
+    # base): an item's distance to its centroid is about 1e-3 of the
+    # squared norms that the float32 score (xx + cn) - 2 g cancels, so the
+    # kernel's and the twin's sums of g, which add in different orders, can
+    # pick different centroids at a near tie. Every differing pick must be
+    # a near tie on that scale: the float64 distances to the two picks
+    # within K4_NEAR_TIE of xx + cn (phase 16's rule, whose random normal
+    # rows have distances of the norms' size).
+    c16 = sharded._fused_cast_cents(feats.dtype, cents)[0]
+    rows = torch.nonzero(a_k != a_t)[:, 0]
+    tie = {"differing_items": int(len(rows)), "max_gap_over_norms": 0.0,
+           "max_abs_gap": 0.0, "kernel_pick_closer": 0,
+           "twin_pick_closer": 0}
+    if len(rows):
+        dk = _dist64(feats[rows], c16, a_k[rows, None].long())[:, 0]
+        dt = _dist64(feats[rows], c16, a_t[rows, None].long())[:, 0]
+        xx = (feats[rows].double() ** 2).sum(1)
+        cn = torch.maximum((c16[a_k[rows].long()].double() ** 2).sum(1),
+                           (c16[a_t[rows].long()].double() ** 2).sum(1))
+        tie.update({
+            "max_gap_over_norms": float(((dk - dt).abs() / (xx + cn)).max()),
+            "max_abs_gap": float((dk - dt).abs().max()),
+            "median_distance": float(dt.median()),
+            "median_squared_norm": float(xx.median()),
+            "kernel_pick_closer": int((dk < dt).sum()),
+            "twin_pick_closer": int((dt < dk).sum())})
+    if tie["max_gap_over_norms"] > K4_NEAR_TIE:
+        raise AssertionError(f"run_stream joint: K4's picks differ from the "
+                             f"twin's beyond a near tie ({tie})")
+    del feats, cents, a_k, a_t, seen
+    torch.cuda.empty_cache()
+    emit({"phase": "run_stream_joint", "card": card, "images": n,
+          "model": "vit_b32", "feature_dtype": "bfloat16",
+          "labels": {"backend": "zero_shot", "fusion": "text",
+                     "min_confidence": cfg.labels.min_confidence},
+          "bank": {"labels": colours, "images_per_label":
+                   BANK_IMAGES_PER_LABEL, "cli_bank_s": bank_s,
+                   "built_from": "cli bank --model vit_b32 over one BMP "
+                                 "directory for each of four of the job's "
+                                 "own colour bases (groups "
+                                 f"{picks}), drawn like the job's images"},
+          "engine_features": [n, 1024], "wall_s": wall_s,
+          "stages_s": metrics["stages_s"],
+          "embed_images_per_s": metrics.get("images_per_sec_embed"),
+          "unique_labels": unique, "labelled_clusters": labelled,
+          "clusters": len(sizes), "dropped": metrics["counters"]["dropped"],
+          "naming_skipped": metrics["counters"].get("naming_skipped", 0),
+          "k4_assign_match_share": share,
+          "assign_match_floor": ASSIGN_MATCH_FLOOR, "k4_near_ties": tie,
+          "near_tie": K4_NEAR_TIE, "launches": c})
+    return c
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
@@ -2412,6 +2787,7 @@ PHASES = {
     14: lambda card: phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32"),
     15: phase_other_towers, 16: phase_k4, 17: phase_engine_2m,
     18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
+    21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
 }
 
 
@@ -2445,8 +2821,11 @@ def main(argv: list[str] | None = None) -> int:
     resolve_device("cuda")  # TF32 off for the whole run
     card = phase_card_and_build()
     if only:  # a development run of some phases: no summary, no result
-        for n in only:
-            PHASES[n](card)
+        try:
+            for n in only:
+                PHASES[n](card)
+        finally:
+            (OUT / "clip_text_b32_seeded.pt").unlink(missing_ok=True)
         return 0
     walls = {1: time.perf_counter() - t_start}  # start-up and the build
 
@@ -2475,6 +2854,12 @@ def main(argv: list[str] | None = None) -> int:
     k4_launches = run(18)["k4"]
     run(19)
     int8_launches = run(20)["k5"]
+    try:
+        run(21)
+        run(22)
+        run(23)
+    finally:
+        (OUT / "clip_text_b32_seeded.pt").unlink(missing_ok=True)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]

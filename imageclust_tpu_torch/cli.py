@@ -5,10 +5,12 @@ clusters a directory offline and prints the result JSON: above
 ``cluster.exact_limit`` images (or with ``--stream``) it streams the files
 from disk through ``Pipeline.run_paths``, below it reads them as uploads
 into ``Pipeline.run``. ``serve`` starts the REST service. ``export --out
-F`` writes the configured ResNet50 as a gluon-named ONNX model, and
-``models`` lists the towers. ``run``, ``serve`` and ``export`` take
-``--device`` (default ``cuda``; ``cpu`` runs without a card). The JAX CLI's
-other subcommands (train, bank, verify, bench) are not ported yet.
+F`` writes the configured ResNet50 as a gluon-named ONNX model, ``bank
+--images DIR --out F`` writes a zero-shot label bank (one prototype per
+subdirectory), and ``models`` lists the towers. ``run``, ``serve``,
+``bank`` and ``export`` take ``--device`` (default ``cuda``; ``cpu`` runs
+without a card). The JAX CLI's other subcommands (train, verify, bench)
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default=None, choices=list_models(),
                    help="embedder tower (default resnet50)")
     p.add_argument("--labeler", default=None,
-                   help="labels backend: none|fake")
+                   help="labels backend: none|fake|zero_shot")
     p.add_argument("--namers", default=None,
                    help="comma list of naming services (fake)")
     p.add_argument("--set", dest="sets", action="append", default=[],
@@ -161,6 +163,36 @@ def cmd_export(args) -> int:
     return 0
 
 
+def cmd_bank(args) -> int:
+    """Build a zero-shot label bank: each subdirectory of --images is a
+    label; its prototype is the mean embedding of the contained images."""
+    import numpy as np
+
+    from imageclust_tpu_torch.data.loader import load_image_dir
+    from imageclust_tpu_torch.models import create_embedder
+
+    config = _build_config(args)
+    embedder = create_embedder(config.embed, device=args.device)
+    names, vectors = [], []
+    for label in sorted(os.listdir(args.images)):
+        sub = os.path.join(args.images, label)
+        if not os.path.isdir(sub):
+            continue
+        _, batch = load_image_dir(sub, size=embedder.spec.input_size)
+        if len(batch) == 0:
+            continue
+        emb = embedder.embed(batch)
+        vectors.append(emb.mean(axis=0))
+        names.append(label)
+    if not names:
+        print("error: no label subdirectories with images found",
+              file=sys.stderr)
+        return 2
+    np.savez(args.out, names=np.array(names), vectors=np.stack(vectors))
+    print(f"wrote {len(names)} label prototypes to {args.out}")
+    return 0
+
+
 def cmd_models(args) -> int:
     from imageclust_tpu_torch.models import list_models
 
@@ -192,6 +224,14 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--port", type=int, default=0)
     _add_common(p_serve)
     p_serve.set_defaults(fn=cmd_serve)
+
+    p_bank = sub.add_parser(
+        "bank", help="build a zero-shot label bank from labeled image dirs")
+    p_bank.add_argument("--images", required=True,
+                        help="directory of <label>/ subdirectories")
+    p_bank.add_argument("--out", default="label_bank.npz")
+    _add_common(p_bank)
+    p_bank.set_defaults(fn=cmd_bank)
 
     p_export = sub.add_parser(
         "export", help="export the embedder as an ONNX model")

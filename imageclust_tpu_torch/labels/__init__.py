@@ -10,6 +10,7 @@ from imageclust_tpu_torch.labels.onehot import (
     label_vector,
     one_hot_matrix,
 )
+from imageclust_tpu_torch.labels.text_fusion import text_label_matrix
 
 __all__ = [
     "CachedLabeler",
@@ -20,4 +21,5 @@ __all__ = [
     "combine_embeddings",
     "label_vector",
     "one_hot_matrix",
+    "text_label_matrix",
 ]

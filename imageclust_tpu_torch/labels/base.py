@@ -121,10 +121,16 @@ def create_labeler(cfg, cache_dir: str | None = None, embedder=None) -> Labeler:
         from imageclust_tpu_torch.labels.fake import FakeLabeler
 
         inner: Labeler = FakeLabeler()
-    elif backend in ("rekognition", "zero_shot"):
+    elif backend == "rekognition":
         raise NotImplementedError(
-            f"labels backend {backend!r} is not ported yet (ROADMAP.md, "
-            "queue 1: label backends)")
+            "labels backend 'rekognition' is not ported yet (ROADMAP.md, "
+            "queue 1, item 13: cloud backends)")
+    elif backend == "zero_shot":
+        from imageclust_tpu_torch.labels.zero_shot import ZeroShotLabeler
+
+        inner = ZeroShotLabeler.default(
+            embedder=embedder,
+            text_checkpoint=cfg.text_checkpoint_path or None)
     else:
         raise ValueError(f"unknown labeler backend {backend!r}")
     if cfg.cache and cache_dir:

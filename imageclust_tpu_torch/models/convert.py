@@ -16,6 +16,8 @@ This module maps either onto :class:`~.resnet50.ResNet50V1` by name:
 
 The ViT towers (:func:`vit_state_dict_from_flax`) use the same kernel and
 LayerNorm rules; ``class_token`` and ``pos_embed`` carry over as they are.
+The text tower (:func:`text_state_dict_from_flax`) adds the token table:
+Embed ``embedding`` (vocab, width) -> ``weight`` as it is.
 
 The int8 towers' qparams trees (JAX ``quantize_resnet50`` /
 ``quantize_vit`` output, :func:`quant_resnet50_state_dict_from_jax`,
@@ -41,7 +43,7 @@ from imageclust_tpu_torch.models.resnet50 import (
 from imageclust_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
 __all__ = ["resnet50_state_dict_from_flax", "vit_state_dict_from_flax",
-           "quant_resnet50_state_dict_from_jax",
+           "text_state_dict_from_flax", "quant_resnet50_state_dict_from_jax",
            "quant_vit_state_dict_from_jax"]
 
 _BN = {"scale": "weight", "bias": "bias"}
@@ -76,7 +78,7 @@ def _map_param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
                          f"{arr.ndim}")
     if leaf in ("bias", "w_scale", "act_scale"):
         return f"{mod}.{leaf}", arr
-    if leaf == "scale":
+    if leaf in ("scale", "embedding"):
         return f"{mod}.weight", arr
     raise ValueError(f"params/{'/'.join(path)}: unknown leaf {leaf!r}")
 
@@ -149,6 +151,35 @@ def vit_state_dict_from_flax(variables: Mapping,
     got, problems = _map_params(variables["params"])
     with torch.device("meta"):
         ref = VisionTransformer(cfg)
+    return _checked(got, ref, problems)
+
+
+def text_state_dict_from_flax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """Convert Flax ``TextTransformer`` variables (``{"params": ...}``) into
+    a :class:`~.text.TextTransformer` state_dict: the token table as it is,
+    Dense (in, out) -> (out, in), LayerNorm ``scale`` -> ``weight``,
+    ``pos_embed`` unchanged. The dims come from the tree itself (vocab and
+    width from the token table, context from ``pos_embed``, depth from the
+    blocks, proj_dim from the projection). Raises ValueError on any
+    missing, extra or mis-shaped tensor."""
+    from imageclust_tpu_torch.models.text import TextConfig, TextTransformer
+
+    params = variables["params"]
+    got, problems = _map_params(params)
+    try:
+        vocab, width = np.asarray(params["token_embed"]["embedding"]).shape
+        cfg = TextConfig(
+            vocab=int(vocab), width=int(width),
+            depth=sum(1 for k in params if k.startswith("block")),
+            heads=1,  # no tensor's shape depends on the head count
+            proj_dim=int(np.asarray(
+                params["projection"]["kernel"]).shape[1]),
+            context=int(np.asarray(params["pos_embed"]).shape[1]))
+    except (KeyError, ValueError) as exc:
+        raise ValueError(f"Flax->torch conversion failed: not a text tower "
+                         f"tree ({exc!r})") from exc
+    with torch.device("meta"):
+        ref = TextTransformer(cfg)
     return _checked(got, ref, problems)
 
 

@@ -9,8 +9,11 @@ features on the card and cluster them with the bucketed engine (K2 or K3);
 :meth:`Pipeline.run_stream` takes uint8 chunks directly. The same naming
 and HTML report follow. With ``cluster.feature_dtype`` bfloat16 or int8
 the stream casts each chunk into that residency, so the f32 matrix never
-exists. Not ported yet (``NotImplementedError``, ROADMAP.md queue 1):
-``scale_engine="chain"``, zero-shot labels and text fusion.
+exists. Zero-shot labels (``labels.backend="zero_shot"``) come from the
+batch embeddings on the card, with no per-image labeler; the label block
+is the one-hot matrix or, with ``labels.fusion="text"``, the text tower's
+dense block (labels/text_fusion.py). Not ported yet
+(``NotImplementedError``, ROADMAP.md queue 1): ``scale_engine="chain"``.
 
 Output shape parity with the reference: {"Cluster-<i>": ClusterDetails}
 (workflow.go:192) and a clusters.html report in the work dir.
@@ -83,7 +86,21 @@ class Pipeline:
         self.embedder = embedder or create_embedder(self.config.embed,
                                                     device=self.device)
         self.naming = create_naming_service(self.config.naming)
+        self._text_encoder = None  # lazy: only labels.fusion="text" pays
         self._naming_skipped = 0  # set per run by _apply_naming
+
+    def _get_text_encoder(self):
+        """Text tower for dense label fusion (labels.fusion="text"), built
+        once per pipeline on its device, like the image tower: label-name
+        embeddings do not depend on the corpus."""
+        if self._text_encoder is None:
+            from imageclust_tpu_torch.models.text import TextEncoder
+
+            ckpt = self.config.labels.text_checkpoint_path
+            self._text_encoder = (
+                TextEncoder.from_checkpoint(ckpt, device=self.device)
+                if ckpt else TextEncoder(device=self.device))
+        return self._text_encoder
 
     # ------------------------------------------------------------------
 
@@ -191,8 +208,9 @@ class Pipeline:
         same naming and report tail runs.
 
         ``name_fn(i) -> str`` names item i (default ``img_{i:07d}.jpg``).
-        Labels: backend ``none`` only here; ``zero_shot`` is not ported yet
-        and blob-based labelers need :meth:`run_paths`."""
+        Labels: backend ``none`` (skip) or ``zero_shot`` (from the
+        embeddings on the card, no image bytes needed); blob-based labelers
+        need :meth:`run_paths`."""
         cfg = self.config
         min_size = cfg.cluster.min_size if min_size is None else min_size
         max_size = cfg.cluster.max_size if max_size is None else max_size
@@ -201,11 +219,7 @@ class Pipeline:
         if min_size < 1 or max_size < min_size:
             raise ValueError(
                 f"invalid cluster size bounds [{min_size}, {max_size}]")
-        if cfg.labels.backend == "zero_shot":
-            raise NotImplementedError(
-                "zero-shot labels need the text tower, not ported yet "
-                "(ROADMAP.md queue 1)")
-        if cfg.labels.backend not in ("none", ""):
+        if cfg.labels.backend not in ("none", "", "zero_shot"):
             raise ValueError(
                 f"run_stream supports labels.backend 'none' or 'zero_shot' "
                 f"(got {cfg.labels.backend!r}); blob-based labelers need "
@@ -219,9 +233,20 @@ class Pipeline:
 
         with timer.profiled():
             with timer.stage("embed"):
-                features, _ = self.embedder.embed_stream_quantized(
+                image_emb, emb_scale = self.embedder.embed_stream_quantized(
                     chunks, out_dtype=self._residency_dtype(),
                     total=n_images)
+
+            per_image_labels = None
+            label_mat = np.zeros((n_images, 0), np.float32)
+            if cfg.labels.backend == "zero_shot":
+                with timer.stage("label"):
+                    per_image_labels, label_set = self._zero_shot_labels(
+                        image_emb, metrics)
+                with timer.stage("fuse"):
+                    label_mat = self._label_block(per_image_labels,
+                                                  label_set)
+            features = self._fuse_big(image_emb, label_mat, emb_scale)
 
             with timer.stage("cluster"):
                 result = self._cluster_big(features, None, min_size,
@@ -237,7 +262,7 @@ class Pipeline:
 
             with timer.stage("name"):
                 details = self._prepare_details_columnar(
-                    result, name_fn, None, work_dir=work_dir)
+                    result, name_fn, per_image_labels, work_dir=work_dir)
                 if self._naming_skipped:
                     metrics.counters["naming_skipped"] = self._naming_skipped
 
@@ -265,24 +290,25 @@ class Pipeline:
         report_routes: tuple[str, str] | None = None,
     ) -> PipelineResult:
         cfg = self.config
+        # zero-shot labels come from the batch embeddings (computed below)
+        # instead of a forward pass per image and label query
+        zero_shot_batched = cfg.labels.backend == "zero_shot"
         # Above exact_limit, embeddings stay on the card all the way through
         # clustering (no per-image cache); small jobs use the cache.
         big_job = len(sources) > cfg.cluster.exact_limit
-        if cfg.labels.fusion != "onehot":
-            if cfg.labels.fusion == "text":
-                raise NotImplementedError(
-                    "labels.fusion='text' needs the text tower, not ported "
-                    "yet (ROADMAP.md queue 1)")
+        if cfg.labels.fusion not in ("onehot", "text"):
             raise ValueError(  # fail loud: a typo must not change geometry
                 f"unknown labels.fusion {cfg.labels.fusion!r} "
                 "(expected 'onehot' or 'text')")
 
-        labeler = create_labeler(
-            cfg.labels, cache_dir if cfg.labels.cache else None,
-            embedder=self.embedder,
-        )
-        labeling = self._labeling_service(labeler, cfg.labels,
-                                          total=len(sources))
+        labeler = labeling = None
+        if not zero_shot_batched:
+            labeler = create_labeler(
+                cfg.labels, cache_dir if cfg.labels.cache else None,
+                embedder=self.embedder,
+            )
+            labeling = self._labeling_service(labeler, cfg.labels,
+                                              total=len(sources))
         if big_job:
             # Streamed ingest (JAX pipeline.py:339-394): read -> label ->
             # decode -> forward in bounded chunks; the producer thread
@@ -297,9 +323,11 @@ class Pipeline:
                     batch=self.embedder.batch_size,
                     workers=cfg.preprocess.decode_workers,
                 ):
-                    # one service spans the stream: rate limiter, retry
-                    # budget and progress are job-global
-                    per_image_labels.extend(labeling.detect_all(chunk_blobs))
+                    if labeling is not None:
+                        # one service spans the stream: rate limiter, retry
+                        # budget and progress are job-global
+                        per_image_labels.extend(
+                            labeling.detect_all(chunk_blobs))
                     yield imgs
 
             with timer.stage("embed"):
@@ -307,21 +335,23 @@ class Pipeline:
                 image_emb, emb_scale = self.embedder.embed_stream_quantized(
                     chunk_iter(), out_dtype=self._residency_dtype(),
                     total=len(sources))
-            label_set = self._label_set(per_image_labels, cfg.labels)
-            metrics.counters["unique_labels"] = len(label_set)
-            if hasattr(labeler, "hits"):
-                metrics.counters["label_cache_hits"] = labeler.hits
+            if not zero_shot_batched:
+                label_set = self._label_set(per_image_labels, cfg.labels)
+                metrics.counters["unique_labels"] = len(label_set)
+                if hasattr(labeler, "hits"):
+                    metrics.counters["label_cache_hits"] = labeler.hits
         else:
             blobs = [
                 s if isinstance(s, (bytes, bytearray)) else _read_file(s)
                 for s in sources
             ]
-            with timer.stage("label"):
-                per_image_labels = labeling.detect_all(blobs)
-                label_set = self._label_set(per_image_labels, cfg.labels)
-                metrics.counters["unique_labels"] = len(label_set)
-                if hasattr(labeler, "hits"):
-                    metrics.counters["label_cache_hits"] = labeler.hits
+            if not zero_shot_batched:
+                with timer.stage("label"):
+                    per_image_labels = labeling.detect_all(blobs)
+                    label_set = self._label_set(per_image_labels, cfg.labels)
+                    metrics.counters["unique_labels"] = len(label_set)
+                    if hasattr(labeler, "hits"):
+                        metrics.counters["label_cache_hits"] = labeler.hits
 
             with timer.stage("decode"):
                 batch = decode_images(
@@ -347,10 +377,13 @@ class Pipeline:
                 else:
                     image_emb = self.embedder.embed(batch)
 
+        if zero_shot_batched:
+            with timer.stage("label"):
+                per_image_labels, label_set = self._zero_shot_labels(
+                    image_emb, metrics)
+
         with timer.stage("fuse"):
-            label_mat = one_hot_matrix(per_image_labels, label_set)
-            if cfg.labels.fusion_weight != 1.0:
-                label_mat = label_mat * np.float32(cfg.labels.fusion_weight)
+            label_mat = self._label_block(per_image_labels, label_set)
             if big_job:
                 features = self._fuse_big(image_emb, label_mat, emb_scale)
             else:
@@ -405,6 +438,38 @@ class Pipeline:
             page_size=self.config.service.report_page_size,
             page_route=page_route, index_route=index_route,
             section_route=section_route)
+
+    def _zero_shot_labels(self, image_emb, metrics: RunMetrics):
+        """Zero-shot labels of every image from its embedding (a host
+        array, or the tensor on the card in its residency dtype), and the
+        label set. Construction stays with create_labeler; the per-image
+        label cache does not apply (the embedding cache covers the costly
+        half)."""
+        cfg = self.config.labels
+        zs = create_labeler(cfg, None, embedder=self.embedder)
+        per_image_labels = zs.labels_from_embeddings(
+            image_emb, cfg.max_labels, cfg.min_confidence)
+        label_set = self._label_set(per_image_labels, cfg)
+        metrics.counters["unique_labels"] = len(label_set)
+        return per_image_labels, label_set
+
+    def _label_block(self, per_image_labels, label_set) -> np.ndarray:
+        """The label block fused onto the embeddings: one-hot over the label
+        set, or the text tower's dense block (``labels.fusion="text"``),
+        scaled by ``labels.fusion_weight``."""
+        cfg = self.config.labels
+        if cfg.fusion == "text":
+            from imageclust_tpu_torch.labels.text_fusion import (
+                text_label_matrix,
+            )
+
+            label_mat = text_label_matrix(per_image_labels, label_set,
+                                          self._get_text_encoder())
+        else:
+            label_mat = one_hot_matrix(per_image_labels, label_set)
+        if cfg.fusion_weight != 1.0:
+            label_mat = label_mat * np.float32(cfg.fusion_weight)
+        return label_mat
 
     def _residency_dtype(self):
         """The bucketed engine's residency dtype for the streamed features

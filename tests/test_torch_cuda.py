@@ -613,3 +613,126 @@ def test_onnx_load_on_card(cuda, tmp_path):
         0, 256, (5, 224, 224, 3)).astype(np.uint8)
     out = emb.embed(u8)
     assert out.shape == (5, 1000) and np.isfinite(out).all()
+
+
+# -- the text side -------------------------------------------------------------
+
+@pytest.mark.parametrize("width,depth,heads", [(64, 2, 2), (512, 12, 8)])
+def test_text_tower_on_card_matches_cpu(cuda, width, depth, heads):
+    """The CLIP text tower (float32, plain torch attention, no K5) on the
+    card against the same weights on the CPU; TF32 stays off."""
+    import numpy as np
+
+    from imageclust_tpu_torch.models import text
+    from imageclust_tpu_torch.ops import attention as at
+
+    cfg = text.TextConfig(vocab=49408, width=width, depth=depth,
+                          heads=heads, proj_dim=512, eot_id=2)
+    cpu = text.TextEncoder(cfg, bpe_path="", device="cpu")
+    gpu = text.TextEncoder(cfg, state_dict=cpu.model.state_dict(),
+                           bpe_path="", device="cuda")
+    assert next(gpu.model.parameters()).device.type == "cuda"
+    texts = [f"a photo of label {i} number {i * 7}" for i in range(300)]
+    before = at.launches
+    got = gpu.encode(texts)
+    assert at.launches == before  # the text tower never reaches K5
+    want = cpu.encode(texts)
+    assert got.shape == (300, 512) and got.dtype == np.float32
+    assert _cos_min(torch.from_numpy(got), torch.from_numpy(want)) >= 0.99999
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    assert gpu.encode([]).shape == (0, 512)
+
+
+def _labeler(n_labels, dim, device, dup=()):
+    import numpy as np
+
+    from imageclust_tpu_torch.labels.zero_shot import ZeroShotLabeler
+
+    class Emb:
+        spec = type("spec", (), {"dim": dim})
+
+    Emb.device = torch.device(device)
+    rng = np.random.default_rng(5)
+    bank = rng.normal(size=(n_labels, dim)).astype(np.float32)
+    for a, b in dup:
+        bank[b] = bank[a]
+    return ZeroShotLabeler([f"l{i}" for i in range(n_labels)], bank, Emb())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_zero_shot_on_card_matches_cpu(cuda, dtype, monkeypatch):
+    """labels_from_embeddings on a card matrix in its residency dtype
+    (scored in chunks on the card) against the same rows on the CPU,
+    including duplicated bank rows (ties to the lower index)."""
+    from imageclust_tpu_torch.labels import zero_shot
+
+    monkeypatch.setattr(zero_shot, "_SCORE_ROWS", 4096)
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((10_000, 512), generator=gen)
+    if dtype == torch.int8:
+        x = (x * 30).round().clamp(-127, 127)
+    x = x.to(dtype)
+    bank_rows = [(3, 7), (3, 9), (12, 2)]
+    zs = _labeler(16, 512, "cuda", dup=bank_rows)
+    x[:4] = (torch.from_numpy(zs.bank[[3, 12, 7, 2]]) * 100).round().to(
+        dtype)
+    got = zs.labels_from_embeddings(x.to(cuda), 5, 0.0)
+    want = zs.labels_from_embeddings(x, 5, 0.0)
+    same = sum([l.name for l in a] == [l.name for l in b]
+               for a, b in zip(got, want))
+    assert same >= 0.999 * len(want)  # near ties may order differently
+    for a, b in zip(got, want):
+        if [l.name for l in a] == [l.name for l in b]:
+            for la, lb in zip(a, b):
+                assert abs(la.confidence - lb.confidence) <= 1e-3
+    names = [[l.name for l in r] for r in got[:4]]
+    assert names[0][:3] == ["l3", "l7", "l9"]
+    assert names[1][:2] == ["l2", "l12"]
+
+
+def test_create_zero_shot_labeler_on_card(cuda, tmp_path, monkeypatch):
+    """create_labeler("zero_shot") with an embedder on the card and a text
+    checkpoint: the bank comes from the text tower on the card and labels
+    come from a bf16 card matrix."""
+    import numpy as np
+
+    from imageclust_tpu_torch.config import LabelConfig
+    from imageclust_tpu_torch.labels import create_labeler
+    from imageclust_tpu_torch.models import text
+
+    monkeypatch.delenv("IMAGECLUST_LABEL_BANK", raising=False)
+    cfg = text.TextConfig(vocab=1000, width=64, depth=2, heads=1,
+                          proj_dim=32, eot_id=2)
+    tower = text.TextTransformer(cfg).init_random(2)
+    sd = {"text_model.embeddings.token_embedding.weight":
+          tower.token_embed.weight,
+          "text_model.embeddings.position_embedding.weight":
+          tower.pos_embed[0],
+          "text_model.final_layer_norm.weight": tower.ln_final.weight,
+          "text_model.final_layer_norm.bias": tower.ln_final.bias,
+          "text_projection.weight": tower.projection.weight}
+    hf = {"ln1": "layer_norm1", "ln2": "layer_norm2",
+          "q": "self_attn.q_proj", "k": "self_attn.k_proj",
+          "v": "self_attn.v_proj", "proj": "self_attn.out_proj",
+          "mlp_up": "mlp.fc1", "mlp_down": "mlp.fc2"}
+    for i in range(cfg.depth):
+        for ours, theirs in hf.items():
+            mod = getattr(getattr(tower, f"block{i}"), ours)
+            for leaf in ("weight", "bias"):
+                sd[f"text_model.encoder.layers.{i}.{theirs}.{leaf}"] = (
+                    getattr(mod, leaf))
+    path = tmp_path / "text.pt"
+    torch.save({k: v.detach().clone() for k, v in sd.items()}, path)
+
+    class Emb:
+        spec = type("spec", (), {"dim": 32})
+        device = cuda
+
+    zs = create_labeler(LabelConfig(backend="zero_shot",
+                                    text_checkpoint_path=str(path),
+                                    cache=False), embedder=Emb())
+    assert zs.bank.shape == (16, 32)
+    assert np.allclose(np.linalg.norm(zs.bank, axis=1), 1.0, atol=1e-5)
+    x = torch.from_numpy(zs.bank[[0, 5]]).to(cuda, torch.bfloat16)
+    rows = zs.labels_from_embeddings(x, 3, 75.0)
+    assert [r[0].name for r in rows] == [zs.names[0], zs.names[5]]

@@ -47,7 +47,8 @@ def test_port_has_modules():
                 "models/registry.py", "models/onnx_io.py",
                 "models/onnx_export.py", "models/quantize.py",
                 "models/quantize_vit.py", "ops/int8.py", "service/app.py",
-                "data/loader.py"):
+                "data/loader.py", "models/text.py", "models/tokenizer.py",
+                "labels/zero_shot.py", "labels/text_fusion.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
@@ -61,6 +62,69 @@ def test_no_jax_imports(path):
     bad = [m for m in _imports(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_regex_or_cv2_at_import(path):
+    """The card's machine has no ``regex`` (CLIP's tokenizer needs it in
+    the JAX package) and no cv2: no module imports the first at all, and
+    none imports cv2 at module level."""
+    assert "regex" not in {m.split(".")[0] for m in _imports(path)}
+    tree = ast.parse(path.read_text(), str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module.split(".")[0] for n in top
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert "cv2" not in names
+
+
+def test_text_side_without_regex_or_cv2(tmp_path):
+    """The tokenizer, text tower, zero-shot labeler and text fusion import
+    and run with ``regex``, cv2, PIL and JAX absent, and pull in no cv2."""
+    code = (
+        "import sys\n"
+        "for m in ('regex', 'cv2', 'PIL', 'jax', 'flax', 'imageclust_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from imageclust_tpu_torch.models import text, tokenizer\n"
+        "from imageclust_tpu_torch.labels import zero_shot, text_fusion\n"
+        "from imageclust_tpu_torch import pipeline, cli\n"
+        "open('m.txt', 'w').write('#version: x\\nh e\\nhe llo</w>\\n')\n"
+        "t = tokenizer.BPETokenizer('m.txt', context=16)\n"
+        "assert t.decode(t.encode_text('Hello, W\\u00d6RLD')) == 'hello , w\\u00f6rld'\n"
+        "enc = text.TextEncoder(text.TextConfig(vocab=64, width=16, depth=1,"
+        " heads=2, proj_dim=8, context=8, eot_id=2), bpe_path='absent',"
+        " device='cpu')\n"
+        "assert enc.encode(['a', 'b c']).shape == (2, 8)\n"
+        "class E:\n"
+        "    spec = type('s', (), {'dim': 8})\n"
+        "    device = torch.device('cpu')\n"
+        "zs = zero_shot.ZeroShotLabeler.from_texts(['x', 'y'], E(), enc)\n"
+        "print(len(zs.labels_from_embeddings(torch.ones(3, 8), 2, 0.0)))\n"
+        "assert 'cv2' not in sys.modules or sys.modules['cv2'] is None\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["3"]
+
+
+def test_text_side_imports_no_cv2():
+    code = ("import sys\n"
+            "from imageclust_tpu_torch.models import text, tokenizer\n"
+            "from imageclust_tpu_torch.labels import zero_shot, text_fusion\n"
+            "from imageclust_tpu_torch import pipeline, cli\n"
+            "print(sorted(m for m in ('cv2', 'regex', 'PIL') "
+            "if m in sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_import_and_cluster_without_jax(tmp_path):

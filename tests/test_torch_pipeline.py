@@ -205,16 +205,23 @@ class TestErrors:
         assert all(3 <= len(d.images) <= 6 for d in res.clusters.values())
         assert "decode" not in res.metrics.stages  # streamed ingest
 
-    @pytest.mark.parametrize("fusion,exc", [("text", NotImplementedError),
-                                            ("typo", ValueError)])
-    def test_fusion_modes(self, towers, rng, tmp_path, fusion, exc):
+    @pytest.mark.parametrize("fusion", ["text", "typo"])
+    def test_fusion_modes(self, towers, rng, tmp_path, fusion):
+        """``labels.fusion="text"`` runs (the text tower's dense block of
+        the fake labels); an unknown mode raises before any work."""
         cfg = _configs()[1]
         cfg = cfg.replace(labels=LabelConfig(backend="fake", fusion=fusion))
         pipeline = Pipeline(cfg, device="cpu", embedder=towers[1])
         names, blobs = color_group_images(rng, n_groups=1, per_group=3)
-        with pytest.raises(exc):
-            pipeline.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
-                         str(tmp_path))
+        uploads = [UploadedImage(n, b) for n, b in zip(names, blobs)]
+        if fusion == "typo":
+            with pytest.raises(ValueError, match="labels.fusion"):
+                pipeline.run(uploads, str(tmp_path))
+            return
+        res = pipeline.run(uploads, str(tmp_path))
+        assert sorted(m for d in res.clusters.values()
+                      for m in d.images) == sorted(names)
+        assert pipeline._text_encoder.cfg.proj_dim == 512
 
     def test_default_device_needs_cuda(self, towers, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -234,7 +241,7 @@ class TestErrors:
         with pytest.raises(exc):
             create_embedder(cfg, device="cpu")
 
-    @pytest.mark.parametrize("backend", ["rekognition", "zero_shot"])
+    @pytest.mark.parametrize("backend", ["rekognition"])
     def test_unported_labelers_raise(self, towers, backend):
         from imageclust_tpu_torch.labels import create_labeler
 
@@ -422,3 +429,278 @@ class TestCli:
     def test_default_device_is_cuda(self):
         args = cli.build_parser().parse_args(["serve"])
         assert args.device == "cuda"
+
+
+# -- zero-shot labels and text fusion (the text side) ------------------------
+
+_BANK_NAMES = ("c0", "c1", "c2", "c3")
+
+
+def _hf_text_checkpoint(path, proj_dim=16, width=32, vocab=200, seed=7):
+    """A seeded HF CLIPTextModel(+projection) state dict in an .npz, for
+    the fusion tower of both packages (inferred heads: width // 64 -> 1)."""
+    rng = np.random.default_rng(seed)
+    pre = "text_model."
+
+    def normal(*shape, s=0.05):
+        return rng.normal(0, s, shape).astype(np.float32)
+
+    sd = {pre + "embeddings.token_embedding.weight": normal(vocab, width),
+          pre + "embeddings.position_embedding.weight": normal(77, width)}
+    hf = f"{pre}encoder.layers.0"
+    for name in ("layer_norm1", "layer_norm2"):
+        sd[f"{hf}.{name}.weight"] = 1 + normal(width)
+        sd[f"{hf}.{name}.bias"] = normal(width)
+    for name, (o, n) in (("self_attn.q_proj", (width, width)),
+                         ("self_attn.k_proj", (width, width)),
+                         ("self_attn.v_proj", (width, width)),
+                         ("self_attn.out_proj", (width, width)),
+                         ("mlp.fc1", (4 * width, width)),
+                         ("mlp.fc2", (width, 4 * width))):
+        sd[f"{hf}.{name}.weight"] = normal(o, n, s=n ** -0.5)
+        sd[f"{hf}.{name}.bias"] = normal(o)
+    sd[pre + "final_layer_norm.weight"] = 1 + normal(width)
+    sd[pre + "final_layer_norm.bias"] = normal(width)
+    sd["text_projection.weight"] = normal(proj_dim, width, s=width ** -0.5)
+    np.savez(path, **sd)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def vit_towers():
+    """(JAX embedder, port embedder): a tiny float32 CLIP-style ViT at the
+    colour images' own size (64 px), on the same weights."""
+    from imageclust_tpu.models import vit as jax_vit
+    from imageclust_tpu_torch.models import vit
+    from imageclust_tpu_torch.models.convert import vit_state_dict_from_flax
+
+    kw = dict(patch=16, width=32, depth=2, heads=4, proj_dim=16,
+              image_size=64)
+    model = jax_vit.VisionTransformer(jax_vit.ViTConfig(**kw),
+                                      dtype=jnp.float32,
+                                      norm_dtype=jnp.float32)
+    variables = jax.tree.map(np.asarray, model.init(
+        jax.random.PRNGKey(2), jnp.zeros((1, 3, 64, 64), jnp.float32)))
+    cfg = vit.ViTConfig(**kw)
+    spec = dict(name="vit_b32", input_size=64, dim=16, scale=1 / 255.0,
+                mean=cfg.mean, std=cfg.std, bgr_input=True)
+    jax_emb = JaxEmbedder(JaxSpec(**spec), lambda v, x: model.apply(v, x),
+                          variables, batch_size=8, tag="jax-vit")
+    tower = vit.VisionTransformer(cfg, dtype="float32", norm_dtype="float32")
+    tower.load_state_dict(vit_state_dict_from_flax(variables, cfg))
+    port_emb = Embedder(EmbedderSpec(**spec), tower, batch_size=8,
+                        device=torch.device("cpu"), tag="torch-vit")
+    return jax_emb, port_emb
+
+
+@pytest.fixture(scope="module")
+def text_side(vit_towers, tmp_path_factory):
+    """(bank .npz, text checkpoint .npz): the bank's prototypes are the JAX
+    tower's mean embeddings of four of the colour groups."""
+    jax_emb, _ = vit_towers
+    root = tmp_path_factory.mktemp("text_side")
+    names, blobs = color_group_images(np.random.default_rng(99), n_groups=4,
+                                      per_group=3)
+    imgs = np.stack([cv2.imdecode(np.frombuffer(b, np.uint8),
+                                  cv2.IMREAD_COLOR) for b in blobs])
+    emb = jax_emb.embed(imgs).reshape(4, 3, -1).mean(axis=1)
+    bank = str(root / "bank.npz")
+    np.savez(bank, names=np.array(_BANK_NAMES), vectors=emb)
+    return bank, _hf_text_checkpoint(root / "text.npz")
+
+
+@pytest.fixture()
+def jax_kmeans_init(monkeypatch):
+    """Seed the port's k-means with the JAX package's random rows."""
+    from imageclust_tpu_torch.cluster import sharded
+
+    def init(x, k, seed):
+        idx = np.asarray(jax.random.permutation(jax.random.PRNGKey(seed),
+                                                x.shape[0])[:k])
+        return x[torch.from_numpy(idx.copy()).to(x.device)].float()
+
+    monkeypatch.setattr(sharded, "_kmeans_init", init)
+
+
+def _zero_shot_configs(text_side, fusion, weight=1.0, **cluster):
+    from imageclust_tpu.config import ClusterConfig as JaxClusterConfig
+
+    labels = dict(backend="zero_shot", fusion=fusion, fusion_weight=weight,
+                  text_checkpoint_path=text_side[1])
+    naming = dict(services=("fake",), retries=1)
+    return (JaxAppConfig(labels=JaxLabelConfig(**labels),
+                         naming=JaxNamingConfig(**naming),
+                         cluster=JaxClusterConfig(**cluster)),
+            AppConfig(labels=LabelConfig(**labels),
+                      naming=NamingConfig(**naming),
+                      cluster=ClusterConfig(**cluster)))
+
+
+def _labelled_partition(result):
+    return ({frozenset(d.images): d.labels
+             for d in result.clusters.values()}, sorted(result.dropped))
+
+
+_FUSIONS = [("onehot", 1.0), ("text", 1.0), ("text", 40.0)]
+
+
+class TestZeroShotParity:
+    """Both packages with ``labels.backend=zero_shot`` (the .npz bank via
+    IMAGECLUST_LABEL_BANK) and ``fusion`` onehot or text (the .npz text
+    checkpoint), through ``run`` below ``exact_limit``, ``run_stream`` and
+    a job above a lowered ``exact_limit``: equal partitions and labels."""
+
+    @pytest.fixture(autouse=True)
+    def _bank_env(self, text_side, monkeypatch):
+        monkeypatch.setenv("IMAGECLUST_LABEL_BANK", text_side[0])
+        monkeypatch.delenv("IMAGECLUST_BPE_PATH", raising=False)
+
+    @pytest.mark.parametrize("fusion,weight", _FUSIONS)
+    def test_run_matches_jax(self, vit_towers, text_side, rng, tmp_path, fusion,
+                             weight):
+        jax_emb, port_emb = vit_towers
+        names, blobs = color_group_images(rng, n_groups=5, per_group=4)
+        jcfg, pcfg = _zero_shot_configs(text_side, fusion, weight)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run(
+            [JaxUpload(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / "jax"), min_size=3, max_size=6)
+        pipe = Pipeline(pcfg, device="cpu", embedder=port_emb)
+        got = pipe.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
+                       str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _labelled_partition(got) == _labelled_partition(want)
+        counters = got.metrics.counters
+        assert counters["unique_labels"] == want.metrics.counters[
+            "unique_labels"] >= 2
+        assert {"label", "fuse"} <= set(got.metrics.stages)
+        assert "label_cache_hits" not in counters  # no per-image labeler
+        if fusion == "text":
+            assert pipe._text_encoder.weights_loaded
+
+    @pytest.mark.parametrize("fusion,weight", _FUSIONS)
+    def test_run_stream_matches_jax(self, vit_towers, text_side, rng, tmp_path,
+                                    jax_kmeans_init, fusion, weight):
+        from imageclust_tpu.data.loader import decode_images
+
+        jax_emb, port_emb = vit_towers
+        _, blobs = color_group_images(rng, n_groups=6, per_group=4)
+        imgs = decode_images(blobs, size=64)
+        cuts = (0, 8, 16, 24)
+        jcfg, pcfg = _zero_shot_configs(text_side, fusion, weight,
+                                        exact_limit=4, bucket_size=8)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run_stream(
+            (imgs[a:b] for a, b in zip(cuts, cuts[1:])), 24,
+            str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run_stream(
+            (imgs[a:b] for a, b in zip(cuts, cuts[1:])), 24,
+            str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _labelled_partition(got) == _labelled_partition(want)
+        assert got.metrics.counters["unique_labels"] >= 2
+        assert {"embed", "label", "fuse", "cluster"} <= set(
+            got.metrics.stages)
+
+    @pytest.mark.parametrize("fusion,weight", _FUSIONS)
+    @pytest.mark.parametrize("feature_dtype", ["float32", "int8"])
+    def test_big_job_matches_jax(self, vit_towers, text_side, rng, tmp_path,
+                                 jax_kmeans_init, fusion, weight,
+                                 feature_dtype):
+        jax_emb, port_emb = vit_towers
+        names, blobs = color_group_images(rng, n_groups=6, per_group=4)
+        jcfg, pcfg = _zero_shot_configs(text_side, fusion, weight,
+                                        exact_limit=4, bucket_size=8,
+                                        feature_dtype=feature_dtype)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run(
+            [JaxUpload(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run(
+            [UploadedImage(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _labelled_partition(got) == _labelled_partition(want)
+        assert "decode" not in got.metrics.stages  # the streamed branch
+        assert got.metrics.counters["unique_labels"] >= 2
+
+    def test_labels_fire_per_group(self, vit_towers, text_side, rng, tmp_path):
+        """The bank's prototypes come from four of the groups: each of
+        those groups' images carries its own label first."""
+        _, port_emb = vit_towers
+        names, blobs = color_group_images(rng, n_groups=4, per_group=3)
+        pcfg = _zero_shot_configs(text_side, "onehot")[1]
+        res = Pipeline(pcfg, device="cpu", embedder=port_emb).run(
+            [UploadedImage(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path))
+        pure = 0
+        for d in res.clusters.values():
+            groups = {int(m.split("_")[0][1:]) for m in d.images}
+            if len(groups) == 1:
+                pure += 1
+                assert d.labels.split(", ")[0] == _BANK_NAMES[groups.pop()]
+        assert pure >= 2
+
+
+class TestCliBank:
+    @pytest.fixture()
+    def label_dirs(self, tmp_path):
+        rng = np.random.default_rng(3)
+        root = tmp_path / "labels"
+        for label, base in (("blue", (220, 30, 30)), ("green", (30, 220, 30)),
+                            ("red", (30, 30, 220))):
+            (root / label).mkdir(parents=True)
+            for i in range(3):
+                img = np.full((64, 64, 3), base, np.uint8)
+                img = img + rng.integers(0, 20, img.shape).astype(np.uint8)
+                ok, enc = cv2.imencode(".bmp", img)
+                (root / label / f"{i}.bmp").write_bytes(enc.tobytes())
+        (root / "empty").mkdir()
+        (root / "stray.bmp").write_bytes(b"x")
+        return root
+
+    def test_bank_matches_jax(self, vit_towers, label_dirs, tmp_path,
+                              monkeypatch, capsys):
+        import imageclust_tpu.models as jax_models
+        import imageclust_tpu_torch.models as port_models
+        from imageclust_tpu import cli as jax_cli
+
+        jax_emb, port_emb = vit_towers
+        monkeypatch.setenv("IMAGECLUST_JAX_CACHE", "off")
+        monkeypatch.setattr(jax_models, "create_embedder",
+                            lambda *a, **k: jax_emb)
+        seen = {}
+
+        def port_create(cfg, device=None, **kw):
+            seen["device"] = device
+            return port_emb
+
+        monkeypatch.setattr(port_models, "create_embedder", port_create)
+        outs = {p: str(tmp_path / f"{p}.npz") for p in ("jax", "port")}
+        assert jax_cli.main(["bank", "--images", str(label_dirs), "--out",
+                             outs["jax"]]) == 0
+        assert cli.main(["bank", "--images", str(label_dirs), "--out",
+                         outs["port"], "--device", "cpu"]) == 0
+        assert seen["device"] == "cpu"
+        assert "wrote 3 label prototypes" in capsys.readouterr().out
+        with np.load(outs["jax"]) as want, np.load(outs["port"]) as got:
+            assert list(got["names"]) == list(want["names"]) == [
+                "blue", "green", "red"]
+            assert got["vectors"].dtype == want["vectors"].dtype
+            np.testing.assert_allclose(got["vectors"], want["vectors"],
+                                       rtol=1e-4, atol=1e-4)
+        # the bank loads into the port's labeler as written
+        monkeypatch.setenv("IMAGECLUST_LABEL_BANK", outs["port"])
+        from imageclust_tpu_torch.labels.zero_shot import ZeroShotLabeler
+
+        assert ZeroShotLabeler.default(port_emb).names == [
+            "blue", "green", "red"]
+
+    def test_bank_without_labels_fails(self, vit_towers, tmp_path,
+                                       monkeypatch, capsys):
+        import imageclust_tpu_torch.models as port_models
+
+        monkeypatch.setattr(port_models, "create_embedder",
+                            lambda *a, **k: vit_towers[1])
+        (tmp_path / "nothing").mkdir()
+        assert cli.main(["bank", "--images", str(tmp_path / "nothing"),
+                         "--device", "cpu"]) == 2
+        assert "no label subdirectories" in capsys.readouterr().err
+
+    def test_bank_defaults(self):
+        args = cli.build_parser().parse_args(["bank", "--images", "d"])
+        assert args.out == "label_bank.npz" and args.device == "cuda"

@@ -157,8 +157,7 @@ class TestStreamedPipeline:
         assert sorted(placed + res.dropped) == sorted(
             f"x{i}.jpg" for i in range(12))
 
-    @pytest.mark.parametrize("backend,exc", [("zero_shot",
-                                              NotImplementedError),
+    @pytest.mark.parametrize("backend,exc", [("rekognition", ValueError),
                                              ("fake", ValueError)])
     def test_run_stream_label_backends(self, towers, tmp_path, backend,
                                        exc):
