@@ -135,7 +135,32 @@ line and raises on any failure:
     features, 512 + 512 bf16 columns into the engine, 12 K5 launches a
     batch, one K4 launch, labels fired; then K4 on this job's centroids
     against its twin at bf16 d = 1024, every differing pick a near tie of
-    the float32 score.
+    the float32 score;
+24. the NN-chain engine (``constrained_ward_chain``): at n = 4096, d = 512
+    (seeded Gaussian features, the JAX spot check's shape) the same
+    partition and dropped set as the exact engine on K1 under the centroid
+    rule; at n = 20,000, d = 64 the sequential chain (CUDA graph replays)
+    and the rounds on the CPU give the card's rounds' partition, with the
+    sequential chain's steps per second; the rounds on phase 8's 100,000 x
+    1000 features: sizes in [3, 6], no image lost, the caller's features
+    unchanged, wall s, recompute and merge rounds with their seconds, the
+    loop's peak device memory, and the agreement (ARI, NMI, pair recall and
+    precision) of the bucketed engine's partition with the chain's;
+25. ``cli run --model vit_b32 --set cluster.scale_engine=chain`` on phase
+    14's 10,000 BMPs (12 K5 launches a batch, no K1-K4 launch) and its
+    agreement with phase 14's bucketed partition; ``Pipeline.run_stream``
+    on 100,000 images made on the card with ``vit_b32`` and the chain
+    engine (BASELINE config 3's job size with ViT-B/32 in place of
+    ViT-L/14@336);
+26. the quality scoreboards (``cluster/quality.py``): residency (bf16 and
+    int8 against f32, sep = 1) at tests/test_agreement.py's size (n = 2000,
+    d = 64), held to all its floors, and at n = 100,000, d = 256 (BASELINE
+    round 5's size), held to the seed yardstick, NMI and truth floors (the
+    JAX package's own rows there sit under the ARI and F1 floors, which
+    the line prints as missed); text fusion against one-hot at
+    n = 20,000, d = 256; int8 PTQ against bf16 towers for ResNet50 and
+    ViT-B/32 on 4096 images; every row on its own line, with the K2 (and
+    K5) launches of each.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -149,7 +174,7 @@ k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
 phase and the int8 ViT server request of phase 20, K4's from the
-1.6M-image ``run_stream``; phases 21-23 print their launches on their
+1.6M-image ``run_stream``; phases 21-26 print their launches on their
 own lines); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
@@ -243,6 +268,27 @@ TEXT_N = 4096           # phase 21: names through TextEncoder.encode
 TEXT_CPU_N = 64         # phase 21: names through the card and the CPU tower
 TEXT_COS_FLOOR = 0.99999  # phase 21: per-row cosine, card vs CPU
 BANK_IMAGES_PER_LABEL = 4  # phases 22-23: BMPs per label directory
+# phase 24: the chain engine against the exact engine (K1) at the JAX spot
+# check's shape, the sequential chain against the rounds, then the rounds
+# on phase 8's features
+CHAIN_GREEDY_N, CHAIN_GREEDY_D = 4096, 512
+CHAIN_SEQ_N, CHAIN_SEQ_D = 20_000, 64
+CHAIN_STREAM_N = 100_000  # phase 25: run_stream, BASELINE config 3's size
+# phase 26: the scoreboards' sizes (residency: tests/test_agreement.py's
+# size, where its floors were set, and BASELINE.md round 5's `bench.py
+# --quality` size) and tests/test_agreement.py's floors. At 100,000 x 256
+# the JAX package recorded ARI 0.244 (bf16) and 0.182 (int8) against a
+# 0.049 seed yardstick (BASELINE.md round 5), under the ARI and F1 floors:
+# there the run is held to the yardstick, NMI and truth floors and prints
+# the other two
+SCORE_RESIDENCY_FLOORS = (2000, 64)
+SCORE_RESIDENCY = (100_000, 256)
+SCORE_FUSION = (20_000, 256)
+SCORE_PTQ_N = 4096
+QUALITY_FLOORS = {"ari": 0.30, "same_pair_f1": 0.30, "nmi": 0.80,
+                  "truth_ari_below_f32": 0.05}
+
+_JOBS: dict = {}  # cli_run_big results by tag, for phase 25's agreement
 
 
 def emit(obj) -> None:
@@ -1610,13 +1656,20 @@ def phase_engine_100k(card: str):
 
 
 def phase_cli_big(card: str, groups: int = BIG_CLI_GROUPS,
-                  model: str = "resnet50"):
+                  model: str = "resnet50", extra=()):
+    """``cli run`` on ``groups`` x 5 BMPs (above ``exact_limit``) with the
+    ``extra`` arguments; ``--set cluster.scale_engine=chain`` among them
+    runs the chain engine (no K1-K4 launch). Returns the job's result and
+    the image names."""
     import numpy as np
 
     from imageclust_tpu_torch import cli
     from imageclust_tpu_torch.models.registry import DEFAULT_BATCH
     from imageclust_tpu_torch.ops import attention as at
 
+    engine = ("chain" if "cluster.scale_engine=chain" in extra
+              else "bucketed")
+    tag = model if engine == "bucketed" else f"{model}_{engine}"
     tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_cli_big_"))
     try:
         rng = np.random.default_rng(9)
@@ -1632,18 +1685,22 @@ def phase_cli_big(card: str, groups: int = BIG_CLI_GROUPS,
         with contextlib.redirect_stdout(out):
             rc = cli.main(["run", "--images", str(img_dir), "--device",
                            DEVICE, "--out", str(tmp / "work"),
-                           "--model", model])
+                           "--model", model, *extra])
         wall_s = time.perf_counter() - t0
         c = _counters()
         if rc != 0:
             raise AssertionError(f"cli run exited {rc}")
         result = json.loads(out.getvalue())
         OUT.mkdir(parents=True, exist_ok=True)
-        (OUT / f"cli_big_{model}_result.json").write_text(out.getvalue())
+        (OUT / f"cli_big_{tag}_result.json").write_text(out.getvalue())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     _check_sizes(result["clusters"])
-    _check_scale_launches("cli big", c, "lance_williams")
+    if engine == "chain":
+        if c["k1"] or c["k2"] or c["k3"] or c["k4"]:
+            raise AssertionError(f"cli big chain: merge kernels ran {c}")
+    else:
+        _check_scale_launches("cli big", c, "lance_williams")
     n = len(names)
     # the stream embeds ceil(n / batch) chunks; K5 runs in each ViT-B/32
     # block of each chunk and never in ResNet50
@@ -1656,12 +1713,15 @@ def phase_cli_big(card: str, groups: int = BIG_CLI_GROUPS,
     if placed + len(result["dropped"]) != n:
         raise AssertionError("cli big: images lost")
     emit({"phase": "cli_run_big", "card": card, "model": model, "images": n,
+          "engine": engine, "args": list(extra),
           "wall_s": wall_s, "stages_s": result["metrics"]["stages_s"],
           "embed_images_per_s": result["metrics"].get("images_per_sec_embed"),
           "clusters": len(result["clusters"]),
           "dropped": len(result["dropped"]), "launches": c,
-          "output": os.path.relpath(OUT / f"cli_big_{model}_result.json",
+          "output": os.path.relpath(OUT / f"cli_big_{tag}_result.json",
                                     REPO)})
+    _JOBS[tag] = (result, names)
+    return result, names
 
 
 def phase_stream(card: str):
@@ -2778,6 +2838,492 @@ def phase_stream_joint(card: str):
           "near_tie": K4_NEAR_TIE, "launches": c})
     return c
 
+# -- the chain engine and the scoreboards (phases 24-26) -----------------------
+
+@contextlib.contextmanager
+def _chain_impl(impl: str):
+    saved = os.environ.get("IMAGECLUST_CHAIN_IMPL")
+    os.environ["IMAGECLUST_CHAIN_IMPL"] = impl
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["IMAGECLUST_CHAIN_IMPL"]
+        else:
+            os.environ["IMAGECLUST_CHAIN_IMPL"] = saved
+
+
+@contextlib.contextmanager
+def _chain_timed():
+    """The chain engine with its loops and each reciprocal-NN round timed
+    on the host clock, synchronised before and after, and the loop's peak
+    device memory above what it started with. Yields a dict filled as the
+    loops run."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import chain
+
+    saved = {name: getattr(chain, name) for name in (
+        "_rnn_loop", "_chain_loop", "_recompute_round", "_merge_round")}
+    rec = {"loop_s": 0.0, "peak_bytes": 0, "recompute_s": 0.0,
+           "merge_s": 0.0}
+
+    def timed(name, key, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec[key] += time.perf_counter() - t0
+            return out
+        setattr(chain, name, wrapper)
+
+    def loop(fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            at = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            rec["loop_s"] += time.perf_counter() - t0
+            rec["peak_bytes"] = max(rec["peak_bytes"],
+                                    torch.cuda.max_memory_allocated() - at)
+            return out
+        return wrapper
+
+    chain._rnn_loop = loop(saved["_rnn_loop"])
+    chain._chain_loop = loop(saved["_chain_loop"])
+    timed("_recompute_round", "recompute_s", saved["_recompute_round"])
+    timed("_merge_round", "merge_s", saved["_merge_round"])
+    try:
+        yield rec
+    finally:
+        for name, fn in saved.items():
+            setattr(chain, name, fn)
+
+
+@contextlib.contextmanager
+def _f32_gram():
+    """The chain engine with its Gram tiles as plain f32 products on the
+    card (cuBLAS, TF32 off) in place of float64 sums."""
+    import torch
+
+    from imageclust_tpu_torch.cluster import chain
+
+    saved = chain._gram
+    chain._gram = lambda a, b: torch.matmul(a, b.T)
+    try:
+        yield
+    finally:
+        chain._gram = saved
+
+
+def _first_divergence(x, log_a, log_b, max_size: int):
+    """Where two reciprocal-NN logs of one job first differ: the row, both
+    merges, and for each cluster they involve its two nearest feasible
+    partners in float64 (after the rows both logs share) with their
+    relative gap."""
+    import numpy as np
+
+    m = min(len(log_a), len(log_b))
+    rows = np.nonzero((log_a[:m] != log_b[:m]).any(axis=1))[0]
+    if not len(rows):
+        return None
+    k = int(rows[0])
+    x64 = np.asarray(x, np.float64)
+    members = {i: [i] for i in range(len(x64))}
+    for hi, lo, new in log_b[:k]:
+        members[int(new)] = members.pop(int(hi)) + members.pop(int(lo))
+    births = np.array(sorted(members))
+    sizes = np.array([len(members[b]) for b in births], np.float64)
+    cents = np.stack([x64[members[b]].mean(axis=0) for b in births])
+    out = []
+    for a in sorted({int(v) for v in (*log_a[k][:2], *log_b[k][:2])}
+                    & set(members)):
+        i = int(np.searchsorted(births, a))
+        w = (sizes[i] * sizes / (sizes[i] + sizes)
+             * ((cents - cents[i]) ** 2).sum(axis=1))
+        w[(births == a) | (sizes[i] + sizes > max_size)] = np.inf
+        j = np.argsort(w, kind="stable")[:2]
+        out.append({"cluster": a, "size": int(sizes[i]),
+                    "nearest": [[float(w[t]), int(births[t])] for t in j],
+                    "relative_gap": float((w[j[1]] - w[j[0]]) / w[j[0]])})
+    return {"row": k, "of": m, "merge_a": log_a[k].tolist(),
+            "merge_b": log_b[k].tolist(), "clusters": out}
+
+
+def _recompute_split(x, n: int) -> dict:
+    """One full recompute round (the first ``_R_CAP`` rows against every
+    column) of the rounds' first state on ``x``: CUDA events around the
+    call, and torch.profiler's device time split into the Gram products
+    (kernels named ``*gemm*``) and everything else (casts, elementwise
+    passes, the row minima)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.cluster import chain
+
+    st = chain._rnn_state(x, n)
+    unb = st.active & ~st.blocked
+    r_idx = torch.arange(chain._R_CAP, device=x.device)
+    chain._nn_rows(st, unb, r_idx, 6)  # warm-up
+
+    def call():
+        chain._nn_rows(st, unb, r_idx, 6)
+
+    ms = cuda_ms(call, reps=5, warm=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    all_us = _kernel_us(prof)
+    gemm_us = all_us - sum(
+        getattr(e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0.0))
+        for e in prof.key_averages() if "gemm" not in e.key.lower())
+    d_pad = st.cents.shape[1]
+    flops = 2.0 * chain._R_CAP * st.n_pad * d_pad
+    return {"rows": chain._R_CAP, "columns": st.n_pad, "d_pad": d_pad,
+            "ms": ms, "gram_device_ms": gemm_us / 1e3,
+            "other_device_ms": (all_us - gemm_us) / 1e3,
+            "gram_share": gemm_us / all_us if all_us else None,
+            "gram_bound_ms": flops / FP32_OPS_PER_S * 1e3,
+            "timing": "ms: CUDA events, median of 5; device split: "
+                      "torch.profiler over one call; gram_bound_ms: the "
+                      "product's operations at the FP32 peak"}
+
+
+def _member_sets(res) -> set:
+    return {frozenset(m) for m in res._index_map.values()}
+
+
+def phase_chain(card: str):
+    """Phase 24: the chain engine on the card against the exact engine, the
+    sequential chain against the rounds (and the rounds on the CPU), then
+    the rounds at n = 100,000, d = 1000 beside the bucketed engine."""
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.cluster import (
+        chain,
+        constrained_ward,
+        constrained_ward_bucketed,
+        constrained_ward_chain,
+    )
+    from imageclust_tpu_torch.cluster.agreement import agreement
+
+    # chain against greedy (K1, centroid rule) on the spot check's features
+    x = np.random.default_rng(0).standard_normal(
+        (CHAIN_GREEDY_N, CHAIN_GREEDY_D)).astype(np.float32)
+    _zero_counters()
+    t0 = time.perf_counter()
+    greedy = constrained_ward(x, min_size=3, max_size=6,
+                              update_rule="centroid", device=DEVICE)
+    greedy_s = time.perf_counter() - t0
+    c_greedy = _counters()
+    _check_launches("chain vs greedy", c_greedy["k1"], len(greedy.merges))
+    _zero_counters()
+    with _chain_timed() as rec:
+        t0 = time.perf_counter()
+        got = constrained_ward_chain(x, min_size=3, max_size=6,
+                                     reassign_dropped=False, device=DEVICE)
+        chain_s = time.perf_counter() - t0
+    c_chain = _counters()
+    if any(c_chain[k] for k in ("k1", "k2", "k3", "k4", "k5")):
+        raise AssertionError(f"chain: a kernel ran {c_chain}")
+    same = (_member_sets(got) == _member_sets(greedy)
+            and set(got.dropped) == set(greedy.dropped))
+    if not same:
+        raise AssertionError("chain vs greedy at 4096 x 512: partitions "
+                             "differ")
+    # the same job with the Gram as a plain f32 product on the card (not
+    # gated): its partition against the exact engine's, and where its log
+    # leaves the float64-summed one
+    xt = torch.from_numpy(x).to(DEVICE)
+    log64, _, m64, _ = chain._rnn_loop(xt, CHAIN_GREEDY_N, 6)
+    with _f32_gram():
+        got32 = constrained_ward_chain(x, min_size=3, max_size=6,
+                                       reassign_dropped=False, device=DEVICE)
+        log32, _, m32, _ = chain._rnn_loop(xt, CHAIN_GREEDY_N, 6)
+    g32 = xt[:1024] @ xt.T
+    g64 = xt[:1024].double() @ xt.double().T
+    err = (g32.double() - g64).abs()
+    at = int(torch.argmax(err))
+    vs_greedy = {"n": CHAIN_GREEDY_N, "d": CHAIN_GREEDY_D,
+                 "greedy_s": greedy_s, "chain_s": chain_s,
+                 "chain_loop_s": rec["loop_s"], "k1_launches": c_greedy["k1"],
+                 "merges_applied": len(got.merges),
+                 "clusters": got.n_clusters, "dropped": len(got.dropped),
+                 "loop_stats": got.loop_stats, "identical_partition": same,
+                 "f32_gram": {
+                     "identical_partition": (
+                         _member_sets(got32) == _member_sets(greedy)
+                         and set(got32.dropped) == set(greedy.dropped)),
+                     "ari_vs_greedy": agreement(got32.assignments(),
+                                                greedy.assignments())["ari"],
+                     "clusters": got32.n_clusters,
+                     "dropped": len(got32.dropped),
+                     "gram_max_abs_err_vs_float64": float(err.max()),
+                     "gram_abs_at_max_err": float(g64.flatten()[at].abs()),
+                     "first_divergence_from_float64_sums": _first_divergence(
+                         x, log32[:m32].cpu().numpy(),
+                         log64[:m64].cpu().numpy(), 6)}}
+    del xt, g32, g64, err
+
+    # the sequential chain (CUDA graph replays) against the rounds, card
+    # and CPU
+    x = np.random.default_rng(24).standard_normal(
+        (CHAIN_SEQ_N, CHAIN_SEQ_D)).astype(np.float32)
+    runs = {}
+    for impl, dev in (("rnn", DEVICE), ("seq", DEVICE), ("rnn", "cpu")):
+        with _chain_impl(impl), _chain_timed() as rec:
+            t0 = time.perf_counter()
+            res = constrained_ward_chain(x, min_size=3, max_size=6,
+                                         reassign_dropped=False, device=dev)
+            wall = time.perf_counter() - t0
+        runs[f"{impl}_{dev}"] = (res, wall, dict(rec))
+    ref = runs[f"rnn_{DEVICE}"][0]
+    for key, (res, _, _) in runs.items():
+        if not (_member_sets(res) == _member_sets(ref)
+                and set(res.dropped) == set(ref.dropped)):
+            raise AssertionError(f"chain {key} at {CHAIN_SEQ_N} x "
+                                 f"{CHAIN_SEQ_D}: partition != rnn on the "
+                                 "card")
+    seq, seq_wall, seq_rec = runs[f"seq_{DEVICE}"]
+    seq_vs_rnn = {
+        "n": CHAIN_SEQ_N, "d": CHAIN_SEQ_D, "identical_partitions": True,
+        "wall_s": {k: v[1] for k, v in runs.items()},
+        "loop_s": {k: v[2]["loop_s"] for k, v in runs.items()},
+        "rnn_card_stats": ref.loop_stats,
+        "seq_iterations": seq.loop_stats["iterations"],
+        "seq_steps_per_s": seq.loop_stats["iterations"] / seq_rec["loop_s"],
+        "seq_merges": int(len(seq.merges)),
+        "cpu_threads": torch.get_num_threads()}
+
+    # the rounds at full size on phase 8's features, beside the bucketed
+    # engine (Lance-Williams, K2) on the same features
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    x = torch.randn((BIG_N, BIG_D), generator=gen, device=DEVICE)
+    x_ref = x.clone()
+    _zero_counters()
+    with _chain_timed() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = constrained_ward_chain(x, min_size=3, max_size=6,
+                                     device=DEVICE)
+        wall_s = time.perf_counter() - t0
+    c_big = _counters()
+    if not torch.equal(x, x_ref):
+        raise AssertionError("chain 100k: the caller's features changed")
+    del x_ref
+    sizes = _check_columnar("chain 100k", res, BIG_N)
+    split = _recompute_split(x, BIG_N)
+    with _f32_gram():
+        split["f32_gram"] = _recompute_split(x, BIG_N)
+    _zero_counters()
+    t0 = time.perf_counter()
+    bucketed = constrained_ward_bucketed(x, min_size=3, max_size=6,
+                                         device=DEVICE)
+    bucketed_s = time.perf_counter() - t0
+    c_bucketed = _counters()
+    _check_scale_launches("chain phase bucketed", c_bucketed,
+                          "lance_williams")
+    agree = agreement(bucketed.assignments(), res.assignments())
+    stats = res.loop_stats
+    emit({"phase": "chain_engine", "card": card,
+          "chain_vs_greedy": vs_greedy, "seq_vs_rnn": seq_vs_rnn,
+          "rounds_100k": {
+              "n": BIG_N, "d": BIG_D, "wall_s": wall_s,
+              "loop_s": rec["loop_s"],
+              "recompute_rounds": stats["recompute_rounds"],
+              "recompute_s": rec["recompute_s"],
+              "merge_rounds": stats["merge_rounds"],
+              "merge_s": rec["merge_s"],
+              "rows_recomputed": stats["rows_recomputed"],
+              "peak_device_bytes": rec["peak_bytes"],
+              "clusters": int(len(sizes)), "dropped": len(res._dropped_idx),
+              "merges_applied": int(len(res.merges)),
+              "size_histogram": np.bincount(sizes).tolist(),
+              "launches": c_big, "features_unchanged": True,
+              "recompute_round_split": split},
+          "bucketed_100k": {"wall_s": bucketed_s,
+                            "clusters": bucketed.n_clusters,
+                            "launches": c_bucketed},
+          "agreement_bucketed_vs_chain": agree,
+          "timing": "host clock, synchronised around each loop and each "
+                    "round; peak: max_memory_allocated above the start of "
+                    "the loop"})
+    return c_big
+
+
+def _cli_partition_vector(result: dict, names: list):
+    from imageclust_tpu_torch.cluster.agreement import partition_vector
+
+    return partition_vector(
+        {k: v["images"] for k, v in result["clusters"].items()}, names)
+
+
+def phase_chain_pipeline(card: str):
+    """Phase 25: ``cli run --model vit_b32 --set
+    cluster.scale_engine=chain`` on phase 14's 10,000 BMPs (agreement with
+    phase 14's bucketed partition), then ``Pipeline.run_stream`` on
+    100,000 images made on the card with ``vit_b32`` and the chain
+    engine."""
+    import torch
+
+    from imageclust_tpu_torch.cluster.agreement import agreement
+    from imageclust_tpu_torch.config import (
+        AppConfig,
+        ClusterConfig,
+        EmbedConfig,
+        LabelConfig,
+    )
+    from imageclust_tpu_torch.pipeline import Pipeline
+
+    if "vit_b32" not in _JOBS:  # a development run without phase 14
+        phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32")
+    base, names = _JOBS["vit_b32"]
+    chain_res, chain_names = phase_cli_big(
+        card, VIT_CLI_GROUPS, "vit_b32",
+        extra=("--set", "cluster.scale_engine=chain"))
+    if chain_names != names:
+        raise AssertionError("phase 25: not phase 14's images")
+    agree = agreement(_cli_partition_vector(base, names),
+                      _cli_partition_vector(chain_res, names))
+    emit({"phase": "chain_cli_agreement", "card": card,
+          "images": len(names),
+          "agreement_bucketed_vs_chain": agree})
+
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    dev = torch.device(DEVICE)
+    n = CHAIN_STREAM_N
+    bases = torch.randint(0, 256, (n // 4 + 1, 3), generator=gen, device=dev)
+
+    def chunks(batch):
+        for s in range(0, n, batch):
+            e = min(s + batch, n)
+            g = torch.arange(s, e, device=dev) // 4
+            noise = torch.randint(0, 21, (e - s, 224, 224, 3), generator=gen,
+                                  device=dev, dtype=torch.int16)
+            img = bases[g][:, None, None, :] - 10 + noise
+            yield img.clamp(0, 255).to(torch.uint8)
+
+    cfg = AppConfig(labels=LabelConfig(backend="none"),
+                    embed=EmbedConfig(model="vit_b32"),
+                    cluster=ClusterConfig(scale_engine="chain"))
+    work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_chain_"))
+    try:
+        pipeline = Pipeline(cfg, device=DEVICE)
+        _zero_counters()
+        with _chain_timed() as rec:
+            t0 = time.perf_counter()
+            res = pipeline.run_stream(chunks(pipeline.embedder.batch_size),
+                                      n, str(work))
+            wall_s = time.perf_counter() - t0
+        c = _counters()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    batches = -(-n // pipeline.embedder.batch_size)
+    if c["k5"] != VIT_B32_DEPTH * batches or any(
+            c[k] for k in ("k1", "k2", "k3", "k4")):
+        raise AssertionError(f"run_stream chain: launches {c} for "
+                             f"{batches} batches")
+    sizes = [len(d.images) for d in res.clusters.values()]
+    if not all(3 <= s <= 6 for s in sizes):
+        raise AssertionError("run_stream chain: cluster sizes out of bounds")
+    if sum(sizes) + len(res.dropped) != n:
+        raise AssertionError("run_stream chain: images lost")
+    metrics = res.metrics.to_dict()
+    emit({"phase": "run_stream_chain", "card": card, "images": n,
+          "model": "vit_b32", "engine": "chain", "wall_s": wall_s,
+          "stages_s": metrics["stages_s"],
+          "embed_images_per_s": metrics.get("images_per_sec_embed"),
+          "chain_loop_s": rec["loop_s"],
+          "chain_peak_device_bytes": rec["peak_bytes"],
+          "clusters": len(sizes), "dropped": len(res.dropped),
+          "naming_skipped": metrics["counters"].get("naming_skipped", 0),
+          "launches": c})
+    return c
+
+
+def _floors(res: dict) -> dict:
+    """tests/test_agreement.py's residency floors, each mode's row: the
+    floors it misses."""
+    yard = res["f32_seed_yardstick"]["ari"]
+    f32 = res["f32"]["ari_vs_truth"]
+    missed = {}
+    for mode in ("bfloat16", "int8"):
+        row = res[mode]
+        bad = [k for k in ("ari", "same_pair_f1", "nmi")
+               if row[k] < QUALITY_FLOORS[k]]
+        if row["ari"] <= yard:
+            bad.append("seed_yardstick")
+        if row["ari_vs_truth"] < f32 - QUALITY_FLOORS["truth_ari_below_f32"]:
+            bad.append("ari_vs_truth")
+        missed[mode] = bad
+    return missed
+
+
+def phase_scoreboards(card: str):
+    """Phase 26: the residency, text-fusion and PTQ scoreboards on the
+    card, every row on its own line; the residency rows held to
+    tests/test_agreement.py's floors (at 100,000 x 256 the yardstick, NMI
+    and truth floors; see ``SCORE_RESIDENCY``)."""
+    from imageclust_tpu_torch.cluster import quality
+    from imageclust_tpu_torch.models.registry import DEFAULT_BATCH
+
+    launches = {}
+
+    def run(name, fn, *args, **kw):
+        _zero_counters()
+        t0 = time.perf_counter()
+        out = fn(*args, device=DEVICE, **kw)
+        secs = time.perf_counter() - t0
+        c = _counters()
+        if not (c["k2"] == c["chunks"] > 0 and c["k3"] == c["k4"] == 0):
+            raise AssertionError(f"scoreboard {name}: launches {c}")
+        launches[name] = c
+        return out, secs, c
+
+    for (n, d), held in ((SCORE_RESIDENCY_FLOORS, None),
+                         (SCORE_RESIDENCY, {"seed_yardstick", "nmi",
+                                            "ari_vs_truth"})):
+        res, secs, c = run(f"residency_{n}", quality.residency_scoreboard,
+                           n, d, sep=1.0)
+        for mode, row in res.items():
+            emit({"phase": "scoreboard_residency", "card": card, "n": n,
+                  "d": d, "sep": 1.0, "row": mode, **row})
+        missed = _floors(res)
+        for mode, bad in missed.items():
+            gated = bad if held is None else [k for k in bad if k in held]
+            if gated:
+                raise AssertionError(f"residency {mode} at {n} x {d}: below "
+                                     f"the floors {gated}: {res[mode]}")
+        emit({"phase": "scoreboard_residency_floors", "card": card, "n": n,
+              "d": d, "seconds": secs, "floors": QUALITY_FLOORS,
+              "held": "all" if held is None else sorted(held),
+              "missed": missed, "launches": c})
+
+    n, d = SCORE_FUSION
+    row, secs, c = run("fusion", quality.fusion_scoreboard, n, d, sep=1.0)
+    emit({"phase": "scoreboard_fusion", "card": card, "n": n, "d": d,
+          "seconds": secs, **row, "launches": c})
+
+    for model in ("resnet50", "vit_b32"):
+        row, secs, c = run(f"ptq_{model}", quality.ptq_scoreboard, model,
+                           SCORE_PTQ_N)
+        if model == "vit_b32":
+            # two towers embed the images; calibration adds forwards
+            want = 2 * VIT_B32_DEPTH * -(-SCORE_PTQ_N // DEFAULT_BATCH[model])
+            if c["k5"] < want:
+                raise AssertionError(f"ptq vit_b32: {c['k5']} K5 launches, "
+                                     f"want >= {want}")
+        elif c["k5"]:
+            raise AssertionError(f"ptq resnet50: {c['k5']} K5 launches")
+        emit({"phase": "scoreboard_ptq", "card": card, "model": model,
+              "n": SCORE_PTQ_N, "seconds": secs, **row, "launches": c})
+    return launches
+
 
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
@@ -2788,6 +3334,7 @@ PHASES = {
     15: phase_other_towers, 16: phase_k4, 17: phase_engine_2m,
     18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
     21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
+    24: phase_chain, 25: phase_chain_pipeline, 26: phase_scoreboards,
 }
 
 
@@ -2860,6 +3407,9 @@ def main(argv: list[str] | None = None) -> int:
         run(23)
     finally:
         (OUT / "clip_text_b32_seeded.pt").unlink(missing_ok=True)
+    run(24)
+    run(25)
+    run(26)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]

@@ -5,15 +5,17 @@ The port of ``imageclust_tpu/pipeline.py``. Jobs up to
 ``cluster.exact_limit`` images take one batched forward over the upload on
 the card and the exact constrained-Ward engine (K1 per merge). Larger jobs
 stream their ingest (read -> decode -> forward in bounded chunks), keep the
-features on the card and cluster them with the bucketed engine (K2 or K3);
+features on the card and cluster them with the bucketed engine (K2 or K3)
+or, with ``cluster.scale_engine="chain"``, the NN-chain engine (the greedy
+engine's partition wherever merge distances are distinct);
 :meth:`Pipeline.run_stream` takes uint8 chunks directly. The same naming
 and HTML report follow. With ``cluster.feature_dtype`` bfloat16 or int8
-the stream casts each chunk into that residency, so the f32 matrix never
-exists. Zero-shot labels (``labels.backend="zero_shot"``) come from the
-batch embeddings on the card, with no per-image labeler; the label block
-is the one-hot matrix or, with ``labels.fusion="text"``, the text tower's
-dense block (labels/text_fusion.py). Not ported yet
-(``NotImplementedError``, ROADMAP.md queue 1): ``scale_engine="chain"``.
+the stream casts each chunk into that residency (the bucketed engine
+only), so the f32 matrix never exists. Zero-shot labels
+(``labels.backend="zero_shot"``) come from the batch embeddings on the
+card, with no per-image labeler; the label block is the one-hot matrix
+or, with ``labels.fusion="text"``, the text tower's dense block
+(labels/text_fusion.py).
 
 Output shape parity with the reference: {"Cluster-<i>": ClusterDetails}
 (workflow.go:192) and a clusters.html report in the work dir.
@@ -30,6 +32,7 @@ import numpy as np
 from imageclust_tpu_torch.cluster import (
     constrained_ward,
     constrained_ward_bucketed,
+    constrained_ward_chain,
 )
 from imageclust_tpu_torch.config import AppConfig
 from imageclust_tpu_torch.data.loader import (
@@ -510,14 +513,18 @@ class Pipeline:
 
     def _cluster_big(self, features, item_ids, min_size: int,
                      max_size: int):
-        """Scale-engine dispatch above cluster.exact_limit: the bucketed
-        engine on the card. ``item_ids`` may be None: the result is then
+        """Scale-engine dispatch above cluster.exact_limit: NN-chain for
+        exact greedy semantics, bucketed for capacity (JAX
+        pipeline.py:556-585). ``item_ids`` may be None: the result is then
         columnar with integer item indices."""
         cfg = self.config
         if cfg.cluster.scale_engine == "chain":
-            raise NotImplementedError(
-                "cluster.scale_engine='chain' is not ported yet (ROADMAP.md "
-                "queue 1, chain engine); use 'bucketed'")
+            return constrained_ward_chain(
+                features, item_ids,
+                min_size=min_size, max_size=max_size,
+                reassign_dropped=cfg.cluster.scale_reassign_dropped,
+                device=self.device,
+            )
         if cfg.cluster.scale_engine != "bucketed":
             # fail loud: a typo must not silently pick an engine
             raise ValueError(

@@ -736,3 +736,79 @@ def test_create_zero_shot_labeler_on_card(cuda, tmp_path, monkeypatch):
     x = torch.from_numpy(zs.bank[[0, 5]]).to(cuda, torch.bfloat16)
     rows = zs.labels_from_embeddings(x, 3, 75.0)
     assert [r[0].name for r in rows] == [zs.names[0], zs.names[5]]
+
+
+# -- the NN-chain engine and the scoreboards -----------------------------------
+
+def _member_sets(res):
+    return {frozenset(m) for m in res.cluster_map.values()}
+
+
+@pytest.mark.parametrize("impl", ["rnn", "seq"])
+def test_chain_on_card_matches_cpu(cuda, monkeypatch, impl):
+    """Tie-free Gaussian features: the card's chain (rounds, or the
+    sequential chain in CUDA graph replays) gives the CPU's partition."""
+    from imageclust_tpu_torch.cluster import constrained_ward_chain
+
+    monkeypatch.setenv("IMAGECLUST_CHAIN_IMPL", impl)
+    x = np.random.default_rng(3).standard_normal((1500, 32)).astype(
+        np.float32)
+    got = constrained_ward_chain(x, reassign_dropped=False, device=cuda)
+    want = constrained_ward_chain(x, reassign_dropped=False, device="cpu")
+    assert _member_sets(got) == _member_sets(want)
+    assert set(got.dropped) == set(want.dropped)
+    assert got.loop_stats["impl"] == impl
+
+
+def test_chain_matches_greedy_on_card(cuda):
+    from imageclust_tpu_torch.cluster import (
+        constrained_ward,
+        constrained_ward_chain,
+    )
+
+    x = np.random.default_rng(4).standard_normal((1024, 16)).astype(
+        np.float32)
+    got = constrained_ward_chain(x, reassign_dropped=False, device=cuda)
+    want = constrained_ward(x, update_rule="centroid", device=cuda)
+    assert _member_sets(got) == _member_sets(want)
+    assert set(got.dropped) == set(want.dropped)
+
+
+@pytest.mark.parametrize("impl", ["rnn", "seq"])
+def test_chain_leaves_card_features_unchanged(cuda, monkeypatch, impl):
+    """An f32 tensor on the card is the engine's own input after
+    ``.to(device, float32)``: the loops must work in a copy."""
+    from imageclust_tpu_torch.cluster import constrained_ward_chain
+
+    monkeypatch.setenv("IMAGECLUST_CHAIN_IMPL", impl)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((700, 24), generator=gen, device=cuda)
+    before = x.clone()
+    res = constrained_ward_chain(x, device=cuda)
+    assert torch.equal(x, before)
+    assert sum(len(m) for m in res.cluster_map.values()) \
+        + len(res.dropped) == 700
+
+
+def test_residency_scoreboard_row_on_card(cuda):
+    from imageclust_tpu_torch.cluster.quality import residency_scoreboard
+
+    sb = residency_scoreboard(600, 32, sep=50.0, k=120, balanced=True,
+                              device=cuda)
+    for mode in ("bfloat16", "int8"):
+        assert sb[mode]["ari"] >= 0.99, sb[mode]
+    assert sb["f32"]["ari_vs_truth"] >= 0.99
+
+
+def test_chain_gram_on_card_sums_in_float64(cuda):
+    """The chain's Gram tile on the card: float64 sums rounded once to
+    float32 (on the CPU an f32 product, as XLA's CPU rounds)."""
+    from imageclust_tpu_torch.cluster import chain
+
+    gen = torch.Generator().manual_seed(6)
+    a = torch.randn((300, 512), generator=gen)
+    b = torch.randn((200, 512), generator=gen)
+    got = chain._gram(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.float32
+    want = (a.double() @ b.double().T).float()
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)

@@ -48,7 +48,9 @@ def test_port_has_modules():
                 "models/onnx_export.py", "models/quantize.py",
                 "models/quantize_vit.py", "ops/int8.py", "service/app.py",
                 "data/loader.py", "models/text.py", "models/tokenizer.py",
-                "labels/zero_shot.py", "labels/text_fusion.py"):
+                "labels/zero_shot.py", "labels/text_fusion.py",
+                "cluster/chain.py", "cluster/agreement.py",
+                "cluster/quality.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
@@ -149,6 +151,11 @@ def test_import_and_cluster_without_jax(tmp_path):
         "b = constrained_ward_bucketed(y, bucket_size=64, device='cpu')\n"
         "assert sum(len(m) for m in b.cluster_map.values()) "
         "+ len(b.dropped) == 300\n"
+        "from imageclust_tpu_torch.cluster import constrained_ward_chain\n"
+        "from imageclust_tpu_torch.cluster.agreement import agreement\n"
+        "from imageclust_tpu_torch.cluster import quality\n"
+        "c = constrained_ward_chain(y[:120], device='cpu')\n"
+        "assert agreement(c.assignments(), c.assignments())['ari'] == 1.0\n"
         "from imageclust_tpu_torch.models.vit import ViTConfig, "
         "VisionTransformer\n"
         "m = VisionTransformer(ViTConfig(patch=8, width=32, depth=1, "

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from imageclust_tpu.config import AppConfig as JaxAppConfig
+from imageclust_tpu.config import ClusterConfig as JaxClusterConfig
 from imageclust_tpu.config import LabelConfig as JaxLabelConfig
 from imageclust_tpu.config import NamingConfig as JaxNamingConfig
 from imageclust_tpu.models.registry import Embedder as JaxEmbedder
@@ -167,14 +168,24 @@ class TestErrors:
             pipeline.run(uploads, str(tmp_path), min_size=3, max_size=6)
 
     def test_scale_path_not_ported(self, towers, rng, tmp_path):
-        """Above exact_limit the chain engine is still not ported, and
-        says so."""
-        names, blobs = color_group_images(rng, n_groups=1, per_group=5)
+        """Above exact_limit with ``scale_engine="chain"`` (the name is from
+        before the chain engine was ported, when this refused): ``run``
+        gives the JAX pipeline's clusters, labels and titles."""
+        jax_emb, port_emb = towers
+        names, blobs = color_group_images(rng, n_groups=4, per_group=5)
+        jcfg = JaxAppConfig(
+            labels=JaxLabelConfig(backend="fake"),
+            naming=JaxNamingConfig(services=("fake",), retries=1),
+            cluster=JaxClusterConfig(exact_limit=4, scale_engine="chain"))
         pcfg = _configs(exact_limit=4, scale_engine="chain")[1]
-        pipeline = Pipeline(pcfg, device="cpu", embedder=towers[1])
-        with pytest.raises(NotImplementedError, match="not ported"):
-            pipeline.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
-                         str(tmp_path))
+        want = JaxPipeline(jcfg, embedder=jax_emb).run(
+            [JaxUpload(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / "jax"), min_size=3, max_size=6)
+        got = Pipeline(pcfg, device="cpu", embedder=port_emb).run(
+            [UploadedImage(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / "port"), min_size=3, max_size=6)
+        assert _result_view(got) == _result_view(want)
+        assert got.metrics.counters["merges"] > 0
 
     @pytest.mark.parametrize("feature_dtype", ["bfloat16", "int8"])
     def test_scale_path_runs_at_residency(self, towers, rng, tmp_path,

@@ -9,6 +9,8 @@ agree to about 1e-4, so clusters are compared as sets of members (colour
 groups are far apart; the order of merges inside a group may differ).
 """
 
+import json
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -167,7 +169,6 @@ class TestStreamedPipeline:
                 [], 4, str(tmp_path))
 
     @pytest.mark.parametrize("cluster,exc", [
-        (dict(scale_engine="chain"), NotImplementedError),
         (dict(feature_dtype="fp8"), ValueError),
         (dict(scale_engine="typo"), ValueError)])
     def test_unported_scale_modes_raise(self, towers, rng, tmp_path,
@@ -210,6 +211,110 @@ class TestStreamedPipeline:
         got = Pipeline(pcfg, device="cpu", embedder=port_emb).run_stream(
             chunks(), 24, str(tmp_path / "port"), min_size=3, max_size=6)
         assert _partition(got) == _partition(want)
+
+
+class TestChainEngine:
+    """``cluster.scale_engine="chain"`` above ``exact_limit`` (refused until
+    the chain engine was ported): every entry point gives the JAX
+    pipeline's clusters on the same images, compared as sets of members as
+    in the rest of this file."""
+
+    @pytest.mark.parametrize("entry", ["run", "run_paths", "run_stream"])
+    def test_entry_points_match_jax(self, towers, rng, tmp_path, entry):
+        jax_emb, port_emb = towers
+        names, blobs, paths = _image_dir(rng, tmp_path)
+        jcfg, pcfg = _configs(labels="none" if entry == "run_stream"
+                              else "fake", exact_limit=4,
+                              scale_engine="chain")
+        jp = JaxPipeline(jcfg, embedder=jax_emb)
+        pp = Pipeline(pcfg, device="cpu", embedder=port_emb)
+        if entry == "run":
+            from imageclust_tpu.types import UploadedImage as JaxUpload
+            from imageclust_tpu_torch.types import UploadedImage
+
+            want = jp.run([JaxUpload(n, b) for n, b in zip(names, blobs)],
+                          str(tmp_path / "jax"))
+            got = pp.run([UploadedImage(n, b) for n, b in zip(names, blobs)],
+                         str(tmp_path / "port"))
+        elif entry == "run_paths":
+            want = jp.run_paths(paths, str(tmp_path / "jax"))
+            got = pp.run_paths(paths, str(tmp_path / "port"))
+        else:
+            imgs = decode_images(blobs, size=224)
+            chunks = lambda: (imgs[a:a + 8] for a in range(0, 24, 8))  # noqa
+            want = jp.run_stream(chunks(), 24, str(tmp_path / "jax"))
+            got = pp.run_stream(chunks(), 24, str(tmp_path / "port"))
+        assert _partition(got) == _partition(want)
+        assert set(got.clusters) == set(want.clusters)
+        placed = [m for d in got.clusters.values() for m in d.images]
+        assert len(placed) + len(got.dropped) == 24
+        assert got.metrics.counters["merges"] > 0
+
+    def test_cli_run_matches_jax(self, towers, rng, tmp_path, monkeypatch,
+                                 capsys):
+        jax_emb, port_emb = towers
+        _, _, paths = _image_dir(rng, tmp_path)
+
+        class TinyTower(Pipeline):
+            def __init__(self, config, device=None):
+                super().__init__(config, device=device, embedder=port_emb)
+
+        monkeypatch.setattr(tpipeline, "Pipeline", TinyTower)
+        rc = cli.main(["run", "--images", str(tmp_path / "imgs"),
+                       "--device", "cpu", "--out", str(tmp_path / "w"),
+                       "--labeler", "fake", "--namers", "fake",
+                       "--set", "cluster.exact_limit=4",
+                       "--set", "cluster.scale_engine=chain"])
+        assert rc == 0
+        got = json.loads(capsys.readouterr().out)
+        jcfg, _ = _configs(exact_limit=4, scale_engine="chain")
+        want = JaxPipeline(jcfg, embedder=jax_emb).run_paths(
+            sorted(paths), str(tmp_path / "jax")).to_dict()
+        assert {frozenset(v["images"]) for v in got["clusters"].values()} \
+            == {frozenset(v["images"]) for v in want["clusters"].values()}
+        assert got["dropped"] == want["dropped"]
+
+    def test_server_matches_jax(self, towers, rng, tmp_path):
+        import threading
+        import urllib.request
+        import uuid
+
+        from imageclust_tpu.types import UploadedImage as JaxUpload
+        from imageclust_tpu_torch.service.app import create_server
+        from imageclust_tpu_torch.service.jobs import JobStore
+
+        jax_emb, port_emb = towers
+        names, blobs = color_group_images(rng, n_groups=6, per_group=4)
+        jcfg, pcfg = _configs(exact_limit=4, scale_engine="chain")
+        server = create_server(
+            pcfg, Pipeline(pcfg, device="cpu", embedder=port_emb),
+            JobStore(str(tmp_path / "port")), host="127.0.0.1", port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            bnd = uuid.uuid4().hex
+            body = b"".join(
+                f'--{bnd}\r\nContent-Disposition: form-data; name="images"; '
+                f'filename="{n}"\r\nContent-Type: image/png\r\n\r\n'
+                .encode() + b + b"\r\n" for n, b in zip(names, blobs))
+            body += f"--{bnd}--\r\n".encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.server_address[1]}/api/cluster",
+                data=body, method="POST", headers={
+                    "Content-Type": f"multipart/form-data; boundary={bnd}"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                got = json.loads(r.read())
+        finally:
+            server.shutdown()
+            server.server_close()
+            server.service.wait_background(30)
+            thread.join(30)
+        want = JaxPipeline(jcfg, embedder=jax_emb).run(
+            [JaxUpload(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / "jax"))
+        assert {frozenset(v["images"]) for v in got["clusters"].values()} \
+            == {frozenset(d.images) for d in want.clusters.values()}
+        assert got["dropped"] == want.dropped
 
 
 class TestEmbedStream:
