@@ -160,7 +160,24 @@ line and raises on any failure:
     the line prints as missed); text fusion against one-hot at
     n = 20,000, d = 256; int8 PTQ against bf16 towers for ResNet50 and
     ViT-B/32 on 4096 images; every row on its own line, with the K2 (and
-    K5) launches of each.
+    K5) launches of each;
+27. fine-tuning at full width (``models/finetune.py``): the committed
+    Orbax fixture (tests/data/orbax_small, written by the JAX package:
+    OCDBT, zstd with compressed blocks) read bit for bit, with the libzstd
+    found; 8 labelled folders of 64 seeded colour-block BMPs at 224 x 224;
+    a seeded ResNet50 exported to ONNX and the tower warm-started from it;
+    ``finetune_resnet50`` (stage layers 3, 4, 6, 3, bf16, batch 64, AdamW
+    1e-3) for 2 epochs, each epoch's loss (it must fall) and images/s after
+    its first step, the peak memory; a second run with ``epochs=3`` that
+    resumes at epoch 2 and runs one epoch; the train step in ms (CUDA
+    events) with its peak memory and a profiler split into convolutions
+    and the rest, with the top kernels; the step at batch 8 on the card
+    against the CPU from the tuned weights and one batch (float32,
+    TF32 off: loss rtol 1e-4, gradients relative L2 1e-3, batch_stats rtol
+    1e-4; bf16: loss rtol 1e-2, gradient cosines >= 0.99); 256 images through
+    ``embed.checkpoint_path`` bit-identical to the in-memory tuned tower;
+    an 18-image server request from the checkpoint with its K1 launches;
+    one ``cli train`` subprocess for one epoch and its JSON line.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -174,7 +191,7 @@ k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
 phase and the int8 ViT server request of phase 20, K4's from the
-1.6M-image ``run_stream``; phases 21-26 print their launches on their
+1.6M-image ``run_stream``; phases 21-27 print their launches on their
 own lines); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
 job's result) go to ``$IMAGECLUST_SMOKE_OUT`` (default ``build/chip_smoke``).
@@ -287,6 +304,13 @@ SCORE_FUSION = (20_000, 256)
 SCORE_PTQ_N = 4096
 QUALITY_FLOORS = {"ari": 0.30, "same_pair_f1": 0.30, "nmi": 0.80,
                   "truth_ari_below_f32": 0.05}
+# phase 27: fine-tuning at full width: 8 classes x 64 BMPs at 224, batch 64,
+# two epochs at lr 1e-3 (bf16), the card-vs-CPU step at batch 8, and 256
+# images through the served checkpoint
+FT_CLASSES, FT_PER_CLASS = 8, 64
+FT_BATCH, FT_EPOCHS, FT_LR = 64, 2, 1e-3
+FT_CHECK_BATCH = 8
+FT_SERVE_N = 256
 
 _JOBS: dict = {}  # cli_run_big results by tag, for phase 25's agreement
 
@@ -3325,6 +3349,359 @@ def phase_scoreboards(card: str):
     return launches
 
 
+# -- fine-tuning and checkpoints (phase 27) ------------------------------------
+
+def _finetune_dir(root: Path) -> Path:
+    """``FT_CLASSES`` labelled folders of ``FT_PER_CLASS`` seeded colour-
+    block BMPs at 224 x 224: a class colour, a block of a second colour at
+    a random place, and noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(27)
+    bases = rng.integers(0, 256, (FT_CLASSES, 3))
+    data = root / "labeled"
+    for c in range(FT_CLASSES):
+        d = data / f"class{c}"
+        d.mkdir(parents=True)
+        for i in range(FT_PER_CLASS):
+            img = np.clip(bases[c] + rng.integers(-20, 21, (224, 224, 3)),
+                          0, 255).astype(np.uint8)
+            y, x = rng.integers(0, 160, 2)
+            img[y:y + 64, x:x + 64] = rng.integers(0, 256, 3)
+            (d / f"{i}.bmp").write_bytes(encode_bmp(img))
+    return data
+
+
+class _EpochLog:
+    """Collects the fine-tune's per-epoch records and resume messages."""
+
+    def __init__(self):
+        import logging
+
+        self.logger = logging.getLogger("imageclust_tpu_torch.models.finetune")
+        self.records = []
+        self.handler = logging.Handler(logging.INFO)
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def epochs(self) -> list:
+        return [r.epoch_stats for r in self.records
+                if hasattr(r, "epoch_stats")]
+
+    def text(self) -> str:
+        return "\n".join(r.getMessage() for r in self.records)
+
+
+def _conv_kernel(name: str) -> bool:
+    n = name.lower()
+    return any(k in n for k in ("conv", "xmma", "cudnn", "implicit",
+                                "dgrad", "wgrad", "fprop", "gemm"))
+
+
+def _train_step_profile(model, images, labels) -> dict:
+    """One profiled train step (AdamW on a copy of the state): device ms
+    in convolutions (cuDNN, and the one dense GEMM) against the rest
+    (BatchNorm statistics and normalisation, ReLU, pooling, the loss and
+    the AdamW passes), and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.models.train import (
+        init_opt_state,
+        make_train_step,
+    )
+
+    opt = init_opt_state(model)
+    step = make_train_step(model, learning_rate=FT_LR)
+    for _ in range(2):
+        step(model, opt, images, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(model, opt, images, labels)
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0.0))
+        if us:
+            per[evt.key] = per.get(evt.key, 0.0) + us
+    if not per:
+        return {"profiler": "no device time recorded"}
+    conv = sum(us for k, us in per.items() if _conv_kernel(k)) / 1e3
+    total = sum(per.values()) / 1e3
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    return {"device_ms": total, "conv_ms": conv,
+            "elementwise_bn_ms": total - conv,
+            "top_kernels": [{"name": k[:120], "ms": us / 1e3,
+                             "conv": _conv_kernel(k)} for k, us in top]}
+
+
+def _step_on(device: str, dtype: str, weights, images, labels):
+    """One train step of a fresh ``dtype`` tower from ``weights`` (the
+    Flax tree) on ``device``: (loss, gradient leaves, batch_stats)."""
+    import torch
+
+    from imageclust_tpu_torch.models.convert import (
+        flax_params_from_named,
+        resnet50_flax_from_state_dict,
+        resnet50_state_dict_from_flax,
+    )
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.models.train import (
+        init_opt_state,
+        make_train_step,
+    )
+
+    model = ResNet50V1(num_classes=weights["params"]["dense0"]["bias"].size,
+                       dtype=dtype)
+    model.load_state_dict(resnet50_state_dict_from_flax(weights))
+    model.to(device)
+    step = make_train_step(model, learning_rate=FT_LR)
+    loss = step(model, init_opt_state(model), images.to(device),
+                labels.to(device))
+    grads = flax_params_from_named(
+        {k: p.grad for k, p in model.named_parameters()})
+    stats = resnet50_flax_from_state_dict(model)["batch_stats"]
+    return float(loss), dict(_tree_leaves(grads)), dict(_tree_leaves(stats))
+
+
+def _tree_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k], prefix + (k,))
+    else:
+        yield "/".join(prefix), tree
+
+
+def _card_against_cpu(weights, images, labels) -> dict:
+    """The train step at batch ``FT_CHECK_BATCH`` on the card and on the
+    CPU from the same weights (the tuned tower) and batch: float32 (TF32 off) held to the
+    loss at rtol 1e-4, each gradient leaf at a relative L2 of 1e-3 and the
+    batch_stats at rtol 1e-4 of each leaf's largest magnitude; bfloat16
+    to the loss at rtol 1e-2 and each gradient leaf to a cosine >= 0.99."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        cl, cg, cs = _step_on(DEVICE, dtype, weights, images, labels)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hl, hg, hs = _step_on("cpu", dtype, weights, images, labels)
+        cpu_s = time.perf_counter() - t0
+        cg = {k: v.astype(np.float64).ravel() for k, v in cg.items()}
+        hg = {k: v.astype(np.float64).ravel() for k, v in hg.items()}
+        rel = {k: float(np.linalg.norm(cg[k] - hg[k])
+                        / max(np.linalg.norm(hg[k]), 1e-30)) for k in hg}
+        cos = {k: float(cg[k] @ hg[k] / max(
+            np.linalg.norm(cg[k]) * np.linalg.norm(hg[k]), 1e-30))
+            for k in hg}
+        if dtype == "float32":  # the CPU against itself on one thread
+            threads = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                _, og, _ = _step_on("cpu", dtype, weights, images, labels)
+            finally:
+                torch.set_num_threads(threads)
+            cpu_self = max(float(np.linalg.norm(
+                og[k].astype(np.float64).ravel() - hg[k]) / max(
+                    np.linalg.norm(hg[k]), 1e-30)) for k in hg)
+        stats = max(float(np.abs(cs[k] - hs[k]).max()
+                          / max(np.abs(hs[k]).max(), 1e-30)) for k in hs)
+        row = {"loss_card": cl, "loss_cpu": hl,
+               "loss_rel": abs(cl - hl) / abs(hl),
+               "grad_rel_l2_max": max(rel.values()),
+               "grad_rel_l2_worst_leaves": sorted(
+                   rel.items(), key=lambda kv: -kv[1])[:3],
+               "grad_cosine_min": min(cos.values()),
+               "grad_cosine_worst_leaves": sorted(
+                   cos.items(), key=lambda kv: kv[1])[:3],
+               "batch_stats_rel_max": stats, "card_s": card_s,
+               "cpu_s": cpu_s}
+        if dtype == "float32":
+            row["cpu_1_thread_rel_l2_max"] = cpu_self
+        out[dtype] = row
+        if dtype == "float32":
+            ok = (row["loss_rel"] <= 1e-4 and row["grad_rel_l2_max"] <= 1e-3
+                  and stats <= 1e-4)
+        else:
+            ok = row["loss_rel"] <= 1e-2 and row["grad_cosine_min"] >= 0.99
+        if not ok:
+            raise AssertionError(f"train step card vs CPU ({dtype}): {row}")
+    return out
+
+
+def _fixture_on_card() -> dict:
+    """The committed Orbax fixture (written by the JAX package: OCDBT,
+    zstd frames with compressed blocks) read here, bit for bit against
+    tests/data/expected.npz."""
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.utils import orbax_io
+
+    got = dict(_tree_leaves(orbax_io.restore_variables(
+        str(REPO / "tests" / "data" / "orbax_small"))))
+    with np.load(REPO / "tests" / "data" / "expected.npz") as z:
+        want = dict(z)
+    for name, arr in want.items():
+        key = name.removesuffix(".bf16bits").replace(".", "/")
+        leaf = got[key]
+        if isinstance(leaf, torch.Tensor):
+            leaf = leaf.view(torch.uint16).numpy()
+        if leaf.dtype != arr.dtype or not np.array_equal(leaf, arr):
+            raise AssertionError(f"fixture leaf {key} differs")
+    return {"leaves": len(want), "libzstd": orbax_io.libzstd_path() or None}
+
+
+def phase_finetune(card: str):
+    """Fine-tuning at full width on the card: the labelled BMPs, the
+    warm start from a seeded ONNX export, two epochs and a resume, the
+    train step against the CPU's, the tuned checkpoint served, ``cli
+    train``, and the committed Orbax fixture."""
+    tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_ft_"))
+    try:
+        return _finetune(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _finetune(card: str, tmp: Path):
+    import copy
+
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models.convert import (
+        resnet50_flax_from_state_dict,
+    )
+    from imageclust_tpu_torch.models.finetune import (
+        finetune_resnet50,
+        load_labeled_dir,
+    )
+    from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops.preprocess import preprocess_batch
+
+    fixture = _fixture_on_card()
+    data = _finetune_dir(tmp)
+    onnx = tmp / "init.onnx"
+    export_resnet50_onnx(ResNet50V1().init_random(ONNX_SEED), str(onnx))
+    out = str(tmp / "tuned" / "embedder")
+    kw = dict(batch_size=FT_BATCH, learning_rate=FT_LR, init_onnx=str(onnx),
+              device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    with _EpochLog() as log:
+        t0 = time.perf_counter()
+        model, classes, loss = finetune_resnet50(
+            str(data), out, epochs=FT_EPOCHS, **kw)
+        train_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    epochs = log.epochs()
+    if (len(epochs) != FT_EPOCHS or not epochs[-1]["loss"]
+            < epochs[0]["loss"] or not np.isfinite(loss)):
+        raise AssertionError(f"fine-tune: epochs {epochs}")
+    with _EpochLog() as log:
+        model, _, resumed_loss = finetune_resnet50(
+            str(data), out, epochs=FT_EPOCHS + 1, **kw)
+    resumed = log.epochs()
+    if (f"resuming fine-tune from epoch {FT_EPOCHS}" not in log.text()
+            or [e["epoch"] for e in resumed] != [FT_EPOCHS]):
+        raise AssertionError(f"resume: {log.text()}")
+
+    images, labels, _ = load_labeled_dir(str(data), size=224)
+    order = np.random.default_rng(1).permutation(len(images))
+    blob = preprocess_batch(torch.from_numpy(images[order[:FT_BATCH]]).to(
+        DEVICE), size=224)
+    lab = torch.from_numpy(labels[order[:FT_BATCH]]).to(DEVICE)
+    timed = copy.deepcopy(model)
+    from imageclust_tpu_torch.models.train import (
+        init_opt_state,
+        make_train_step,
+    )
+
+    opt = init_opt_state(timed)
+    step = make_train_step(timed, learning_rate=FT_LR)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(lambda: step(timed, opt, blob, lab), reps=10, warm=2)
+    step_peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    split = _train_step_profile(timed, blob, lab)
+    del timed, opt
+    torch.cuda.empty_cache()
+
+    check = _card_against_cpu(
+        resnet50_flax_from_state_dict(model),
+        blob[:FT_CHECK_BATCH].cpu(), lab[:FT_CHECK_BATCH].cpu())
+
+    emb = create_embedder(EmbedConfig(checkpoint_path=out,
+                                      num_classes=FT_CLASSES), device=DEVICE)
+    mem = create_embedder(EmbedConfig(onnx_path="", num_classes=FT_CLASSES),
+                          device=DEVICE)
+    mem.model.load_state_dict(model.state_dict())
+    sample = images[order[:FT_SERVE_N]]
+    a, b = emb.embed(sample), mem.embed(sample)
+    tag = emb.tag
+    if not (emb.weights_loaded and ":torch-ckpt-" in emb.tag
+            and a.shape == (FT_SERVE_N, FT_CLASSES)
+            and np.array_equal(a.view(np.uint32), b.view(np.uint32))):
+        raise AssertionError(f"served checkpoint differs: {emb.tag}")
+    del emb, mem
+    torch.cuda.empty_cache()
+    mk.launches = 0
+    served = phase_server(card, "resnet50",
+                          {"checkpoint_path": out,
+                           "num_classes": FT_CLASSES},
+                          ("18_images",), "server_finetuned")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "imageclust_tpu_torch.cli", "train",
+         "--images", str(data), "--out", str(tmp / "cli" / "embedder"),
+         "--epochs", "1", "--batch", str(FT_BATCH), "--device", DEVICE],
+        cwd=REPO, capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - t0
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "cli_train.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"cli train exited {proc.returncode}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if (set(line) != {"checkpoint", "classes", "final_loss"}
+            or line["classes"] != classes
+            or not np.isfinite(line["final_loss"])):
+        raise AssertionError(f"cli train: {line}")
+
+    emit({"phase": "finetune", "card": card,
+          "images": len(images), "classes": len(classes),
+          "batch": FT_BATCH, "stage_layers": list(model.stage_layers),
+          "dtype": "bfloat16", "learning_rate": FT_LR,
+          "epochs": epochs, "train_s": train_s,
+          "peak_memory_gib": peak_gib, "resumed_epochs": resumed,
+          "resumed_loss": resumed_loss,
+          "step_ms": step_ms, "step_images_per_s": FT_BATCH / step_ms * 1e3,
+          "step_peak_memory_gib": step_peak_gib, "step_split": split,
+          "card_vs_cpu": check, "served_tag": tag,
+          "served_bit_identical_images": FT_SERVE_N,
+          "server_k1_launches": served["k1"],
+          "cli_train": line, "cli_train_s": cli_s,
+          "fixture": fixture})
+    return served["k1"]
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
@@ -3335,6 +3712,7 @@ PHASES = {
     18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
     21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
     24: phase_chain, 25: phase_chain_pipeline, 26: phase_scoreboards,
+    27: phase_finetune,
 }
 
 
@@ -3410,6 +3788,7 @@ def main(argv: list[str] | None = None) -> int:
     run(24)
     run(25)
     run(26)
+    run(27)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]

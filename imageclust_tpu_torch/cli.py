@@ -7,10 +7,12 @@ from disk through ``Pipeline.run_paths``, below it reads them as uploads
 into ``Pipeline.run``. ``serve`` starts the REST service. ``export --out
 F`` writes the configured ResNet50 as a gluon-named ONNX model, ``bank
 --images DIR --out F`` writes a zero-shot label bank (one prototype per
-subdirectory), and ``models`` lists the towers. ``run``, ``serve``,
-``bank`` and ``export`` take ``--device`` (default ``cuda``; ``cpu`` runs
-without a card). The JAX CLI's other subcommands (train, verify, bench)
-are not ported yet.
+subdirectory), ``train --images DIR --out CKPT`` fine-tunes the ResNet50
+on labeled folders and writes an Orbax checkpoint that ``--set
+embed.checkpoint_path=CKPT`` serves, and ``models`` lists the towers.
+``run``, ``serve``, ``bank``, ``export`` and ``train`` take ``--device``
+(default ``cuda``; ``cpu`` runs without a card). The JAX CLI's other
+subcommands (verify, bench) are not ported yet.
 """
 
 from __future__ import annotations
@@ -142,6 +144,25 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_train(args) -> int:
+    """Fine-tune the ResNet50 embedder on labeled image folders."""
+    from imageclust_tpu_torch.models.finetune import finetune_resnet50
+
+    _, classes, loss = finetune_resnet50(
+        args.images,
+        args.out,
+        epochs=args.epochs,
+        batch_size=args.batch,
+        learning_rate=args.lr,
+        onnx_out=args.onnx_out,
+        init_onnx=args.init_onnx,
+        device=args.device,
+    )
+    print(json.dumps({"checkpoint": args.out, "classes": classes,
+                      "final_loss": loss}))
+    return 0
+
+
 def cmd_export(args) -> int:
     """Export the configured ResNet50 (its float weights, unfolded, also
     when ``embed.quantize`` is set) as a gluon-named ONNX model that
@@ -224,6 +245,21 @@ def build_parser() -> argparse.ArgumentParser:
     p_serve.add_argument("--port", type=int, default=0)
     _add_common(p_serve)
     p_serve.set_defaults(fn=cmd_serve)
+
+    p_train = sub.add_parser(
+        "train", help="fine-tune the embedder on labeled image folders")
+    p_train.add_argument("--images", required=True,
+                         help="directory of <label>/ subdirectories")
+    p_train.add_argument("--out", default="checkpoints/embedder")
+    p_train.add_argument("--epochs", type=int, default=3)
+    p_train.add_argument("--batch", type=int, default=64)
+    p_train.add_argument("--lr", type=float, default=1e-3)
+    p_train.add_argument("--onnx-out", default="",
+                         help="also export the tuned model as ONNX")
+    p_train.add_argument("--init-onnx", default="",
+                         help="warm-start backbone from an ONNX checkpoint")
+    _add_common(p_train)
+    p_train.set_defaults(fn=cmd_train)
 
     p_bank = sub.add_parser(
         "bank", help="build a zero-shot label bank from labeled image dirs")

@@ -19,6 +19,10 @@ LayerNorm rules; ``class_token`` and ``pos_embed`` carry over as they are.
 The text tower (:func:`text_state_dict_from_flax`) adds the token table:
 Embed ``embedding`` (vocab, width) -> ``weight`` as it is.
 
+:func:`resnet50_flax_from_state_dict` is the inverse for ResNet50: the
+port's weights as the Flax tree (numpy), which is what checkpoints hold, so
+a checkpoint from either package loads into either.
+
 The int8 towers' qparams trees (JAX ``quantize_resnet50`` /
 ``quantize_vit`` output, :func:`quant_resnet50_state_dict_from_jax`,
 :func:`quant_vit_state_dict_from_jax`) add the quantized leaves: an int8
@@ -39,10 +43,13 @@ import torch
 from imageclust_tpu_torch.models.resnet50 import (
     GLUON_STAGE_LAYERS,
     ResNet50V1,
+    _set_path,
 )
 from imageclust_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
-__all__ = ["resnet50_state_dict_from_flax", "vit_state_dict_from_flax",
+__all__ = ["resnet50_state_dict_from_flax", "resnet50_flax_from_state_dict",
+           "flax_params_from_named", "named_from_flax_params",
+           "vit_state_dict_from_flax",
            "text_state_dict_from_flax", "quant_resnet50_state_dict_from_jax",
            "quant_vit_state_dict_from_jax"]
 
@@ -139,6 +146,79 @@ def resnet50_state_dict_from_flax(
         ref = ResNet50V1(num_classes=num_classes, dtype="float32",
                          stage_layers=stage_layers, fold_bn=fold_bn)
     return _checked(got, ref, problems)
+
+
+def _flax_leaf(name: str, arr: np.ndarray) -> tuple[str, list[str],
+                                                     np.ndarray]:
+    """(collection, Flax path, array in Flax layout) of one ResNet50
+    ``state_dict`` entry: the inverse of :func:`_map_param` and the
+    BatchNorm statistics rule."""
+    *scope, leaf = name.split(".")
+    if leaf == "running_mean":
+        return "batch_stats", scope + ["mean"], arr
+    if leaf == "running_var":
+        return "batch_stats", scope + ["var"], arr
+    if leaf == "weight":
+        if arr.ndim == 4:  # OIHW -> HWIO
+            return "params", scope + ["kernel"], np.transpose(arr,
+                                                              (2, 3, 1, 0))
+        if arr.ndim == 2:  # Dense (out, in) -> (in, out)
+            return "params", scope + ["kernel"], arr.T
+        return "params", scope + ["scale"], arr  # BatchNorm
+    if leaf == "bias":
+        return "params", scope + ["bias"], arr
+    raise ValueError(f"{name}: unknown ResNet50 state_dict entry")
+
+
+def flax_params_from_named(named: Mapping[str, torch.Tensor]) -> dict:
+    """A ``{name: tensor}`` map over the parameters of a ResNet50 (its
+    weights, gradients, or AdamW moments) as the Flax ``params`` tree of
+    float32 numpy arrays in Flax layout."""
+    params: dict = {}
+    for name, t in named.items():
+        coll, path, arr = _flax_leaf(
+            name, t.detach().to("cpu", torch.float32).numpy())
+        if coll != "params":
+            raise ValueError(f"{name}: not a parameter")
+        _set_path(params, tuple(path), np.ascontiguousarray(arr))
+    return params
+
+
+def named_from_flax_params(params: Mapping,
+                           shapes: Mapping[str, tuple]) -> dict:
+    """The inverse of :func:`flax_params_from_named`: a Flax ``params``
+    tree as ``{name: array}`` in torch layout, held against ``shapes``
+    (each parameter's torch shape). Raises ValueError on any missing,
+    extra or mis-shaped entry."""
+    got, problems = _map_params(params)
+    for k, shape in shapes.items():
+        if k not in got:
+            problems.append(f"{k}: missing")
+        elif tuple(got[k].shape) != tuple(shape):
+            problems.append(f"{k}: shape {tuple(got[k].shape)} != "
+                            f"expected {tuple(shape)}")
+    problems += [f"{k}: unexpected" for k in got if k not in shapes]
+    if problems:
+        raise ValueError(
+            "Flax->torch conversion failed:\n  " + "\n  ".join(problems[:40]))
+    return got
+
+
+def resnet50_flax_from_state_dict(model: torch.nn.Module) -> dict:
+    """The inverse of :func:`resnet50_state_dict_from_flax`: ``model``'s
+    weights (a :class:`~.resnet50.ResNet50V1`, either layout) as the Flax
+    tree ``{"params", "batch_stats"}`` (no ``batch_stats`` when folded) of
+    float32 numpy arrays, with Flax's scope names and layouts (HWIO conv
+    kernels, (in, out) Dense). Both layout changes are transposes, so the
+    values keep their bits."""
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for name, t in model.state_dict().items():
+        coll, path, arr = _flax_leaf(
+            name, t.detach().to("cpu", torch.float32).numpy())
+        _set_path(tree[coll], tuple(path), np.ascontiguousarray(arr))
+    if not tree["batch_stats"]:
+        del tree["batch_stats"]
+    return tree
 
 
 def vit_state_dict_from_flax(variables: Mapping,

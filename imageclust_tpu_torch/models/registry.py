@@ -7,8 +7,10 @@ the 2048-d pooled features) and the ViT/SigLIP towers of
 ``vit_l14_336``, ``siglip_so400m``; the projected embedding).
 ``quantize="int8"`` builds the int8 PTQ variant of either family
 (:mod:`.quantize`, :mod:`.quantize_vit`), calibrated after any weight
-load. ``embed.onnx_path`` loads the reference's resnet50-v1-7.onnx when
-the file exists (random init, with a warning, when it does not).
+load. ``embed.checkpoint_path`` restores a tuned ResNet50 from an Orbax
+checkpoint (either package's); else ``embed.onnx_path`` loads the
+reference's resnet50-v1-7.onnx when the file exists (random init, with a
+warning, when it does not).
 
 Images arrive as one uint8 BGR (N, H, W, 3) batch. At the input size the
 ResNet50 batch goes straight into the s2d stem (raw uint8, scale and
@@ -312,12 +314,21 @@ def _quant_suffix(cfg: EmbedConfig) -> str:
 def _weights_tag(cfg: EmbedConfig, seed: int, checkpoint: str = "") -> str:
     """Embedding-cache identity. The port's random init differs from the JAX
     package's (torch.Generator vs jax.random), so its tag differs too: a
-    shared cache never mixes the two. A loaded ``checkpoint`` (ONNX or HF)
-    is fingerprinted as the JAX package does (its first MiB, size, mtime).
+    shared cache never mixes the two. An existing ``embed.checkpoint_path``
+    (Orbax) is fingerprinted as the JAX package does (``ckpt-`` and the
+    sha256 of its path, size and mtime), whichever tower is built; else a
+    loaded ``checkpoint`` (ONNX or HF) is (its first MiB, size, mtime).
     An int8 tower adds the JAX package's ``:{quantize}-{calib_method}``:
     its embeddings differ from the float tower's, and the calibration
     statistic changes them."""
     q = _quant_suffix(cfg)
+    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        # JAX registry.py:583-588: path, size and mtime of the checkpoint
+        st = os.stat(cfg.checkpoint_path)
+        fp = hashlib.sha256(
+            f"{cfg.checkpoint_path}:{st.st_size}:{int(st.st_mtime)}".encode()
+        ).hexdigest()[:12]
+        return f"{cfg.model}:{cfg.output}{q}:torch-ckpt-{fp}"
     if checkpoint:
         h = hashlib.sha256()
         with open(checkpoint, "rb") as fh:
@@ -329,20 +340,33 @@ def _weights_tag(cfg: EmbedConfig, seed: int, checkpoint: str = "") -> str:
 
 
 def _build_resnet50(cfg: EmbedConfig, seed: int):
-    """ResNet50 with the ONNX weights at ``embed.onnx_path`` when the file
-    exists (JAX registry.py:418-434), else seeded random init. Returns
-    (spec, model, pooled, loaded path or "")."""
+    """ResNet50 with the Orbax checkpoint at ``embed.checkpoint_path`` (a
+    tuned tower, ``cfg.num_classes`` wide) when it exists, else the ONNX
+    weights at ``embed.onnx_path`` when that file exists (JAX
+    registry.py:418-434), else seeded random init. Returns (spec, model,
+    pooled, loaded path or "")."""
+    from imageclust_tpu_torch.models.convert import (
+        resnet50_flax_from_state_dict,
+        resnet50_state_dict_from_flax,
+    )
     from imageclust_tpu_torch.models.resnet50 import load_onnx_params
+    from imageclust_tpu_torch.utils.checkpoint import restore_variables
 
-    if cfg.checkpoint_path:
-        raise NotImplementedError(
-            "embed.checkpoint_path (Orbax) is not ported yet (ROADMAP.md "
-            "queue 1, item 14)")
     model = ResNet50V1(num_classes=cfg.num_classes, dtype=cfg.dtype,
                        norm_dtype=cfg.norm_dtype,
                        stem_mode="s2d_raw" if cfg.s2d_stem else "standard")
     loaded = ""
-    if cfg.onnx_path and os.path.exists(cfg.onnx_path):
+    if cfg.checkpoint_path and os.path.exists(cfg.checkpoint_path):
+        # the fresh model is the template: a head of another width or a
+        # missing tensor raises, naming the leaf
+        restored = restore_variables(cfg.checkpoint_path,
+                                     resnet50_flax_from_state_dict(model))
+        model.load_state_dict(resnet50_state_dict_from_flax(
+            restored, stage_layers=model.stage_layers,
+            num_classes=cfg.num_classes, fold_bn=False))
+        loaded = cfg.checkpoint_path
+        log.info("restored checkpoint %s", cfg.checkpoint_path)
+    elif cfg.onnx_path and os.path.exists(cfg.onnx_path):
         model.load_state_dict(load_onnx_params(cfg.onnx_path, model))
         loaded = cfg.onnx_path
         log.info("loaded ONNX weights from %s", cfg.onnx_path)
@@ -368,11 +392,9 @@ def _build_vit(name: str, cfg: EmbedConfig, seed: int):
     CLIP vision checkpoint at ``embed.onnx_path`` when it is a ``.npz``,
     ``.pt`` or ``.bin`` file (JAX registry.py:499-571). The config's
     default ``.onnx`` path is skipped quietly; any other path that cannot
-    be loaded is warned about. Returns (spec, model, loaded path or "")."""
-    if cfg.checkpoint_path:
-        raise NotImplementedError(
-            "embed.checkpoint_path (Orbax) is not ported yet (ROADMAP.md "
-            "queue 1, item 14)")
+    be loaded is warned about. ``embed.checkpoint_path`` does not load
+    weights here, as in the JAX package (registry.py:499-520); it only
+    enters the cache tag. Returns (spec, model, loaded path or "")."""
     vcfg = VIT_CONFIGS[name]
     model = VisionTransformer(vcfg, dtype=cfg.dtype, norm_dtype=cfg.norm_dtype)
     model.init_random(seed)

@@ -13,7 +13,9 @@ one: convolutions take their input and kernel in ``dtype``; BatchNorm
 ``norm_dtype`` (Flax's ``_normalize`` promotion); the residual is added in
 the body's dtype; the pooled mean is taken in float32, rounded to the
 activation dtype (``jnp.mean`` of a bf16 array) and returned as float32;
-``dense0`` runs in float32. Convolutions are plain ``F.conv2d`` (cuDNN on
+``dense0`` runs in float32. ``forward(..., train=True)`` normalises with
+the batch statistics and updates the running ones as Flax does (see
+:class:`_BatchNorm`). Convolutions are plain ``F.conv2d`` (cuDNN on
 the card): the JAX package left them to XLA, so they are not TPU kernels.
 
 Parameter names follow the Flax tree (``conv0``, ``bn0``,
@@ -40,6 +42,7 @@ __all__ = ["ResNet50V1", "BottleneckV1", "fold_bn_variables",
 GLUON_STAGE_LAYERS = (3, 4, 6, 3)
 STAGE_WIDTHS = (64, 128, 256, 512)  # bottleneck (inner) widths
 _EPS = 1e-5
+_MOMENTUM = 0.9  # Flax BatchNorm(momentum=0.9)
 
 
 class _Conv(nn.Module):
@@ -61,8 +64,16 @@ class _Conv(nn.Module):
 
 
 class _BatchNorm(nn.Module):
-    """Inference BatchNorm over channel dim 1: float32 math, output in
-    ``norm_dtype`` (Flax ``nn.BatchNorm(use_running_average=True)``)."""
+    """BatchNorm over channel dim 1 with Flax's numerics
+    (``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``, ``use_fast_variance``):
+    float32 math, output in ``norm_dtype``.
+
+    ``train=False`` normalises with the running statistics. ``train=True``
+    normalises with the batch's: ``mean = E[x]`` and the biased ``var =
+    max(E[x^2] - mean^2, 0)`` over N, H and W in float32, and moves the
+    running statistics to ``0.9 * running + 0.1 * batch`` outside
+    autograd. ``F.batch_norm(training=True)`` would put the unbiased
+    variance into the running buffer."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -71,10 +82,23 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
-    def forward(self, x: torch.Tensor, norm_dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, norm_dtype: torch.dtype,
+                train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + _EPS) * self.weight
-        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        xf = x.float()
+        if train:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp_min(
+                (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    _MOMENTUM * self.running_mean + (1 - _MOMENTUM) * mean)
+                self.running_var.copy_(
+                    _MOMENTUM * self.running_var + (1 - _MOMENTUM) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + _EPS) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(norm_dtype)
 
 
@@ -98,15 +122,17 @@ class BottleneckV1(nn.Module):
             self.bn2 = _BatchNorm(out_ch)
             self.bn_proj = _BatchNorm(out_ch) if project else None
 
-    def _bn(self, name: str, y, norm_dtype):
-        return y if self.fold_bn else getattr(self, name)(y, norm_dtype)
+    def _bn(self, name: str, y, norm_dtype, train: bool):
+        return (y if self.fold_bn
+                else getattr(self, name)(y, norm_dtype, train))
 
-    def forward(self, x, dtype, norm_dtype):
-        y = self._bn("bn0", self.conv0(x, dtype), norm_dtype).relu()
-        y = self._bn("bn1", self.conv1(y, dtype), norm_dtype).relu()
-        y = self._bn("bn2", self.conv2(y, dtype), norm_dtype)
+    def forward(self, x, dtype, norm_dtype, train: bool = False):
+        y = self._bn("bn0", self.conv0(x, dtype), norm_dtype, train).relu()
+        y = self._bn("bn1", self.conv1(y, dtype), norm_dtype, train).relu()
+        y = self._bn("bn2", self.conv2(y, dtype), norm_dtype, train)
         if self.conv_proj is not None:
-            x = self._bn("bn_proj", self.conv_proj(x, dtype), norm_dtype)
+            x = self._bn("bn_proj", self.conv_proj(x, dtype), norm_dtype,
+                         train)
         return (y + x.to(y.dtype)).relu()
 
 
@@ -169,7 +195,13 @@ class ResNet50V1(nn.Module):
     # -- forward ---------------------------------------------------------------
 
     def forward(self, x: torch.Tensor, return_features: bool = False,
-                stem_mode: str | None = None):
+                stem_mode: str | None = None, train: bool = False):
+        """Logits (and the pooled features with ``return_features``).
+        ``train=True`` normalises with batch statistics and updates the
+        running ones (JAX resnet50.py:130-190); it needs BatchNorm, so the
+        folded layout raises."""
+        if train and self.fold_bn:
+            raise ValueError("fold_bn is an inference layout; train needs BN")
         mode = stem_mode or self.stem_mode
         if mode == "s2d_raw":
             x = self._stem_s2d(x)
@@ -178,12 +210,12 @@ class ResNet50V1(nn.Module):
         else:
             raise ValueError(f"unknown stem_mode {mode!r}")
         if not self.fold_bn:
-            x = self.bn0(x, self.norm_dtype)
+            x = self.bn0(x, self.norm_dtype, train)
         x = F.max_pool2d(x.relu(), 3, 2, padding=1)  # -inf padding, as JAX
         for si, n_blocks in enumerate(self.stage_layers):
             for bi in range(n_blocks):
                 x = getattr(self, f"stage{si + 1}_block{bi}")(
-                    x, self.dtype, self.norm_dtype)
+                    x, self.dtype, self.norm_dtype, train)
         # jnp.mean of the activation: f32 accumulation, result in its dtype
         pooled = x.float().mean(dim=(2, 3)).to(x.dtype).float()
         logits = F.linear(pooled, self.dense0.weight, self.dense0.bias)

@@ -1,10 +1,17 @@
-"""Per-image embedding cache.
+"""Checkpoint/resume (SURVEY.md §5).
 
-:class:`EmbeddingCache` — a content-addressed store of per-image embedding
-vectors, so re-submitted images skip the forward pass entirely (the
-reference's ``CacheDir`` name promised this but never cached embeddings,
-embeddings.go:19). The JAX package's Orbax checkpoints have no counterpart
-in the port yet.
+The reference has no checkpointing at all — the only persistence is the
+per-job Rekognition label cache (rekognition.go:119-131). Here:
+
+* embedder/train-state checkpoints in Orbax's layout
+  (:func:`save_variables` / :func:`restore_variables`, from
+  :mod:`.orbax_io`: no Orbax needed), interchangeable with the JAX
+  package's, e.g. a fine-tuned tower from
+  :mod:`imageclust_tpu_torch.models.finetune`,
+* :class:`EmbeddingCache` — a content-addressed store of per-image embedding
+  vectors, so re-submitted images skip the forward pass entirely (the
+  reference's ``CacheDir`` name promised this but never cached embeddings,
+  embeddings.go:19).
 """
 
 from __future__ import annotations
@@ -14,7 +21,12 @@ import os
 
 import numpy as np
 
-__all__ = ["EmbeddingCache"]
+from imageclust_tpu_torch.utils.orbax_io import (
+    restore_variables,
+    save_variables,
+)
+
+__all__ = ["save_variables", "restore_variables", "EmbeddingCache"]
 
 
 class EmbeddingCache:

@@ -812,3 +812,111 @@ def test_chain_gram_on_card_sums_in_float64(cuda):
     assert got.dtype == torch.float32
     want = (a.double() @ b.double().T).float()
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-6)
+
+
+def _small_resnet(dtype="float32", classes=8, seed=0):
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+
+    return ResNet50V1(num_classes=classes, dtype=dtype,
+                      stage_layers=(1, 1, 1, 1)).init_random(seed)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One float32 train step (TF32 off) from the same weights and batch:
+    loss at rtol 1e-4, each gradient at a relative L2 of 1e-3, the running
+    statistics at rtol 1e-4 of each buffer's largest magnitude, and the
+    AdamW-updated weights close."""
+    import copy
+
+    from imageclust_tpu_torch.models.train import (
+        init_opt_state,
+        make_train_step,
+    )
+
+    gen = torch.Generator().manual_seed(12)
+    images = torch.rand((8, 3, 64, 64), generator=gen)
+    labels = torch.randint(0, 8, (8,), generator=gen)
+    host = _small_resnet()
+    card = copy.deepcopy(host).to(cuda)
+    losses = []
+    for model, dev in ((host, "cpu"), (card, cuda)):
+        step = make_train_step(model, learning_rate=1e-3)
+        losses.append(float(step(model, init_opt_state(model),
+                                 images.to(dev), labels.to(dev))))
+    assert abs(losses[1] - losses[0]) <= 1e-4 * abs(losses[0])
+    hp = dict(host.named_parameters())
+    for name, p in card.named_parameters():
+        g, want = p.grad.cpu().double(), hp[name].grad.double()
+        assert (g - want).norm() <= 1e-3 * max(float(want.norm()), 1e-30), \
+            name
+    hb = dict(host.named_buffers())
+    for name, buf in card.named_buffers():
+        want = hb[name]
+        torch.testing.assert_close(buf.cpu(), want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A tower trained on the card, saved in Orbax's layout, served back
+    through ``embed.checkpoint_path``: the same weights and bit-identical
+    embeddings."""
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder, registry
+    from imageclust_tpu_torch.models.convert import (
+        resnet50_flax_from_state_dict,
+    )
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.models.train import (
+        init_opt_state,
+        make_train_step,
+    )
+    from imageclust_tpu_torch.utils.checkpoint import save_variables
+
+    model = _small_resnet("bfloat16", seed=3).to(cuda)
+    step = make_train_step(model)
+    gen = torch.Generator().manual_seed(2)
+    step(model, init_opt_state(model),
+         torch.rand((4, 3, 64, 64), generator=gen).to(cuda),
+         torch.randint(0, 8, (4,), generator=gen).to(cuda))
+    ck = str(tmp_path / "ck")
+    save_variables(ck, resnet50_flax_from_state_dict(model))
+
+    class Small(ResNet50V1):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, stage_layers=(1, 1, 1, 1), **kwargs)
+
+    orig = registry.ResNet50V1
+    registry.ResNet50V1 = Small
+    try:
+        emb = create_embedder(EmbedConfig(checkpoint_path=ck, num_classes=8),
+                              device=cuda)
+        mem = create_embedder(EmbedConfig(onnx_path="", num_classes=8),
+                              device=cuda)
+    finally:
+        registry.ResNet50V1 = orig
+    mem.model.load_state_dict(model.state_dict())
+    for k, v in model.state_dict().items():
+        assert torch.equal(emb.model.state_dict()[k], v), k
+    u8 = np.random.default_rng(0).integers(0, 256, (16, 224, 224, 3),
+                                           np.uint8)
+    a, b = emb.embed(u8), mem.embed(u8)
+    assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
+    assert ":torch-ckpt-" in emb.tag
+
+
+def test_orbax_fixture_reads_on_card_machine(cuda):
+    """The committed fixture (the JAX package's OCDBT layout with zstd
+    compressed blocks) decodes here: the card's machine has a libzstd."""
+    from pathlib import Path
+
+    from imageclust_tpu_torch.utils import orbax_io
+
+    data = Path(__file__).resolve().parent / "data"
+    got = orbax_io.restore_variables(str(data / "orbax_small"))
+    with np.load(data / "expected.npz") as z:
+        np.testing.assert_array_equal(
+            got["params"]["dense0"]["kernel"], z["params.dense0.kernel"])
+        np.testing.assert_array_equal(
+            got["params"]["conv0"]["kernel"].view(torch.uint16).numpy(),
+            z["params.conv0.kernel.bf16bits"])
+    assert orbax_io.libzstd_path()

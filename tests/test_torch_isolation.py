@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, no Flax, nothing of the JAX
-package, anywhere in ``imageclust_tpu_torch/`` or ``chip_smoke.py``."""
+"""The PyTorch port stands alone: no JAX, no Flax, no optax, Orbax or
+tensorstore, nothing of the JAX package, anywhere in
+``imageclust_tpu_torch/`` or ``chip_smoke.py``."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "imageclust_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "imageclust_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+             "imageclust_tpu")
 
 torch.set_num_threads(2)
 
@@ -50,7 +52,9 @@ def test_port_has_modules():
                 "data/loader.py", "models/text.py", "models/tokenizer.py",
                 "labels/zero_shot.py", "labels/text_fusion.py",
                 "cluster/chain.py", "cluster/agreement.py",
-                "cluster/quality.py"):
+                "cluster/quality.py", "utils/orbax_io.py",
+                "utils/checkpoint.py", "models/train.py",
+                "models/finetune.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
@@ -173,6 +177,58 @@ def test_import_and_cluster_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     clusters, merges = map(int, proc.stdout.split())
     assert merges == 20 - 5 and clusters >= 1  # target 5 under (3, 6)
+
+
+def test_finetune_and_serve_checkpoint_without_jax(tmp_path):
+    """A tiny fine-tune on BMPs, its Orbax checkpoint restored through
+    ``embed.checkpoint_path``, with JAX, Orbax, tensorstore, cv2 and PIL
+    absent."""
+    code = (
+        "import sys, os, json\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'tensorstore', 'imageclust_tpu', 'cv2', 'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "from imageclust_tpu_torch.models import finetune, registry\n"
+        "from imageclust_tpu_torch.models.resnet50 import ResNet50V1\n"
+        "from imageclust_tpu_torch.config import EmbedConfig\n"
+        "rng = np.random.default_rng(0)\n"
+        "def bmp(img):\n"
+        "    h, w, _ = img.shape\n"
+        "    row = (w * 3 + 3) & ~3\n"
+        "    body = b''.join(img[y].tobytes().ljust(row, b'\\0') "
+        "for y in range(h - 1, -1, -1))\n"
+        "    import struct\n"
+        "    return (b'BM' + struct.pack('<IHHI', 54 + len(body), 0, 0, 54)"
+        " + struct.pack('<IiiHHIIiiII', 40, w, h, 1, 24, 0, len(body), "
+        "0, 0, 0, 0) + body)\n"
+        "for c, col in (('a', (0, 0, 200)), ('b', (0, 200, 0))):\n"
+        "    os.makedirs('d/' + c)\n"
+        "    for i in range(4):\n"
+        "        img = np.full((32, 32, 3), col, np.uint8)\n"
+        "        open(f'd/{c}/{i}.bmp', 'wb').write(bmp(img))\n"
+        "model, classes, loss = finetune.finetune_resnet50("
+        "'d', 'ck/emb', epochs=1, batch_size=4, stage_layers=(1, 1, 1, 1),"
+        " input_size=32, device='cpu')\n"
+        "class Small(ResNet50V1):\n"
+        "    def __init__(self, *a, **k):\n"
+        "        super().__init__(*a, stage_layers=(1, 1, 1, 1), **k)\n"
+        "registry.ResNet50V1 = Small\n"
+        "emb = registry.create_embedder(EmbedConfig("
+        "checkpoint_path='ck/emb', num_classes=2), device='cpu')\n"
+        "assert emb.weights_loaded and ':torch-ckpt-' in emb.tag\n"
+        "for k, v in model.state_dict().items():\n"
+        "    assert torch.equal(emb.model.state_dict()[k], v), k\n"
+        "print(classes, sorted(m for m in ('cv2', 'PIL', 'jax', 'orbax') "
+        "if sys.modules.get(m) is not None))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "['a', 'b'] []"
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

@@ -243,14 +243,52 @@ class TestErrors:
 
     @pytest.mark.parametrize("cfg,exc", [
         (EmbedConfig(model="vit_b32", quantize="int8",
-                     checkpoint_path="ckpt"), NotImplementedError),
-        (EmbedConfig(quantize="int8", checkpoint_path="ckpt"),
-         NotImplementedError),
+                     checkpoint_path="ckpt"), None),
+        (EmbedConfig(quantize="int8", checkpoint_path="ckpt"), None),
         (EmbedConfig(model="nope"), ValueError),
         (EmbedConfig(quantize="fp4"), ValueError)])
-    def test_unported_towers_raise(self, cfg, exc):
-        with pytest.raises(exc):
-            create_embedder(cfg, device="cpu")
+    def test_unported_towers_raise(self, cfg, exc, tmp_path, monkeypatch):
+        """Unknown towers and modes raise. An int8 tower with an Orbax
+        ``checkpoint_path`` builds (small towers patched into the
+        registry): a ResNet50 restores the checkpoint, which a tuned head
+        of 16 classes shows, and calibrates on it; a ViT loads no weights
+        from it, as in the JAX package."""
+        if exc is not None:
+            with pytest.raises(exc):
+                create_embedder(cfg, device="cpu")
+            return
+        import dataclasses
+
+        from imageclust_tpu_torch.models import registry, vit
+        from imageclust_tpu_torch.models.convert import (
+            resnet50_flax_from_state_dict,
+        )
+        from imageclust_tpu_torch.utils.checkpoint import save_variables
+
+        class Small(ResNet50V1):
+            def __init__(self, *args, **kwargs):
+                super().__init__(*args, stage_layers=_LAYERS, **kwargs)
+
+        monkeypatch.setattr(registry, "ResNet50V1", Small)
+        c = vit.VIT_CONFIGS["vit_b32"]
+        monkeypatch.setitem(vit.VIT_CONFIGS, "vit_b32", vit.ViTConfig(
+            **dict(c.__dict__, width=32, depth=2, heads=4,
+                   image_size=c.patch * 4)))
+        tuned = Small(num_classes=16).init_random(5)
+        ck = str(tmp_path / cfg.checkpoint_path)
+        save_variables(ck, resnet50_flax_from_state_dict(tuned))
+        emb = create_embedder(dataclasses.replace(
+            cfg, checkpoint_path=ck, num_classes=16), device="cpu")
+        assert ":int8-" in emb.tag and ":torch-ckpt-" in emb.tag
+        assert emb.weights_loaded == (cfg.model == "resnet50")
+        if cfg.model == "resnet50":
+            assert torch.equal(emb.model.dense0.weight,
+                               tuned.dense0.weight)
+        u8 = np.random.default_rng(0).integers(
+            0, 256, (3, emb.spec.input_size, emb.spec.input_size, 3),
+            np.uint8)
+        out = emb.embed(u8)
+        assert out.shape == (3, emb.spec.dim) and np.isfinite(out).all()
 
     @pytest.mark.parametrize("backend", ["rekognition"])
     def test_unported_labelers_raise(self, towers, backend):

@@ -388,11 +388,25 @@ class TestRegistry:
         assert not emb.weights_loaded
         assert any("not loaded" in r.getMessage() for r in caplog.records)
 
-    def test_orbax_checkpoint_not_ported(self, tiny_towers):
-        with pytest.raises(NotImplementedError, match="checkpoint_path"):
-            create_embedder(EmbedConfig(model="vit_b32",
-                                        checkpoint_path="ckpt"),
-                            device="cpu")
+    def test_orbax_checkpoint_not_ported(self, tiny_towers, tmp_path):
+        """``embed.checkpoint_path`` loads no ViT weights, as in the JAX
+        package (registry.py:499-520): the tower is the seeded init, and
+        the cache tag is the JAX tag's ``ckpt-`` fingerprint under the
+        port's ``torch-`` prefix."""
+        from imageclust_tpu_torch.utils.checkpoint import save_variables
+
+        ck = str(tmp_path / "ckpt")
+        save_variables(ck, {"a": np.zeros(1, np.float32)})
+        cfg = dict(model="vit_b32", checkpoint_path=ck, batch_size=4)
+        emb = create_embedder(EmbedConfig(**cfg), device="cpu")
+        plain = create_embedder(EmbedConfig(model="vit_b32", batch_size=4),
+                                device="cpu")
+        jemb = jax_create(JaxEmbedConfig(**cfg, cache=False))
+        assert not emb.weights_loaded and not jemb.weights_loaded
+        for k, v in plain.model.state_dict().items():
+            assert torch.equal(emb.model.state_dict()[k], v), k
+        assert ":ckpt-" in jemb.tag
+        assert emb.tag == jemb.tag.replace(":ckpt-", ":torch-ckpt-")
 
 
 def _jax_and_port_embedders(name, batch=8):
