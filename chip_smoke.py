@@ -13,7 +13,7 @@ line and raises on any failure:
    at n in {128, 256, 1024, 4096}: random and integer-grid (tied) matrices,
    random active/size/birth patterns, ``do_update`` 0 and 1, an
    all-infeasible case — bit-identical (D, dmin, bhi, blo) required; then
-   whole exact runs at n in {128, 1024, 4096} on normal, integer-grid and
+   whole exact runs at n in {128, 1024, 2048} on normal, integer-grid and
    d = 2 integer-grid (heavy ties) features, K1's loop steps (its per-row
    cache, the fused bookkeeping) against the twin steps on a copy of the
    state: (dmin, bhi, blo) bit-identical at every step, final D, log,
@@ -140,8 +140,8 @@ line and raises on any failure:
     (seeded Gaussian features, the JAX spot check's shape) the same
     partition and dropped set as the exact engine on K1 under the centroid
     rule; at n = 20,000, d = 64 the sequential chain (CUDA graph replays)
-    and the rounds on the CPU give the card's rounds' partition, with the
-    sequential chain's steps per second; the rounds on phase 8's 100,000 x
+    gives the card's rounds' partition, with its steps per second, and on
+    the first 10,000 rows the rounds on the CPU give the card's; the rounds on phase 8's 100,000 x
     1000 features: sizes in [3, 6], no image lost, the caller's features
     unchanged, wall s, recompute and merge rounds with their seconds, the
     loop's peak device memory, and the agreement (ARI, NMI, pair recall and
@@ -178,6 +178,15 @@ line and raises on any failure:
     ``embed.checkpoint_path`` bit-identical to the in-memory tuned tower;
     an 18-image server request from the checkpoint with its K1 launches;
     one ``cli train`` subprocess for one epoch and its JSON line.
+28. the mesh (``core/mesh.py``, ``parallel/``): ranks started by
+    ``launch_processes(device="cuda")``, (a) one rank over NCCL, (b) two
+    ranks sharing the card over gloo, each against the single card: the
+    exact engine at 4096 x 1000, the bucketed engine at 100,000 x 1000
+    under both rules (K2 and K3 on every rank), over gloo also the
+    chain's rounds at 4096 x 512, the sequential chain at 2000 x 64,
+    ``run_paths`` on 6000 BMPs and the full-width train step at batch 64
+    at (data=2, model=1) and (data=1, model=2), at seeded and tuned
+    weights, each beside the float64 gradient.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -290,7 +299,12 @@ BANK_IMAGES_PER_LABEL = 4  # phases 22-23: BMPs per label directory
 # on phase 8's features
 CHAIN_GREEDY_N, CHAIN_GREEDY_D = 4096, 512
 CHAIN_SEQ_N, CHAIN_SEQ_D = 20_000, 64
+CHAIN_CPU_N = 10_000  # the rounds on the card against the CPU, at CHAIN_SEQ_D
 CHAIN_STREAM_N = 100_000  # phase 25: run_stream, BASELINE config 3's size
+# phases 18, 23 and 25: the streamed jobs name their largest clusters only
+# (naming.max_clusters; the default 50,000 kept the fake namer on the host
+# for 23-56 s a job)
+STREAM_NAMING_BUDGET = 5_000
 # phase 26: the scoreboards' sizes (residency: tests/test_agreement.py's
 # size, where its floors were set, and BASELINE.md round 5's `bench.py
 # --quality` size) and tests/test_agreement.py's floors. At 100,000 x 256
@@ -509,7 +523,7 @@ def phase_k1(card: str):
     # the loop's calls: the kernel's cached steps against the twin steps
     # on a copy of the state, over whole exact runs
     sequences = []
-    for n in (128, 1024, 4096):
+    for n in (128, 1024, 2048):  # phase 3 runs the engine at 4096
         for data, rule in (("normal", "centroid"), ("integer_grid", "centroid"),
                            ("grid_d2", "lance_williams")):
             sequences.append(_k1_sequence(n, data, rule))
@@ -2241,6 +2255,7 @@ def phase_stream_big(card: str):
         ClusterConfig,
         EmbedConfig,
         LabelConfig,
+        NamingConfig,
     )
     from imageclust_tpu_torch.pipeline import Pipeline
 
@@ -2260,7 +2275,8 @@ def phase_stream_big(card: str):
 
     cfg = AppConfig(labels=LabelConfig(backend="none"),
                     embed=EmbedConfig(model="vit_b32"),
-                    cluster=ClusterConfig(feature_dtype="bfloat16"))
+                    cluster=ClusterConfig(feature_dtype="bfloat16"),
+                    naming=NamingConfig(max_clusters=STREAM_NAMING_BUDGET))
     work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_big_"))
     try:
         pipeline = Pipeline(cfg, device=DEVICE)
@@ -2728,6 +2744,7 @@ def phase_stream_joint(card: str):
         ClusterConfig,
         EmbedConfig,
         LabelConfig,
+        NamingConfig,
     )
     from imageclust_tpu_torch.pipeline import Pipeline
 
@@ -2755,7 +2772,8 @@ def phase_stream_joint(card: str):
         labels=LabelConfig(backend="zero_shot", fusion="text",
                            text_checkpoint_path=str(_clip_text_checkpoint())),
         embed=EmbedConfig(model="vit_b32"),
-        cluster=ClusterConfig(feature_dtype="bfloat16"))
+        cluster=ClusterConfig(feature_dtype="bfloat16"),
+        naming=NamingConfig(max_clusters=STREAM_NAMING_BUDGET))
     work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_joint_"))
     saved = os.environ.get("IMAGECLUST_LABEL_BANK")
     os.environ["IMAGECLUST_LABEL_BANK"] = str(bank)
@@ -3094,28 +3112,36 @@ def phase_chain(card: str):
                          log64[:m64].cpu().numpy(), 6)}}
     del xt, g32, g64, err
 
-    # the sequential chain (CUDA graph replays) against the rounds, card
-    # and CPU
+    # the sequential chain (CUDA graph replays) against the rounds on the
+    # card, and the rounds on the card against the CPU on the first
+    # CHAIN_CPU_N rows
     x = np.random.default_rng(24).standard_normal(
         (CHAIN_SEQ_N, CHAIN_SEQ_D)).astype(np.float32)
     runs = {}
-    for impl, dev in (("rnn", DEVICE), ("seq", DEVICE), ("rnn", "cpu")):
+    for impl, dev, n in (("rnn", DEVICE, CHAIN_SEQ_N),
+                         ("seq", DEVICE, CHAIN_SEQ_N),
+                         ("rnn", DEVICE, CHAIN_CPU_N),
+                         ("rnn", "cpu", CHAIN_CPU_N)):
         with _chain_impl(impl), _chain_timed() as rec:
             t0 = time.perf_counter()
-            res = constrained_ward_chain(x, min_size=3, max_size=6,
+            res = constrained_ward_chain(x[:n], min_size=3, max_size=6,
                                          reassign_dropped=False, device=dev)
             wall = time.perf_counter() - t0
-        runs[f"{impl}_{dev}"] = (res, wall, dict(rec))
-    ref = runs[f"rnn_{DEVICE}"][0]
+        runs[(impl, dev, n)] = (res, wall, dict(rec))
     for key, (res, _, _) in runs.items():
+        ref = runs[("rnn", DEVICE, key[2])][0]
         if not (_member_sets(res) == _member_sets(ref)
                 and set(res.dropped) == set(ref.dropped)):
-            raise AssertionError(f"chain {key} at {CHAIN_SEQ_N} x "
-                                 f"{CHAIN_SEQ_D}: partition != rnn on the "
-                                 "card")
+            raise AssertionError(f"chain {key[0]} on {key[1]} at {key[2]} "
+                                 f"x {CHAIN_SEQ_D}: partition != rnn on "
+                                 "the card")
+    runs = {f"{impl}_{dev}" + ("" if n == CHAIN_SEQ_N else f"_{n}"): v
+            for (impl, dev, n), v in runs.items()}
+    ref = runs[f"rnn_{DEVICE}"][0]
     seq, seq_wall, seq_rec = runs[f"seq_{DEVICE}"]
     seq_vs_rnn = {
-        "n": CHAIN_SEQ_N, "d": CHAIN_SEQ_D, "identical_partitions": True,
+        "n": CHAIN_SEQ_N, "d": CHAIN_SEQ_D, "cpu_n": CHAIN_CPU_N,
+        "identical_partitions": True,
         "wall_s": {k: v[1] for k, v in runs.items()},
         "loop_s": {k: v[2]["loop_s"] for k, v in runs.items()},
         "rnn_card_stats": ref.loop_stats,
@@ -3201,6 +3227,7 @@ def phase_chain_pipeline(card: str):
         ClusterConfig,
         EmbedConfig,
         LabelConfig,
+        NamingConfig,
     )
     from imageclust_tpu_torch.pipeline import Pipeline
 
@@ -3234,7 +3261,8 @@ def phase_chain_pipeline(card: str):
 
     cfg = AppConfig(labels=LabelConfig(backend="none"),
                     embed=EmbedConfig(model="vit_b32"),
-                    cluster=ClusterConfig(scale_engine="chain"))
+                    cluster=ClusterConfig(scale_engine="chain"),
+                    naming=NamingConfig(max_clusters=STREAM_NAMING_BUDGET))
     work = Path(tempfile.mkdtemp(prefix="imageclust_smoke_stream_chain_"))
     try:
         pipeline = Pipeline(cfg, device=DEVICE)
@@ -3702,6 +3730,676 @@ def _finetune(card: str, tmp: Path):
     return served["k1"]
 
 
+# -- phase 28: the mesh on the card ---------------------------------------------
+#
+# The parent process computes the single-card references, then starts the
+# ranks with launch_processes(device="cuda"): (a) one rank over NCCL, (b) two
+# ranks sharing the card over gloo. Each rank runs mesh_rank(), which pickles
+# its results to $IMAGECLUST_SMOKE_OUT/mesh_<part>_rank<r>.pkl; the parent
+# holds them against the references.
+
+MESH_SEQ_N, MESH_SEQ_D = 2000, 64  # phase 28: the sequential chain's job
+MESH_TRAIN_BATCH = 64              # phase 28: the full-width train step
+MESH_LAUNCH_S = {"nccl": 300.0, "gloo": 600.0}  # each launch's time limit
+
+
+def _mesh_inputs():
+    """Every input of phase 28, made from seeds (each rank makes its own)."""
+    import numpy as np
+
+    return {
+        "exact": {data: _loop_features(ENGINE_N, data, 1000, 7)
+                  for data in ("integer_grid", "gaussian_blobs")},
+        "chain_rnn": np.random.default_rng(0).standard_normal(
+            (CHAIN_GREEDY_N, CHAIN_GREEDY_D)).astype(np.float32),
+        "chain_seq": np.random.default_rng(28).standard_normal(
+            (MESH_SEQ_N, MESH_SEQ_D)).astype(np.float32),
+    }
+
+
+def _big_features(dev):
+    """Phase 8's 100,000 x 1000 features, on ``dev``."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    return torch.randn((BIG_N, BIG_D), generator=gen, device=dev)
+
+
+def _grad_f64(state: dict, images, labels) -> dict:
+    """The gradient of the train step's loss in float64 throughout, from
+    ``state``'s weights on the card: every convolution, BatchNorm's batch
+    statistics (the step's formula, ``max(E[x^2] - mean^2, 0)``), the pooled
+    mean, the head and the softmax cross entropy. The exact gradient that
+    phase 28 measures the float32 steps' distances from."""
+    import torch
+    import torch.nn.functional as F
+
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+
+    model = ResNet50V1(num_classes=FT_CLASSES, dtype="float32")
+    model.load_state_dict(state)
+    model = model.double().to(DEVICE)
+
+    def conv(mod, x):
+        return F.conv2d(x, mod.weight, mod.bias, stride=mod.stride,
+                        padding=mod.padding)
+
+    def bn(mod, x):
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0)
+        mul = torch.rsqrt(var + 1e-5) * mod.weight
+        return ((x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+                + mod.bias.view(1, -1, 1, 1))
+
+    x = images.to(DEVICE, torch.float64)
+    x = F.max_pool2d(bn(model.bn0, conv(model.conv0, x)).relu(), 3, 2,
+                     padding=1)
+    for si, n_blocks in enumerate(model.stage_layers):
+        for bi in range(n_blocks):
+            blk = getattr(model, f"stage{si + 1}_block{bi}")
+            y = bn(blk.bn0, conv(blk.conv0, x)).relu()
+            y = bn(blk.bn1, conv(blk.conv1, y)).relu()
+            y = bn(blk.bn2, conv(blk.conv2, y))
+            if blk.conv_proj is not None:
+                x = bn(blk.bn_proj, conv(blk.conv_proj, x))
+            x = (y + x).relu()
+    logits = F.linear(x.mean(dim=(2, 3)), model.dense0.weight,
+                      model.dense0.bias)
+    F.cross_entropy(logits, labels.to(DEVICE).long()).backward()
+    return {k: p.grad.cpu() for k, p in model.named_parameters()}
+
+
+def _mesh_train_input(tmp: Path) -> dict:
+    """Phase 28's train step inputs, at two sets of weights: the seeded
+    tower that phase 27's fine-tune starts from, and phase 27's tuned one
+    (``finetune_resnet50`` on its labelled BMPs, two epochs at batch 64,
+    bf16); one batch, the first 64 images of phase 27's check order,
+    preprocessed; and at each set of weights the float64 gradient on that
+    batch (:func:`_grad_f64`). Written to
+    ``$IMAGECLUST_SMOKE_OUT/mesh_train.pt`` for the ranks."""
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.models.finetune import (
+        finetune_resnet50,
+        load_labeled_dir,
+    )
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.ops.preprocess import preprocess_batch
+
+    data = _finetune_dir(tmp)
+    model, _, _ = finetune_resnet50(
+        str(data), str(tmp / "tuned" / "embedder"), epochs=FT_EPOCHS,
+        batch_size=FT_BATCH, learning_rate=FT_LR, device=DEVICE)
+    images, labels, _ = load_labeled_dir(str(data), size=224)
+    pick = np.random.default_rng(1).permutation(len(images))[
+        :MESH_TRAIN_BATCH]
+    blob = preprocess_batch(torch.from_numpy(images[pick]).to(DEVICE),
+                            size=224).float().cpu()
+    labels = torch.from_numpy(labels[pick])
+    seeded = ResNet50V1(num_classes=FT_CLASSES, dtype="float32").init_random(0)
+    out = {"images": blob, "labels": labels, "weights": {}}
+    for name, tower in (("seeded", seeded), ("tuned", model)):
+        state = {k: v.detach().float().cpu()
+                 for k, v in tower.state_dict().items()}
+        out["weights"][name] = {"state": state,
+                                "grad64": _grad_f64(state, blob, labels)}
+        torch.cuda.empty_cache()
+    torch.save(out, OUT / "mesh_train.pt")
+    return out
+
+
+def _columnar(res) -> dict:
+    """What two runs of one engine must share: the merge log, and the
+    partition as (cluster id per item, dropped items)."""
+    import numpy as np
+
+    return {"merges": np.asarray(res.merges), "assign": res.assignments(),
+            "dropped": sorted(int(i) for i in (
+                res._dropped_idx if res._dropped_idx is not None else []))
+            if res._members is not None else sorted(res.dropped)}
+
+
+def _gloo_cuda_probe(mesh) -> dict:
+    """Raw torch.distributed collectives under gloo on CUDA tensors (two
+    ranks on one card), each checked for its value: "ok", "wrong" or the
+    error's first line; and one all_reduce inside autograd's backward (a
+    custom Function whose backward sums its gradient over the ranks), its
+    largest error. The wrappers (core/collectives.py) hand card tensors to
+    gloo directly, so each must be "ok" and the error 0."""
+    import torch
+    import torch.distributed as dist
+
+    dev = mesh.device
+    r, w = mesh.rank, mesh.size
+    x = torch.arange(4, dtype=torch.float32, device=dev) + 10 * r
+    ranks_sum = sum(torch.arange(4.0) + 10 * q for q in range(w))
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return torch.equal(y.cpu(), ranks_sum)
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return torch.equal(y.cpu(), torch.arange(4.0))
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(w)]
+        dist.all_gather(parts, x)
+        return all(torch.equal(p.cpu(), torch.arange(4.0) + 10 * q)
+                   for q, p in enumerate(parts))
+
+    def all_to_all():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x.clone())
+        return torch.equal(y.cpu(), torch.cat([
+            torch.arange(4.0)[2 * r:2 * r + 2] + 10 * q for q in range(w)]))
+
+    out = {}
+    for name, fn in (("all_reduce", all_reduce), ("broadcast", broadcast),
+                     ("all_gather", all_gather), ("all_to_all", all_to_all)):
+        try:
+            out[name] = "ok" if fn() else "wrong"
+        except Exception as e:  # recorded and printed, never hidden
+            out[name] = (str(e).strip().splitlines() or [repr(e)])[0][:160]
+        dist.barrier()
+
+    class _SumGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t):
+            return t.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            g = g.contiguous().clone()
+            dist.all_reduce(g)
+            return g
+
+    errs = []
+    base = (torch.arange(1 << 20) % 97 + 1).float()
+    for _ in range(8):
+        t = torch.ones(1 << 20, device=dev, requires_grad=True)
+        wt = base.to(dev) * (r + 1)
+        (torch.exp(_SumGrad.apply(t * 2.0)) * wt).sum().backward()
+        want = (2.0 * torch.exp(torch.tensor(2.0)) * base
+                * sum(q + 1 for q in range(w)))
+        errs.append(float((t.grad.cpu() - want).abs().max()
+                          / want.abs().max()))
+    out["all_reduce_in_backward_rel_err"] = max(errs)
+    dist.barrier()
+    return out
+
+
+def mesh_rank() -> None:
+    """One rank of phase 28 (a target of launch_processes): the part named
+    by IMAGECLUST_MESH_PART ("nccl": one rank; "gloo": two ranks on one
+    card) on the mesh over every rank, each job between a reset and a read
+    of the launch and collective counters and the peak memory."""
+    import pickle
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from imageclust_tpu_torch.cluster import (
+        constrained_ward,
+        constrained_ward_bucketed,
+        constrained_ward_chain,
+    )
+    from imageclust_tpu_torch.core.collectives import COUNTERS
+    from imageclust_tpu_torch.core.mesh import create_mesh
+
+    part = os.environ["IMAGECLUST_MESH_PART"]
+    mesh = create_mesh(data=-1, device="cuda")
+    torch.cuda.set_device(mesh.device)
+    out = {"rank": mesh.rank, "device": str(mesh.device),
+           "backend": mesh.backend, "world": mesh.size}
+    inputs = _mesh_inputs()
+
+    def run(name, fn):
+        _zero_counters()
+        COUNTERS.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        dist.barrier()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out[name] = {"wall_s": time.perf_counter() - t0, "result": result,
+                     "launches": _counters(),
+                     "collectives": COUNTERS.snapshot(),
+                     "peak_bytes": torch.cuda.max_memory_allocated() - base}
+
+    if part == "gloo":
+        out["gloo_cuda"] = _gloo_cuda_probe(mesh)
+    for data, x in inputs["exact"].items():
+        run(f"exact_{data}", lambda: _columnar(constrained_ward(
+            x, min_size=3, max_size=6, update_rule="centroid",
+            reassign_dropped=False, mesh=mesh)))
+    xb = _big_features(mesh.device)
+    for rule in ("lance_williams", "centroid"):
+        run(f"bucketed_{rule}", lambda: _columnar(constrained_ward_bucketed(
+            xb, min_size=3, max_size=6, update_rule=rule, mesh=mesh)))
+    del xb
+    if part == "gloo":
+        for impl, x in (("rnn", inputs["chain_rnn"]),
+                        ("seq", inputs["chain_seq"])):
+            os.environ["IMAGECLUST_CHAIN_IMPL"] = impl
+            run(f"chain_{impl}", lambda: _columnar(constrained_ward_chain(
+                x, min_size=3, max_size=6, mesh=mesh)))
+            del os.environ["IMAGECLUST_CHAIN_IMPL"]
+        run("pipeline", lambda: _mesh_pipeline(mesh))
+        for data, model in ((2, 1), (1, 2)):
+            tm = create_mesh(data=data, model=model, device="cuda")
+            run(f"train_{data}x{model}", lambda: _mesh_train_step(tm))
+    with open(OUT / f"mesh_{part}_rank{mesh.rank}.pkl", "wb") as fh:
+        pickle.dump(out, fh)
+    print(f"mesh rank {mesh.rank} of {part}: done", flush=True)
+
+
+@contextlib.contextmanager
+def _features_seen():
+    """The features the pipeline hands the bucketed engine (a tensor, or
+    this rank's ShardedRows), captured in ``seen``."""
+    from imageclust_tpu_torch import pipeline as pl
+
+    seen = []
+    engine = pl.constrained_ward_bucketed
+
+    def spy(features, *args, **kwargs):
+        seen.append(features)
+        return engine(features, *args, **kwargs)
+
+    pl.constrained_ward_bucketed = spy
+    try:
+        yield seen
+    finally:
+        pl.constrained_ward_bucketed = engine
+
+
+def _sha(t) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()
+
+
+def _mesh_pipeline(mesh) -> dict:
+    """``Pipeline.run_paths`` over the mesh on phase 9's 6000 BMPs (every
+    rank reads, decodes and embeds its row block; the bucketed engine on
+    row-sharded features). Where the partition differs from the single
+    card's (pickled by the parent), the k-means assignments of the two
+    forms on these features are traced: each item whose bucket differs,
+    and the relative gap of its distances to the two centroids."""
+    import pickle
+
+    from imageclust_tpu_torch.config import AppConfig
+    from imageclust_tpu_torch.pipeline import Pipeline
+
+    paths = sorted(str(p) for p in Path(
+        os.environ["IMAGECLUST_MESH_IMAGES"]).iterdir())
+    t0 = time.perf_counter()
+    pipe = Pipeline(AppConfig(), mesh=mesh)
+    build_s = time.perf_counter() - t0
+    with _features_seen() as seen:
+        res = pipe.run_paths(paths, str(OUT / "mesh_pipeline_work"))
+    whole = seen[0].gather()
+    out = {"partition": sorted(sorted(d.images)
+                               for d in res.clusters.values()),
+           "dropped": sorted(res.dropped), "build_s": build_s,
+           "stages_s": res.metrics.stages, "features_sha256": _sha(whole)}
+    with open(OUT / "mesh_pipeline_ref.pkl", "rb") as fh:
+        want = pickle.load(fh)
+    if out["partition"] != want["partition"]:
+        out["kmeans_trace"] = _kmeans_trace(seen[0], whole)
+    return out
+
+
+def _kmeans_trace(sharded, whole) -> dict:
+    """The bucketed engine's k-means on row-sharded features (psum'd sums)
+    against one device's on the same whole features: the items assigned
+    differently and, for each, the relative gap (float64) between its
+    distances to the two buckets' centroids of the one-device run."""
+    import numpy as np
+
+    from imageclust_tpu_torch.cluster import sharded as tsh
+
+    n = whole.shape[0]
+    k = max(1, -(-n // max(3, int(512 * 0.75))))
+    _, am, _, _ = tsh.kmeans(sharded, k, 8, 0)
+    cs, as_, _, _ = tsh.kmeans(whole, k, 8, 0)
+    am, as_ = am.cpu().numpy(), as_.cpu().numpy()
+    diff = np.nonzero(am != as_)[0]
+    x = whole.double().cpu().numpy()
+    c = cs.double().cpu().numpy()
+    gaps = []
+    for i in diff:
+        da = ((x[i] - c[as_[i]]) ** 2).sum()
+        db = ((x[i] - c[am[i]]) ** 2).sum()
+        gaps.append(float(abs(db - da) / max(da, 1e-300)))
+    return {"buckets": k, "items_assigned_differently": int(len(diff)),
+            "relative_gaps": gaps[:32],
+            "max_relative_gap": max(gaps) if gaps else None}
+
+
+def _mesh_train_step(mesh) -> dict:
+    """The full-width ResNet50 train step (float32, TF32 off) over ``mesh``
+    at batch 64 against the single-card step, on this rank, at both sets
+    of weights of :func:`_mesh_train_input`. Each gradient leaf is measured
+    three ways (relative L2): the mesh's from the single card's, and each
+    one's from the float64 gradient. At the tuned weights the gates are
+    phase 27's: loss rtol 1e-4, each gradient leaf 1e-3 from the single
+    card's, batch_stats 1e-4 of each leaf's largest magnitude. At the
+    seeded weights the float32 gradient itself lies about 2.6e-2 from
+    float64 at its worst leaf on an H100, on one card as on the mesh, so
+    two float32 reduction orders differ by as much; there the mesh's
+    largest leaf distance from float64 must be at most twice the single
+    card's (a rank that normalised with its own batch statistics, or a
+    gradient not summed over ``data``, is off by far more)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from imageclust_tpu_torch.core.collectives import all_gather_rows
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.models.train import (
+        gather_variables,
+        init_opt_state,
+        make_train_step,
+        param_spec,
+        shard_model,
+    )
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float(torch.linalg.vector_norm(a - b)
+                     / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+    def worst(d):
+        return sorted(d.items(), key=lambda kv: -kv[1])[:3]
+
+    given = torch.load(OUT / "mesh_train.pt", weights_only=True)
+    images = given["images"].to(mesh.device)
+    labels = given["labels"].to(mesh.device)
+    rows = {}
+    for name, w in given["weights"].items():
+        full = ResNet50V1(num_classes=FT_CLASSES, dtype="float32")
+        full.load_state_dict(w["state"])
+        ref = copy.deepcopy(full).to(mesh.device)
+        model = shard_model(full, mesh)  # a first step warms cuDNN's choices
+        make_train_step(model, learning_rate=FT_LR, mesh=mesh)(
+            model, init_opt_state(model), images, labels)
+        del model, full
+        torch.cuda.synchronize()
+        model_s = shard_model(copy.deepcopy(ref), mesh)
+        step = make_train_step(model_s, learning_rate=FT_LR, mesh=mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(model_s, init_opt_state(model_s), images, labels)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        ref_step = make_train_step(ref, learning_rate=FT_LR)
+        ref_loss = ref_step(ref, init_opt_state(ref), images, labels)
+        mesh_single, mesh_64, single_64 = {}, {}, {}
+        ref_params = dict(ref.named_parameters())
+        for k, p in model_s.named_parameters():
+            g = p.grad
+            if param_spec(k, p):
+                g = all_gather_rows(g.contiguous(), mesh, "model")
+            mesh_single[k] = rel(g, ref_params[k].grad)
+            mesh_64[k] = rel(g, w["grad64"][k])
+            single_64[k] = rel(ref_params[k].grad, w["grad64"][k])
+        got = gather_variables(model_s, mesh)
+        stats = max(float((got[k].double() - v.double().cpu()).abs().max()
+                          / max(float(v.abs().max()), 1e-30))
+                    for k, v in ref.state_dict().items() if "running" in k)
+        row = {"loss": float(loss), "loss_single": float(ref_loss),
+               "loss_rel": abs(float(loss) - float(ref_loss))
+               / abs(float(ref_loss)),
+               "grad_rel_l2_max": max(mesh_single.values()),
+               "grad_rel_l2_worst_leaves": worst(mesh_single),
+               "mesh_from_f64_max": max(mesh_64.values()),
+               "mesh_from_f64_worst_leaves": worst(mesh_64),
+               "single_from_f64_max": max(single_64.values()),
+               "single_from_f64_worst_leaves": worst(single_64),
+               "batch_stats_rel_max": stats, "step_s": step_s}
+        row["ok"] = bool(np.isfinite(row["loss"]))
+        if name == "tuned":  # phase 27's gates
+            row["ok"] = (row["ok"] and row["loss_rel"] <= 1e-4
+                         and row["grad_rel_l2_max"] <= 1e-3
+                         and stats <= 1e-4)
+        else:  # no farther from float64 than the single card, up to 2x
+            row["ok"] = (row["ok"] and row["mesh_from_f64_max"]
+                         <= 2 * row["single_from_f64_max"])
+        rows[name] = row
+    return {**rows["tuned"], "seeded": rows["seeded"],
+            "ok": rows["tuned"]["ok"] and rows["seeded"]["ok"]}
+
+
+def _mesh_references(inputs, paths) -> dict:
+    """The single-card runs phase 28's ranks are held against."""
+    import pickle
+
+    import torch
+
+    from imageclust_tpu_torch.cluster import (
+        constrained_ward,
+        constrained_ward_bucketed,
+        constrained_ward_chain,
+    )
+    from imageclust_tpu_torch.config import AppConfig
+    from imageclust_tpu_torch.pipeline import Pipeline
+
+    ref, secs = {}, {}
+    for data, x in inputs["exact"].items():
+        t0 = time.perf_counter()
+        ref[f"exact_{data}"] = _columnar(constrained_ward(
+            x, min_size=3, max_size=6, update_rule="centroid",
+            reassign_dropped=False, device=DEVICE))
+        secs[f"exact_{data}"] = time.perf_counter() - t0
+    xb = _big_features(torch.device(DEVICE))
+    for rule in ("lance_williams", "centroid"):
+        t0 = time.perf_counter()
+        ref[f"bucketed_{rule}"] = _columnar(constrained_ward_bucketed(
+            xb, min_size=3, max_size=6, update_rule=rule, device=DEVICE))
+        secs[f"bucketed_{rule}"] = time.perf_counter() - t0
+    del xb
+    for impl, x in (("rnn", inputs["chain_rnn"]),
+                    ("seq", inputs["chain_seq"])):
+        os.environ["IMAGECLUST_CHAIN_IMPL"] = impl
+        t0 = time.perf_counter()
+        ref[f"chain_{impl}"] = _columnar(constrained_ward_chain(
+            x, min_size=3, max_size=6, device=DEVICE))
+        secs[f"chain_{impl}"] = time.perf_counter() - t0
+        del os.environ["IMAGECLUST_CHAIN_IMPL"]
+    t0 = time.perf_counter()
+    with _features_seen() as seen:
+        res = Pipeline(AppConfig(), device=DEVICE).run_paths(
+            paths, str(OUT / "mesh_pipeline_single"))
+    secs["pipeline"] = time.perf_counter() - t0
+    ref["pipeline"] = {"partition": sorted(sorted(d.images)
+                                           for d in res.clusters.values()),
+                       "dropped": sorted(res.dropped),
+                       "features_sha256": _sha(seen[0])}
+    with open(OUT / "mesh_pipeline_ref.pkl", "wb") as fh:
+        pickle.dump(ref["pipeline"], fh)
+    return ref, secs
+
+
+def _mesh_compare(name: str, got: dict, want: dict, x=None) -> dict:
+    """A rank's engine result against the single card's: identical merge
+    logs and partitions, or (on real-valued features) a traced difference
+    that must be a near tie (relative gap below 1e-5 in float64)."""
+    import numpy as np
+
+    if name == "pipeline":
+        row = {"identical_features": got["features_sha256"]
+               == want["features_sha256"],
+               "identical_partition": got["partition"] == want["partition"]
+               and got["dropped"] == want["dropped"]}
+        if row["identical_partition"]:
+            return row
+        # traced: the features must be the single card's, and every item
+        # the row-block k-means assigns elsewhere a near tie
+        trace = got.get("kmeans_trace") or {}
+        row["kmeans_trace"] = trace
+        gap = trace.get("max_relative_gap")
+        if not (row["identical_features"] and gap is not None
+                and gap < 1e-5):
+            raise AssertionError(f"mesh {name}: partition differs from the "
+                                 f"single card's: {row}")
+        return row
+    logs = np.array_equal(got["merges"], want["merges"])
+    part = (np.array_equal(got["assign"], want["assign"])
+            and got["dropped"] == want["dropped"])
+    row = {"identical_logs": bool(logs), "identical_partition": bool(part)}
+    if logs and part:
+        return row
+    if x is None or "integer_grid" in name:
+        raise AssertionError(f"mesh {name}: {row} against the single card")
+    div = _first_divergence(x, got["merges"], want["merges"], 6)
+    row["first_divergence"] = div
+    gaps = [c["relative_gap"] for c in (div or {}).get("clusters", [])]
+    if not gaps or min(gaps) > 1e-5:
+        raise AssertionError(f"mesh {name}: differs beyond a near tie: "
+                             f"{row}")
+    return row
+
+
+def _mesh_part_summary(part: str, ranks: list, ref: dict, inputs) -> dict:
+    """Phase 28's checks and numbers for one part, from every rank."""
+    rows = {}
+    for name in [k for k in ranks[0] if isinstance(ranks[0][k], dict)
+                 and "wall_s" in ranks[0][k]]:
+        per = [r[name] for r in ranks]
+        row = {"wall_s": [p["wall_s"] for p in per],
+               "peak_bytes": [p["peak_bytes"] for p in per],
+               # host seconds inside the collectives: under gloo (which
+               # blocks) their whole cost, its host staging included
+               "collective_s": [p["collectives"]["seconds"] for p in per],
+               "collective_calls": per[0]["collectives"]["calls"],
+               "collective_bytes": [p["collectives"]["bytes"] for p in per],
+               "k2_launches": [p["launches"]["k2"] for p in per],
+               "k3_launches": [p["launches"]["k3"] for p in per]}
+        if name.startswith("train"):
+            row.update(per[0]["result"])
+            for p in per:
+                if not p["result"]["ok"]:
+                    raise AssertionError(f"mesh {part} {name}: {p['result']}")
+            rows[name] = row
+            continue
+        x = None
+        if name.startswith("exact_"):
+            x = inputs["exact"][name[len("exact_"):]]
+        elif name.startswith("chain_"):
+            x = inputs[name]
+        for p in per:
+            row.update(_mesh_compare(name, p["result"], ref[name], x))
+        if name.startswith(("exact", "bucketed", "chain")):
+            merges = len(per[0]["result"]["merges"])
+            row["merges"] = merges
+        if name.startswith("exact"):
+            row["collective_bytes_per_merge"] = [
+                sum(b.values()) / max(merges, 1)
+                for b in row["collective_bytes"]]
+            if max(row["collective_bytes_per_merge"]) > 8 * 4 * ENGINE_N:
+                raise AssertionError(f"mesh {part} {name}: more than O(n) "
+                                     f"bytes a merge: {row}")
+        if name.startswith("bucketed"):
+            row["exchange_bytes"] = [b.get("all_to_all", 0)
+                                     for b in row["collective_bytes"]]
+            key = "k2_launches" if "lance" in name else "k3_launches"
+            if min(row[key]) < 1:  # every rank ran its buckets on the kernel
+                raise AssertionError(f"mesh {part} {name}: {key} {row[key]}")
+        if name == "pipeline":
+            row["stages_s"] = per[0]["result"]["stages_s"]
+            if min(row["k2_launches"]) < 1:
+                raise AssertionError(f"mesh {part} pipeline: K2 {row}")
+        rows[name] = row
+    return rows
+
+
+def phase_mesh(card: str):
+    """Phase 28: the mesh on the card. (a) One rank over NCCL: the mesh
+    exact engine at 4096 x 1000 (phase 3's features) and the mesh bucketed
+    engine at 100,000 x 1000 (phase 8's) under both rules. (b) Two ranks
+    sharing the card over gloo: the same, the chain's rounds at 4096 x 512
+    (phase 24's shape) and the sequential chain at 2000 x 64,
+    ``Pipeline.run_paths`` on phase 9's 6000 BMPs, and the full-width
+    ResNet50 train step at batch 64 at (data=2, model=1) and (data=1,
+    model=2). Each is held against the single card: merge logs and
+    partitions identical (a real-valued difference must trace to a near
+    tie), the train step at phase 27's gates at tuned weights and, at
+    seeded ones, no farther from the float64 gradient than twice the
+    single card's distance. A failing rank fails the phase with every
+    rank's log."""
+    import pickle
+
+    import numpy as np
+
+    from imageclust_tpu_torch.parallel import launch_processes
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_mesh_"))
+    try:
+        rng = np.random.default_rng(9)  # phase 9's images
+        names, blobs, _ = group_images(rng, BIG_CLI_GROUPS, 5, "s")
+        images = tmp / "images"
+        images.mkdir()
+        for name, blob in zip(names, blobs):
+            (images / name).write_bytes(blob)
+        del blobs
+        paths = sorted(str(images / n) for n in names)
+        inputs = _mesh_inputs()
+        t0 = time.perf_counter()
+        ref, ref_s = _mesh_references(inputs, paths)
+        t1 = time.perf_counter()
+        _mesh_train_input(tmp / "ft")
+        ref_s["train_input"] = time.perf_counter() - t1
+        ref_wall = time.perf_counter() - t0
+        summary = {"phase": "mesh", "card": card,
+                   "single_card_s": ref_s, "references_s": ref_wall}
+        env = {"IMAGECLUST_MESH_IMAGES": str(images),
+               "IMAGECLUST_SMOKE_OUT": str(OUT)}
+        for part, n, backend in (("nccl", 1, "nccl"), ("gloo", 2, "gloo")):
+            t0 = time.perf_counter()
+            logs = launch_processes(
+                "chip_smoke:mesh_rank", n, device="cuda", backend=backend,
+                timeout=MESH_LAUNCH_S[part],
+                env={**env, "IMAGECLUST_MESH_PART": part})
+            launch_s = time.perf_counter() - t0
+            (OUT / f"mesh_{part}.log").write_text("\n---\n".join(logs))
+            ranks = []
+            for r in range(n):
+                with open(OUT / f"mesh_{part}_rank{r}.pkl", "rb") as fh:
+                    ranks.append(pickle.load(fh))
+            rows = _mesh_part_summary(part, ranks, ref, inputs)
+            if part == "gloo":  # what gloo does with card tensors, raw
+                probes = [r["gloo_cuda"] for r in ranks]
+                rows["gloo_cuda_collectives"] = probes
+                for probe in probes:
+                    bad = {k: v for k, v in probe.items()
+                           if v not in ("ok", 0.0)}
+                    if bad:  # the wrappers pass card tensors to gloo
+                        raise AssertionError(
+                            f"gloo on CUDA tensors: {bad}")
+            summary[part] = {"ranks": n, "backend": backend,
+                             "launch_s": launch_s, "parts": rows}
+            emit({"phase": f"mesh_{part}", "card": card, "ranks": n,
+                  "launch_s": launch_s, "parts": rows})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(OUT / "mesh_pipeline_work", ignore_errors=True)
+        shutil.rmtree(OUT / "mesh_pipeline_single", ignore_errors=True)
+        (OUT / "mesh_train.pt").unlink(missing_ok=True)
+    emit({"phase": "mesh", "card": card, "single_card_s": ref_s,
+          "references_s": ref_wall,
+          "phase_s": time.perf_counter() - t_phase})
+    return summary
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
@@ -3712,7 +4410,7 @@ PHASES = {
     18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
     21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
     24: phase_chain, 25: phase_chain_pipeline, 26: phase_scoreboards,
-    27: phase_finetune,
+    27: phase_finetune, 28: phase_mesh,
 }
 
 
@@ -3789,6 +4487,7 @@ def main(argv: list[str] | None = None) -> int:
     run(25)
     run(26)
     run(27)
+    run(28)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]

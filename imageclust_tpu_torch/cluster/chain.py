@@ -31,8 +31,14 @@ Two exact loops, picked by ``IMAGECLUST_CHAIN_IMPL`` as in the JAX package
 
 Same guarantee domain as the JAX package: identical to the greedy engine
 wherever merge distances are distinct; tied distances may resolve
-differently. This is a scale mode, not the parity mode. The mesh variants
-are not ported (ROADMAP.md, queue 1, item 15).
+differently. This is a scale mode, not the parity mode.
+
+On a mesh (``mesh=``) both loops keep the centroid matrix row-sharded
+over the ``data`` ranks (the mesh Embedder's row blocks) with replicated
+small state: the rounds scan each rank's column block and combine
+(distance, index) pairs across ranks; the chain fetches two rows and
+combines two minima per step. Both run eagerly, and both follow the
+single device's trajectory on the same Gram values.
 """
 
 from __future__ import annotations
@@ -54,11 +60,17 @@ from imageclust_tpu_torch.cluster.ward import (
     _run_graphed,
     calculate_optimal_clusters,
 )
+from imageclust_tpu_torch.core.collectives import all_gather_rows, pmin_pair
+from imageclust_tpu_torch.core.mesh import (
+    ShardedRows,
+    check_mesh,
+    local_rows,
+    owned_rows,
+    take_rows,
+)
 from imageclust_tpu_torch.device import resolve_device
 
 __all__ = ["constrained_ward_chain"]
-
-_ROADMAP = "ROADMAP.md, queue 1, item 15"
 
 # per-round row caps (JAX chain.py:503-504): a typical round's invalidation
 # set (about 4x the merged pairs) fits in one recompute round
@@ -93,11 +105,13 @@ def _births0(n_pad: int, n_items: int, dev) -> tuple[torch.Tensor, ...]:
 
 # -- the sequential NN-chain ----------------------------------------------------
 
-def _chain_start(x: torch.Tensor, n_items: int) -> SimpleNamespace:
+def _chain_start(x: torch.Tensor, n_items: int,
+                 n_pad: int | None = None) -> SimpleNamespace:
     """The chain loop's device state from (n_pad, d) padded f32 features
     (JAX chain.py:53-76). Scalars are one-element tensors written in place,
-    so the step can be captured in a CUDA graph."""
-    n_pad = x.shape[0]
+    so the step can be captured in a CUDA graph. On a mesh ``x`` is this
+    rank's block and ``n_pad`` the padded total."""
+    n_pad = x.shape[0] if n_pad is None else n_pad
     dev = x.device
     idx, active, sizes, births = _births0(n_pad, n_items, dev)
     i64 = torch.int64
@@ -117,61 +131,49 @@ def _chain_start(x: torch.Tensor, n_items: int) -> SimpleNamespace:
         iters=scalar(0))
 
 
-def _chain_step(st: SimpleNamespace, max_size: int) -> None:
-    """One iteration of the chain (the body of JAX chain.py:102-175): seed
-    an empty chain with the lowest-index unblocked cluster, then merge the
-    head with its predecessor if they are reciprocal nearest neighbors,
-    block a head with no feasible partner, or push the head's nearest
-    neighbor. Every write is gated on device scalars; with fewer than two
-    unblocked clusters left ("go" false) the step changes nothing."""
-    inf = float("inf")
-    cents, sizes, births = st.cents, st.sizes, st.births
+def _chain_seed(st: SimpleNamespace):
+    """The start of a step: seed an empty chain with the lowest-index
+    unblocked cluster. Returns (go, chain length, head, predecessor)."""
     go = st.n_unb >= 2
     need_seed = go & (st.clen == 0)
     first = torch.argmax((st.active & ~st.blocked).to(torch.int32)).view(1)
     st.chain[:1].copy_(torch.where(need_seed, first, st.chain[:1]))
     clen = torch.where(need_seed, 1, st.clen)
-
     top = st.chain.index_select(0, (clen - 1).clamp_min(0))
     prev = st.chain.index_select(0, (clen - 2).clamp_min(0))
-    has_prev = clen >= 2
+    return go, clen, top, prev
 
-    # Ward distance from the chain head to every cluster, one (n, d) pass,
-    # by direct diff-square-sum as in the JAX body
-    c_top = cents.index_select(0, top)
-    s_top = sizes.index_select(0, top)
-    s_top_f = s_top.to(torch.float32)
-    diff = cents - c_top
-    d2 = torch.sum(diff * diff, dim=1)
-    s_j = sizes.to(torch.float32)
-    w = (s_top_f * s_j / (s_top_f + s_j)) * d2
-    feas = st.active & (st.idx != top) & ((s_top + sizes) <= max_size)
-    e = torch.where(feas, w, inf)
-    dmin = torch.min(e).view(1)
+
+def _chain_commit(st: SimpleNamespace, go, clen, top, prev, c_top, c_prev,
+                  dmin, e_prev, nn_any, put_cent) -> None:
+    """The end of a step, every write gated on device scalars: merge the
+    head with its predecessor if they are reciprocal nearest neighbors
+    (``e_prev``, the predecessor's distance, equals the minimum ``dmin``:
+    the prefer-prev tie-break keeps the chain acyclic), block a head with
+    no feasible partner, or push its nearest neighbor ``nn_any`` (the first
+    index at the minimum). ``put_cent(keep, c_new, do_merge)`` writes the
+    merged centroid."""
+    sizes, births = st.sizes, st.births
     found = torch.isfinite(dmin)
-
-    # reciprocal-NN test with the prefer-prev tie-break (keeps the chain
-    # acyclic); otherwise first-index argmin
-    prev_is_min = has_prev & found & (e.index_select(0, prev) <= dmin)
-    nn = torch.where(prev_is_min, prev, torch.argmin(e).view(1))
+    prev_is_min = (clen >= 2) & found & (e_prev <= dmin)
+    nn = torch.where(prev_is_min, prev, nn_any)
     do_merge = go & prev_is_min
     do_block = go & ~found
     do_extend = go & found & ~prev_is_min
 
     keep = torch.minimum(top, prev)
     drop = torch.maximum(top, prev)
+    s_top = sizes.index_select(0, top)
     s_b = sizes.index_select(0, prev)
     s_new = s_top + s_b
-    c_prev = cents.index_select(0, prev)
-    c_new = (s_top_f * c_top + s_b.to(torch.float32) * c_prev) \
-        / s_new.to(torch.float32)
+    c_new = (s_top.to(torch.float32) * c_top + s_b.to(torch.float32)
+             * c_prev) / s_new.to(torch.float32)
     b_top = births.index_select(0, top)
     b_prev = births.index_select(0, prev)
     bhi = torch.maximum(b_top, b_prev)
     blo = torch.minimum(b_top, b_prev)
 
-    cents.index_copy_(0, keep, torch.where(
-        do_merge, c_new, cents.index_select(0, keep)))
+    put_cent(keep, c_new, do_merge)
     sizes.index_copy_(0, keep, torch.where(
         do_merge, s_new, sizes.index_select(0, keep)))
     sizes.index_copy_(0, drop, torch.where(
@@ -197,6 +199,36 @@ def _chain_step(st: SimpleNamespace, max_size: int) -> None:
     st.n_unb.sub_((do_merge | do_block).to(torch.int64))
     st.iters.add_(go.to(torch.int64))
     st.go.copy_(st.n_unb >= 2)
+
+
+def _chain_step(st: SimpleNamespace, max_size: int) -> None:
+    """One iteration of the chain (the body of JAX chain.py:102-175): seed
+    an empty chain, find the head's nearest feasible cluster, then merge,
+    block or push (:func:`_chain_commit`). Every write is gated on device
+    scalars; with fewer than two unblocked clusters left ("go" false) the
+    step changes nothing."""
+    cents, sizes = st.cents, st.sizes
+    go, clen, top, prev = _chain_seed(st)
+
+    # Ward distance from the chain head to every cluster, one (n, d) pass,
+    # by direct diff-square-sum as in the JAX body
+    c_top = cents.index_select(0, top)
+    s_top = sizes.index_select(0, top)
+    s_top_f = s_top.to(torch.float32)
+    diff = cents - c_top
+    d2 = torch.sum(diff * diff, dim=1)
+    s_j = sizes.to(torch.float32)
+    w = (s_top_f * s_j / (s_top_f + s_j)) * d2
+    feas = st.active & (st.idx != top) & ((s_top + sizes) <= max_size)
+    e = torch.where(feas, w, float("inf"))
+
+    def put_cent(keep, c_new, do_merge):
+        cents.index_copy_(0, keep, torch.where(
+            do_merge, c_new, cents.index_select(0, keep)))
+
+    _chain_commit(st, go, clen, top, prev, c_top,
+                  cents.index_select(0, prev), torch.min(e).view(1),
+                  e.index_select(0, prev), torch.argmin(e).view(1), put_cent)
 
 
 def _chain_loop(x_pad: torch.Tensor, n_items: int, max_size: int):
@@ -225,6 +257,77 @@ def _chain_loop(x_pad: torch.Tensor, n_items: int, max_size: int):
                 break
     if bool(st.go):
         # a partial log would silently over-fragment the partition
+        raise RuntimeError(
+            f"NN-chain did not converge within {limit} iterations "
+            f"(n={n_items}): loop invariant violated")
+    return st.log, st.heights, int(st.step), {
+        "impl": "seq", "iterations": int(st.iters)}
+
+
+def _mesh_chain_step(st: SimpleNamespace, max_size: int) -> None:
+    """:func:`_chain_step` with the centroid matrix row-sharded (JAX
+    ``_mesh_chain_segment``, chain.py:892-1027): ``st.cents`` is this
+    rank's block of rows ``[row0, row0 + rp)``, the small state is
+    replicated. A step fetches the head's and its predecessor's rows with
+    one (2, d) psum of the owners' rows and zeros, scans the local rows,
+    and combines across ranks with one :func:`pmin_pair` of two entries:
+    (minimum distance, first global index at it) and the predecessor's
+    distance from its owner. Per-row arithmetic and the first-index rule
+    are the single device's, so the trajectory is bit-identical to
+    :func:`_chain_step`'s on the same inputs."""
+    inf = float("inf")
+    cents, sizes = st.cents, st.sizes
+    rp, row0 = cents.shape[0], st.row0
+    go, clen, top, prev = _chain_seed(st)
+
+    li, own = owned_rows(prev, row0, rp)
+    both = take_rows(cents, row0, torch.cat([top, prev]), st.mesh)
+    c_top = both[:1]
+    s_top = sizes.index_select(0, top)
+    s_top_f = s_top.to(torch.float32)
+    diff = cents - c_top
+    d2 = torch.sum(diff * diff, dim=1)
+    sizes_l = sizes[row0:row0 + rp]
+    s_j = sizes_l.to(torch.float32)
+    w = (s_top_f * s_j / (s_top_f + s_j)) * d2
+    gidx = st.idx[row0:row0 + rp]
+    feas = (st.active[row0:row0 + rp] & (gidx != top)
+            & ((s_top + sizes_l) <= max_size))
+    e = torch.where(feas, w, inf)
+    nn_l = gidx.index_select(0, torch.argmin(e).view(1))
+    e_prev_l = torch.where(own, e.index_select(0, li), inf)
+    gd, gi = pmin_pair(torch.cat([torch.min(e).view(1), e_prev_l]),
+                       torch.cat([nn_l, torch.zeros_like(nn_l)]), st.mesh)
+
+    def put_cent(keep, c_new, do_merge):  # the owner writes its row
+        lk, owned = owned_rows(keep, row0, rp)
+        cents.index_copy_(0, lk, torch.where(
+            do_merge & owned, c_new, cents.index_select(0, lk)))
+
+    _chain_commit(st, go, clen, top, prev, c_top, both[1:], gd[:1], gd[1:],
+                  gi[:1], put_cent)
+
+
+def _mesh_chain_loop(x: ShardedRows, n_items: int, max_size: int):
+    """The sequential chain over the mesh (JAX ``_chain_loop(mesh=)``,
+    chain.py:1037-1077): each rank holds its block of the (zero-padded)
+    rows and replicated small state, and the steps run eagerly (gloo
+    collectives cannot be captured in a CUDA graph) with a host read of
+    "go" every FOUND_READ_EVERY steps, the same steps on every rank.
+    Returns what :func:`_chain_loop` does."""
+    mesh = x.mesh
+    rp = x.local.shape[0]
+    n_pad = rp * mesh.shape["data"]
+    st = _chain_start(_pad_features(x.local, rp, x.shape[1]), n_items,
+                      n_pad=n_pad)
+    st.mesh, st.row0 = mesh, x.row0
+    limit = 8 * n_pad + 16  # the single device's backstop
+    if bool(st.go):
+        for k in range(limit):
+            _mesh_chain_step(st, max_size)
+            if (k + 1) % FOUND_READ_EVERY == 0 and not bool(st.go):
+                break
+    if bool(st.go):
         raise RuntimeError(
             f"NN-chain did not converge within {limit} iterations "
             f"(n={n_items}): loop invariant violated")
@@ -264,23 +367,24 @@ def _nn_rows(st: SimpleNamespace, unb: torch.Tensor, r_idx: torch.Tensor,
     replaces an earlier one: global first-index argmin."""
     cents, sizes = st.cents, st.sizes
     inf = float("inf")
-    rows = cents.index_select(0, r_idx)
+    rows = st.take(r_idx)
     rsz = sizes.index_select(0, r_idx)
     rnorm = torch.sum(rows * rows, dim=1)
     rs_f = rsz.to(torch.float32)
     bd = torch.full_like(rnorm, inf)
     bn = torch.full_like(r_idx, _BIG_I32)
-    for c0 in range(0, st.n_pad, st.block):
-        cblock = cents[c0:c0 + st.block]
-        csz = sizes[c0:c0 + st.block]
+    for l0 in range(0, st.rp, st.block):  # this rank's columns
+        c0 = st.row0 + l0
+        cblock = cents[l0:l0 + st.block]
+        csz = sizes[c0:c0 + cblock.shape[0]]
         cnorm = torch.sum(cblock * cblock, dim=1)
         g = _gram(rows, cblock)
         d2 = torch.clamp_min(rnorm[:, None] + cnorm[None, :] - 2.0 * g, 0.0)
         cs_f = csz.to(torch.float32)
         w = (rs_f[:, None] * cs_f[None, :]
              / (rs_f[:, None] + cs_f[None, :])) * d2
-        gidx = st.idx64[c0:c0 + st.block]
-        feas = (unb[c0:c0 + st.block][None, :]
+        gidx = st.idx64[c0:c0 + cblock.shape[0]]
+        feas = (unb[c0:c0 + cblock.shape[0]][None, :]
                 & (r_idx[:, None] != gidx[None, :])
                 & ((rsz[:, None] + csz[None, :]) <= max_size))
         cbd, cbi = torch.min(torch.where(feas, w, inf), dim=1)
@@ -288,6 +392,8 @@ def _nn_rows(st: SimpleNamespace, unb: torch.Tensor, r_idx: torch.Tensor,
         better = (cbd < bd) | ((cbd == bd) & (cbn < bn))
         bd = torch.where(better, cbd, bd)
         bn = torch.where(better, cbn, bn)
+    if st.mesh is not None:  # ranks hold ascending column blocks
+        bd, bn = pmin_pair(bd, bn, st.mesh)
     st.nn.index_copy_(0, r_idx, bn)
     st.nnd.index_copy_(0, r_idx, bd)
 
@@ -300,13 +406,13 @@ def _nn_update(st: SimpleNamespace, unb: torch.Tensor, new_idx: torch.Tensor,
     smaller, or equal with a smaller index."""
     cents, sizes = st.cents, st.sizes
     inf = float("inf")
-    newc = cents.index_select(0, new_idx)
+    newc = st.take(new_idx)
     newsz = sizes.index_select(0, new_idx)
     nnorm = torch.sum(newc * newc, dim=1)
     ns_f = newsz.to(torch.float32)
-    for r0 in range(0, st.n_pad, st.block):
-        sl = slice(r0, r0 + st.block)
-        rows = cents[sl]
+    for l0 in range(0, st.rp, st.block):  # this rank's rows
+        rows = cents[l0:l0 + st.block]
+        sl = slice(st.row0 + l0, st.row0 + l0 + rows.shape[0])
         rsz = sizes[sl]
         rnn = st.nn[sl]
         rnnd = st.nnd[sl]
@@ -325,6 +431,10 @@ def _nn_update(st: SimpleNamespace, unb: torch.Tensor, new_idx: torch.Tensor,
         better = (bd < rnnd) | ((bd == rnnd) & (bn < rnn))
         st.nn[sl] = torch.where(better, bn, rnn)
         st.nnd[sl] = torch.where(better, bd, rnnd)
+    if st.mesh is not None:  # every rank's rows into the replicated cache
+        mine = slice(st.row0, st.row0 + st.rp)
+        st.nn.copy_(all_gather_rows(st.nn[mine], st.mesh))
+        st.nnd.copy_(all_gather_rows(st.nnd[mine], st.mesh))
 
 
 def _apply_pairs(st: SimpleNamespace, ga: torch.Tensor):
@@ -341,8 +451,8 @@ def _apply_pairs(st: SimpleNamespace, ga: torch.Tensor):
     sa = sizes.index_select(0, ga)
     sb = sizes.index_select(0, gb)
     s_new = sa + sb
-    ca = st.cents.index_select(0, ga)
-    cb = st.cents.index_select(0, gb)
+    ca = st.take(ga)
+    cb = st.take(gb)
     s_new_f = torch.clamp_min(s_new, 1).to(f32)
     c_new = (sa.to(f32)[:, None] * ca + sb.to(f32)[:, None] * cb) \
         / s_new_f[:, None]
@@ -364,7 +474,7 @@ def _apply_pairs(st: SimpleNamespace, ga: torch.Tensor):
     st.log.index_copy_(0, pos, torch.stack(
         [torch.maximum(ba, bb), torch.minimum(ba, bb), ctr], dim=1))
     st.heights.index_copy_(0, pos, h)
-    st.cents.index_copy_(0, keep, c_new)
+    st.put(keep, c_new)
     st.step += p
     st.counter += p
 
@@ -412,18 +522,37 @@ def _merge_round(st: SimpleNamespace, max_size: int) -> tuple[int, int]:
     return p, alive
 
 
-def _rnn_state(x: torch.Tensor, n_items: int) -> SimpleNamespace:
+def _rnn_state(x, n_items: int, mesh=None) -> SimpleNamespace:
     """The rounds' first state on ``x``'s device (JAX chain.py:537-567):
     rows padded to a multiple of the Gram tile, columns to a multiple of
-    128, every item pending."""
-    _, d = x.shape
-    n_pad0 = _pad_len(n_items)
-    block = min(_BLOCK, n_pad0)
-    n_pad = -(-n_pad0 // block) * block
-    dev = x.device
+    128, every item pending. ``cents`` holds the rows ``[row0, row0 + rp)``
+    (all of them on one device); ``take``/``put`` read and write centroid
+    rows by global index.
+
+    With ``mesh``, ``x`` is :class:`~imageclust_tpu_torch.core.mesh.
+    ShardedRows` and ``cents`` this rank's block of its rows (the
+    Embedder's layout, so nothing moves; a ragged last Gram tile); a row
+    is read as a psum of its owner's row and zeros (exact), written by its
+    owner alone."""
+    d = x.shape[1]
+    d_pad = -(-d // 128) * 128
+    if mesh is None:
+        n_pad0 = _pad_len(n_items)
+        block = min(_BLOCK, n_pad0)
+        n_pad = -(-n_pad0 // block) * block
+        cents = _pad_features(x, n_pad, d_pad)
+        rp, row0 = n_pad, 0
+    else:
+        rp, row0 = x.local.shape[0], x.row0
+        n_pad = rp * mesh.shape["data"]
+        block = min(_BLOCK, rp)
+        cents = _pad_features(x.local, rp, d_pad)
+    dev = cents.device
     idx, active, sizes, births = _births0(n_pad, n_items, dev)
+    take, put = _row_access(cents, row0, mesh)
     return SimpleNamespace(
-        cents=_pad_features(x, n_pad, -(-d // 128) * 128), sizes=sizes,
+        cents=cents, rp=rp, row0=row0, mesh=mesh, take=take, put=put,
+        sizes=sizes,
         births=births, active=active, blocked=~active,
         log=torch.zeros((n_pad, 3), dtype=torch.int32, device=dev),
         heights=torch.zeros(n_pad, dtype=torch.float32, device=dev),
@@ -434,15 +563,34 @@ def _rnn_state(x: torch.Tensor, n_items: int) -> SimpleNamespace:
         p_cap=min(_P_CAP, n_pad))
 
 
-def _rnn_loop(x: torch.Tensor, n_items: int, max_size: int):
+def _row_access(cents: torch.Tensor, row0: int, mesh):
+    """(take(idx), put(idx, rows)) of the centroid rows by global index:
+    plain indexing on one device; on a mesh, a psum of the owner's rows
+    and zeros (exact) and an owner-local write."""
+    if mesh is None:
+        return (lambda idx: cents.index_select(0, idx),
+                lambda idx, v: cents.index_copy_(0, idx, v))
+
+    def put(idx, v):
+        li, own = owned_rows(idx, row0, cents.shape[0])
+        cents.index_copy_(0, li[own], v[own])
+
+    return lambda idx: take_rows(cents, row0, idx, mesh), put
+
+
+def _rnn_loop(x, n_items: int, max_size: int, mesh=None):
     """Run reciprocal-NN rounds to exhaustion (JAX chain.py:531-591) on
     ``x``'s device. ``x`` is the UNPADDED (n, d) feature matrix; the state
     (:func:`_rnn_state`) pads it in one fresh buffer. The host reads the
     pending rows each round;
     the loop stops with fewer than 2 unblocked clusters or a merge round
     that merged nothing. Returns (log, heights, merge count, stats) as
-    :func:`_chain_loop` does."""
-    st = _rnn_state(x, n_items)
+    :func:`_chain_loop` does. With ``mesh`` (``x`` row-sharded, JAX
+    ``_mesh_rnn_loop``, chain.py:617-891) each rank scans its own column
+    block and a (distance, index) combine across ranks keeps the first
+    global index at a tie, so the rounds are those of one device on the
+    same Gram values; every rank drives the same rounds."""
+    st = _rnn_state(x, n_items, mesh)
     r_cap = min(_R_CAP, st.n_pad)
     # every round clears min(r_cap, pending) rows or merges / blocks >= 1
     max_rounds = 4 * n_items + 2 * (n_items // r_cap + 2) + 8
@@ -531,23 +679,31 @@ def constrained_ward_chain(
     of dropping them (clustering.go:268-271). ``ids=None`` gives the lazy
     ``img_<k>`` ids. The result is columnar; ``merges`` holds the applied
     merges in ascending-height order and ``loop_stats`` the loop's counts
-    (rounds, or chain iterations). ``mesh`` must be None (ROADMAP item 15).
+    (rounds, or chain iterations).
+
+    With ``mesh`` (a :class:`~imageclust_tpu_torch.core.mesh.Mesh`; every
+    rank calls with the same arguments) the centroid matrix is row-sharded
+    over its ``data`` ranks on the mesh's device (``embeddings`` may already
+    be ``ShardedRows``): the loops run the single device's trajectory with
+    per-rank scans and cross-rank combines, and every rank returns the
+    same result.
 
     The equivalence with the greedy engine holds in exact arithmetic: both
     run float32, and distances within a few ulps of each other can round
     into another order on the two paths (the greedy engine forms singleton
     distances by a Gram, the sequential chain by diff-square-sum)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the mesh chain engine is not ported yet ({_ROADMAP}, "
-            "multi-device); call with mesh=None")
-    dev = resolve_device(device)
-    if isinstance(embeddings, torch.Tensor):
+    mesh = check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    if isinstance(embeddings, ShardedRows):
+        if mesh is None:
+            raise ValueError("row-sharded embeddings need their mesh=")
+        feats = embeddings.map(lambda t: t.detach().to(torch.float32))
+    elif isinstance(embeddings, torch.Tensor):
         feats = embeddings.detach().to(dev, torch.float32)
     else:
         feats = torch.from_numpy(np.ascontiguousarray(
             np.asarray(embeddings, dtype=np.float32))).to(dev)
-    if feats.dim() != 2:
+    if len(feats.shape) != 2:
         raise ValueError(f"embeddings must be (n, d), got "
                          f"{tuple(feats.shape)}")
     n, d = feats.shape
@@ -557,10 +713,14 @@ def constrained_ward_chain(
         raise ValueError("ids length must match embeddings")
 
     n_target = calculate_optimal_clusters(n, min_size, max_size)
+    if mesh is not None and not isinstance(feats, ShardedRows):
+        feats = local_rows(feats, mesh)
     # "rnn" (default): the batched rounds; "seq": the sequential chain, two
     # exact loops the tests hold against each other (JAX chain.py:1175)
     if os.environ.get("IMAGECLUST_CHAIN_IMPL", "rnn") != "seq":
-        log, heights, steps, stats = _rnn_loop(feats, n, max_size)
+        log, heights, steps, stats = _rnn_loop(feats, n, max_size, mesh)
+    elif mesh is not None:
+        log, heights, steps, stats = _mesh_chain_loop(feats, n, max_size)
     else:
         log, heights, steps, stats = _chain_loop(
             _pad_features(feats, _pad_len(n), d), n, max_size)

@@ -44,8 +44,16 @@ an int8 input used as is; exact integer grams). Spill centroids live in the
 residency dtype (int8 rounded back onto the grid) and, off float32, are
 rebuilt each round from an on-device member table.
 
-Not ported: the device mesh (raises ``NotImplementedError`` naming
-ROADMAP.md) and ``_device_spill_place``. The JAX package's
+On a mesh (``mesh=``, one rank per device over ``torch.distributed``)
+the buckets shard over the ``data`` ranks: one all_to_all moves each
+bucket member from the rank holding its row to its bucket's rank, which
+runs its buckets through K2 or K3 (:func:`_all_buckets_mesh`). Features
+that arrive row-sharded (:class:`~imageclust_tpu_torch.core.mesh.
+ShardedRows`, from the mesh ``Embedder``) stay so throughout: k-means runs
+in row-block form and the spills sum centroids per rank (psums); only
+per-item summaries and the rows of dropped items are gathered.
+
+Not ported: ``_device_spill_place``. The JAX package's
 ``IMAGECLUST_SUMMARIZE_FUSED`` and ``IMAGECLUST_PREF_FUSED`` switches are
 not ported either: on the card they swap K4 for the tile path, which the
 port's runtime rules forbid. Nor is ``IMAGECLUST_PREF_NEED_ONLY``: the mode
@@ -79,6 +87,17 @@ from imageclust_tpu_torch.cluster.ward import (
     pairwise_ward_singleton,
     ward_update_vector,
 )
+from imageclust_tpu_torch.core.collectives import (
+    all_gather_rows,
+    all_to_all_rows,
+    pmax,
+    psum,
+)
+from imageclust_tpu_torch.core.mesh import (
+    ShardedRows,
+    check_mesh,
+    local_rows,
+)
 from imageclust_tpu_torch.device import resolve_device
 from imageclust_tpu_torch.ops.bucket_kernels import merge_loop_whole
 from imageclust_tpu_torch.ops import merge_kernels as mk
@@ -94,7 +113,6 @@ __all__ = ["constrained_ward_bucketed", "kmeans"]
 log = logging.getLogger(__name__)
 
 _BIG_I32 = 2**31 - 1
-_ROADMAP = "ROADMAP.md, queue 1"
 
 # Chunks dispatched by _all_buckets (one K2 launch, or one K3 lockstep loop,
 # each), and the K3 loop's iterations in which some bucket still ran, with
@@ -184,16 +202,19 @@ def _sqdist_tile(rows: torch.Tensor, cents: torch.Tensor,
     return torch.clamp_min(xx + cent_norms[None, :] - 2.0 * g, 0.0)
 
 
-def _feat_int8(x: torch.Tensor) -> torch.Tensor:
+def _feat_int8(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """One-time symmetric per-tensor int8 quantization (sharded.py:185-194):
     scale = absmax / 127, then round(x / max(scale, 1e-30)) clipped to
     [-127, 127]. The scale is discarded (Ward's merge order does not depend
-    on a global scale). Row blocks bound the f32 temporaries."""
+    on a global scale). Row blocks bound the f32 temporaries. With
+    ``mesh``, ``x`` is a row block and absmax the largest over ``data``."""
     block = _KMEANS_BLOCK
     amax = torch.zeros((), dtype=torch.float32, device=x.device)
     for s, e in _blocks(x.shape[0], block):
         amax = torch.maximum(amax, torch.amax(torch.abs(
             x[s:e].to(torch.float32))))
+    if mesh is not None:
+        amax = pmax(amax.view(1), mesh)[0]
     scale = torch.clamp_min(amax / 127.0, 1e-30)
     out = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     for s, e in _blocks(x.shape[0], block):
@@ -205,15 +226,30 @@ def _generator(seed: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed))
 
 
+def _kmeans_init_idx(n: int, k: int, seed) -> torch.Tensor:
+    """The k rows (of n) the initial centroids are drawn from, without
+    replacement (host int64)."""
+    return torch.randperm(n, generator=_generator(seed))[:k]
+
+
 def _kmeans_init(x: torch.Tensor, k: int, seed) -> torch.Tensor:
     """(k, d) f32 initial centroids: k rows drawn without replacement."""
-    idx = torch.randperm(x.shape[0], generator=_generator(seed))[:k]
-    return x[idx.to(x.device)].to(torch.float32)
+    idx = _kmeans_init_idx(x.shape[0], k, seed)
+    return _rows(x, idx).to(torch.float32)
 
 
-def _kmeans_subsample(x: torch.Tensor, m: int, seed) -> torch.Tensor:
-    """m rows drawn without replacement, for the Lloyd fit."""
+def _kmeans_subsample(x, m: int, seed):
+    """m rows drawn without replacement, for the Lloyd fit (whole on every
+    rank when ``x`` is row-sharded)."""
     idx = torch.randperm(x.shape[0], generator=_generator(int(seed) + 1))[:m]
+    return _rows(x, idx)
+
+
+def _rows(x, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` for global row ids ``idx``, on every rank when ``x`` is
+    :class:`~imageclust_tpu_torch.core.mesh.ShardedRows`."""
+    if isinstance(x, ShardedRows):
+        return x.take(idx)
     return x[idx.to(x.device)]
 
 
@@ -223,13 +259,18 @@ def _blocks(n: int, block: int):
 
 
 def _kmeans_iter(x: torch.Tensor, cents: torch.Tensor, k: int,
-                 block: int) -> torch.Tensor:
+                 block: int, mesh=None) -> torch.Tensor:
     """One Lloyd iteration (sharded.py:204-252) at the residency of ``x``:
     distances by :func:`_sqdist_tile`, centroid sums as one-hot matmuls,
     block by block: a fixed order of additions, so the result is the same
     on every run (an atomic scatter-add would not be). The block sums are
     f32 products of exact upcasts; on the int8 grid each is an exact
-    integer (at most 65,536 * 127 < 2**24), as JAX's int32 sums are."""
+    integer (at most 65,536 * 127 < 2**24), as JAX's int32 sums are.
+
+    With ``mesh``, ``x`` is this rank's real rows of a row-sharded matrix:
+    local assignments against the replicated centroids, then the sums and
+    counts psum'd over ``data``. Those sums round in another order than
+    one device's (exact on integer grids of small magnitude)."""
     d = x.shape[1]
     dev = x.device
     sums = torch.zeros((k, d), dtype=torch.float32, device=dev)
@@ -240,6 +281,9 @@ def _kmeans_iter(x: torch.Tensor, cents: torch.Tensor, k: int,
         onehot = torch.nn.functional.one_hot(assign, k).to(torch.float32)
         counts = counts + torch.sum(onehot, dim=0)
         sums = sums + torch.matmul(onehot.T, rows.to(torch.float32))
+    if mesh is not None:
+        sums = psum(sums, mesh)
+        counts = psum(counts, mesh)
     new = sums / torch.clamp_min(counts, 1.0)[:, None]
     return torch.where(counts[:, None] > 0, new, cents)
 
@@ -314,7 +358,7 @@ _KMEANS_FIT_PER_CENTER = 32
 _KMEANS_SUBSAMPLE_MIN_N = 1 << 20
 
 
-def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
+def kmeans(x, k: int, iters: int = 8, seed: int = 0,
            top_k: int = _TOP_PREF, block: int = _KMEANS_BLOCK,
            fit_per_center: int = _KMEANS_FIT_PER_CENTER,
            summarize_fused: bool = False):
@@ -324,7 +368,17 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
     ``top_k=0`` is the need-only mode (top_pref None). With
     ``summarize_fused`` the full-data pass is :func:`pref_topk_block` (K4 on
     CUDA, its twin on the CPU) and top_pref comes back as int16 bits of
-    uint16 values when bucket ids fit."""
+    uint16 values when bucket ids fit.
+
+    ``x`` may be :class:`~imageclust_tpu_torch.core.mesh.ShardedRows`: the
+    subsample (or, below the subsample size, the initial rows) is gathered
+    by psums of the owners' rows, a full-data fit runs in row-block form
+    (:func:`_kmeans_iter` with the mesh), each rank summarizes its own rows
+    and the per-item summaries (O(n) values, never the features) are
+    all-gathered, so every rank returns the whole (n,) arrays."""
+    if isinstance(x, ShardedRows):
+        return _kmeans_rows(x, k, iters, seed, top_k, block, fit_per_center,
+                            summarize_fused)
     n_real = x.shape[0]
     fit_x = x
     m = fit_per_center * k
@@ -336,14 +390,46 @@ def kmeans(x: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
     for _ in range(iters):
         cents = _kmeans_iter(fit_x, cents, k, fit_block)
     del fit_x
+    return (cents, *_summarize(x, cents, k, top_k, block, summarize_fused))
+
+
+def _summarize(x, cents, k: int, top_k: int, block: int,
+               summarize_fused: bool):
+    """kmeans' full-data pass over the rows of ``x``: (assign, own_d,
+    top_pref)."""
+    n_real = x.shape[0]
     kk = min(top_k, k)
     if summarize_fused and kk:
-        assign, own_d, top_pref = _kmeans_summarize_fused(
+        return _kmeans_summarize_fused(
             x, cents, kk, as_u16=k <= np.iinfo(np.uint16).max + 1)
-        return cents, assign, own_d, top_pref
-    block = _kmeans_block(n_real, k, block)
-    assign, own_d, top_pref = _kmeans_summarize(x, cents, kk, block)
-    return cents, assign, own_d, top_pref
+    return _kmeans_summarize(x, cents, kk, _kmeans_block(n_real, k, block))
+
+
+def _kmeans_rows(x: "ShardedRows", k: int, iters: int, seed, top_k: int,
+                 block: int, fit_per_center: int, summarize_fused: bool):
+    """:func:`kmeans` on a row-sharded matrix (see there)."""
+    n = x.n
+    m = fit_per_center * k
+    if fit_per_center and m >= k and n > max(2 * m, _KMEANS_SUBSAMPLE_MIN_N):
+        fit_x = _kmeans_subsample(x, m, seed)  # whole on every rank
+        cents = _kmeans_init(fit_x, k, seed)
+        fit_block = _kmeans_block(fit_x.shape[0], k, block)
+        for _ in range(iters):
+            cents = _kmeans_iter(fit_x, cents, k, fit_block)
+        del fit_x
+    else:
+        cents = _rows(x, _kmeans_init_idx(n, k, seed)).to(torch.float32)
+        loc = x.local[:x.n_local]
+        fit_block = _kmeans_block(max(loc.shape[0], 1), k, block)
+        for _ in range(iters):
+            cents = _kmeans_iter(loc, cents, k, fit_block, mesh=x.mesh)
+    assign, own_d, pref = _summarize(x.local, cents, k, top_k, block,
+                                     summarize_fused)
+    assign, own_d = (all_gather_rows(t, x.mesh)[:n] for t in (assign, own_d))
+    if pref is not None:  # int16 (uint16 bits) travels as int32
+        pref = all_gather_rows(pref.to(torch.int32), x.mesh)[:n].to(
+            pref.dtype)
+    return cents, assign, own_d, pref
 
 
 # -- per-bucket merge loops -------------------------------------------------
@@ -552,6 +638,86 @@ def _all_buckets(feats, bucket_idx: np.ndarray, counts: np.ndarray,
     inv[order] = np.arange(nb)
     return tuple(np.concatenate([o[i] for o in outs])[inv]
                  for i in range(len(outs[0])))
+
+
+def _plan_exchange(buckets, n_pad_rows: int, ndev: int, bucket_size: int):
+    """Host plan of the owner-aligned feature exchange (JAX sharded.py:
+    928-963): every bucket member row moves from the rank holding its row
+    block to the rank owning its bucket (bucket ``bi`` belongs to rank
+    ``bi // (nb / ndev)``), as one all_to_all, so each rank receives about
+    its buckets' rows and no rank holds the whole matrix.
+
+    Returns (send_idx (D, D, K), recv_pos (D, D, K), K): rank sd sends its
+    local rows send_idx[sd, dd, :] to rank dd; rank dd scatters the packet
+    from sd into flat (bucket_local * B + slot) positions recv_pos[dd, sd, :]
+    (out-of-range = padding, dropped). K is the largest packet: the JAX
+    package rounds it up to a power of two to bound recompilation, which
+    eager torch does not need."""
+    r = n_pad_rows // ndev
+    nb = len(buckets)
+    nb_local = nb // ndev
+    per: list[list[list[tuple[int, int]]]] = [
+        [[] for _ in range(ndev)] for _ in range(ndev)
+    ]
+    for bi, members in enumerate(buckets):
+        dd = bi // nb_local
+        bl = bi % nb_local
+        for slot, g in enumerate(members):
+            per[g // r][dd].append((g % r, bl * bucket_size + slot))
+    K = max(1, max(len(per[sd][dd]) for sd in range(ndev)
+                   for dd in range(ndev)))
+    send_idx = np.zeros((ndev, ndev, K), np.int32)
+    recv_pos = np.full((ndev, ndev, K), np.int32(1 << 30), np.int32)
+    for sd in range(ndev):
+        for dd in range(ndev):
+            for k, (src, pos) in enumerate(per[sd][dd]):
+                send_idx[sd, dd, k] = src
+                recv_pos[dd, sd, k] = pos
+    return send_idx, recv_pos, K
+
+
+def _all_buckets_mesh(local, mesh, buckets, bucket_size: int,
+                      counts: np.ndarray, targets: np.ndarray,
+                      max_size: int, min_size: int, update_rule: str,
+                      absorb: bool):
+    """The bucket engine over the mesh's ``data`` ranks (JAX
+    ``_all_buckets_mesh``, sharded.py:985-1024): ``local`` is this rank's
+    (rows_per, d) feature block; one all_to_all moves every bucket member
+    to its bucket's rank, which scatters the rows into its own buckets and
+    runs them through :func:`_all_buckets` (K2 under Lance-Williams, the K3
+    lockstep loop under the centroid rule; the JAX mesh body runs the XLA
+    loop instead). The per-bucket outputs are all-gathered, so every rank
+    returns the host arrays of all ``nb`` buckets (a multiple of D), plus
+    this rank's exchange counts."""
+    ndev = mesh.shape["data"]
+    me = mesh.index("data")
+    dev = local.device
+    rp, d = local.shape
+    B = bucket_size
+    nb_local = len(buckets) // ndev
+    send_idx, recv_pos, K = _plan_exchange(buckets, rp * ndev, ndev, B)
+    send = local[torch.from_numpy(send_idx[me]).to(dev, torch.int64)]
+    recv = all_to_all_rows(send, mesh)  # (D, K, d): packet j from rank j
+    flat = torch.zeros((nb_local * B + 1, d), dtype=local.dtype, device=dev)
+    pos = torch.from_numpy(np.minimum(recv_pos[me], nb_local * B)).to(
+        dev, torch.int64).reshape(-1)
+    flat[pos] = recv.reshape(-1, d)  # padding lands on the spare last row
+    sl = slice(me * nb_local, (me + 1) * nb_local)
+    local_idx = (np.arange(nb_local, dtype=np.int32)[:, None] * B
+                 + np.arange(B, dtype=np.int32)[None, :])
+    outs = _all_buckets(flat[:nb_local * B], local_idx, counts[sl],
+                        targets[sl], max_size, min_size,
+                        update_rule=update_rule, absorb=absorb)
+    gathered = tuple(
+        all_gather_rows(torch.from_numpy(np.ascontiguousarray(o)).to(
+            dev, torch.int32), mesh).cpu().numpy().astype(o.dtype)
+        for o in outs)
+    exchange = {
+        "send_rows": int(ndev * K),
+        "sent_real_rows": int(np.sum(recv_pos[:, me, :] < (1 << 30))),
+        "recv_real_rows": int(np.sum(counts[sl])),
+        "bytes": int(send.numel() * send.element_size())}
+    return gathered, exchange
 
 
 # -- capacity repair ---------------------------------------------------------
@@ -988,15 +1154,21 @@ def _spill_member_table(assign, c_pad: int, ms: int):
 def _table_sums(feats, table):
     """(c_pad, d) f32 sums of each table row's members, added one member
     slot at a time in table order, starting from zero (a fixed order on
-    the card: no atomics)."""
+    the card: no atomics). For row-sharded features each rank sums the
+    members it holds and one (c_pad, d) psum adds the ranks' sums."""
     n, d = feats.shape
+    sharded = isinstance(feats, ShardedRows)
+    src = feats.local if sharded else feats
+    lo, hi = (feats.row0, feats.row0 + feats.n_local) if sharded else (0, n)
     sums = torch.zeros((table.shape[0], d), dtype=torch.float32,
                        device=feats.device)
     for j in range(table.shape[1]):
         t = table[:, j]
-        rows = feats[torch.clamp(t, max=n - 1)].to(torch.float32)
-        sums = sums + torch.where((t < n)[:, None], rows, 0.0)
-    return sums
+        rows = src[torch.clamp(t - lo, 0, src.shape[0] - 1)].to(
+            torch.float32)
+        sums = sums + torch.where(((t >= lo) & (t < hi))[:, None], rows,
+                                  0.0)
+    return psum(sums, feats.mesh) if sharded else sums
 
 
 def _residency_cents(mean, dtype):
@@ -1071,7 +1243,7 @@ def _spill_candidates_local(feats, cents, sizes, drop_idx, item_bucket,
     bucket's clusters with room, nearest first; GLOBAL cluster ids, -1
     where invalid. Grid features against grid centroids take an exact
     integer gram, everything else exact upcasts accumulated in f32."""
-    dx = feats[drop_idx]
+    dx = _rows(feats, drop_idx)
     cl = bucket_clusters[item_bucket]              # (chunk, mc), -1 padded
     safe = torch.clamp_min(cl, 0)
     cc = cents[safe]                               # (chunk, mc, d)
@@ -1093,7 +1265,7 @@ def _spill_candidates(feats, cents, sizes, drop_idx, k: int, max_size: int,
                       cent_norms=None):
     """Global candidates (sharded.py:2118-2137): the top-k nearest clusters
     with room, over all clusters."""
-    d2 = _sqdist_tile(feats[drop_idx], cents, cent_norms)
+    d2 = _sqdist_tile(_rows(feats, drop_idx), cents, cent_norms)
     d2 = torch.where(sizes[None, :] < max_size, d2, float("inf"))
     vals, cand = _topk_smallest(d2, k)
     return torch.where(torch.isfinite(vals), cand, -1)
@@ -1419,35 +1591,45 @@ def constrained_ward_bucketed(
     ``feature_dtype`` sets the resident matrix: "float32", "bfloat16" (one
     rounding of the inputs; a non-parity mode near ties) or "int8" (inputs
     quantized once by :func:`_feat_int8`, whose scale Ward's merge order
-    does not need; an int8 input is used as is)."""
+    does not need; an int8 input is used as is).
+
+    ``mesh`` (a :class:`~imageclust_tpu_torch.core.mesh.Mesh`; every rank
+    calls with the same arguments) shards the buckets over its ``data``
+    ranks on the mesh's device, and every rank returns the same result;
+    ``embeddings`` may then be row-sharded (``ShardedRows``). The result's
+    ``exchange`` holds this rank's exchange counts (rows and bytes sent)."""
     if feature_dtype not in ("float32", "bfloat16", "int8"):
         raise ValueError(f"unknown feature_dtype {feature_dtype!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"the mesh bucketed engine is not ported yet ({_ROADMAP}, "
-            "multi-device); call with mesh=None")
+    mesh = check_mesh(mesh)
     if update_rule not in ("centroid", "lance_williams"):
         raise ValueError(f"unknown update_rule: {update_rule}")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     pt = _PhaseTimer(dev)
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8}[feature_dtype]
-    if isinstance(embeddings, torch.Tensor):
+    sharded_in = isinstance(embeddings, ShardedRows)
+    if sharded_in:
+        if mesh is None:
+            raise ValueError("row-sharded embeddings need their mesh=")
+        emb = embeddings.local.detach()
+    elif isinstance(embeddings, torch.Tensor):
         emb = embeddings.detach().to(dev)
     else:
         arr = np.asarray(embeddings)
         if arr.dtype != np.int8:
             arr = arr.astype(np.float32, copy=False)
         emb = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    if emb.dim() != 2:
+        raise ValueError(f"embeddings must be (n, d), got "
+                         f"{tuple(emb.shape)}")
     if dt == torch.int8 and emb.dtype != torch.int8:
-        feats = _feat_int8(emb)
+        feats = _feat_int8(emb, mesh if sharded_in else None)
         pt.tick("quantize")
     else:
         feats = emb.to(dt)
     del emb
-    if feats.dim() != 2:
-        raise ValueError(f"embeddings must be (n, d), got "
-                         f"{tuple(feats.shape)}")
+    if sharded_in:
+        feats = ShardedRows(feats, embeddings.n, mesh)
     n, d = feats.shape
     if ids is None:
         ids = DefaultIds(n)
@@ -1458,20 +1640,24 @@ def constrained_ward_bucketed(
     fill = max(min_size, int(bucket_size * 0.75))
     n_buckets = max(1, math.ceil(n / fill))
     if n_buckets == 1:
+        whole = feats.gather() if sharded_in else feats
         return constrained_ward(
-            feats.to(torch.float32).cpu().numpy(),  # int8 grid values: exact
+            whole.to(torch.float32).cpu().numpy(),  # int8 grid values: exact
             list(ids), min_size=min_size, max_size=max_size,
             update_rule=update_rule, reassign_dropped=reassign_dropped,
-            device=dev)
+            mesh=mesh, device=dev)
 
     # The summarize pass: one K4 launch on the card at k >= 4096; else the
-    # tile path, with the need-only mode above _PREF_NEED_ONLY_MIN_WORK.
+    # tile path, with the need-only mode above _PREF_NEED_ONLY_MIN_WORK
+    # (never on row-sharded features: their preference rows are gathered
+    # from the summarize pass).
     if _use_summarize_fused(dev, n_buckets):
         cents_d, assign_d, own_d_d, pref_d = kmeans(
             feats, n_buckets, kmeans_iters, seed, top_k=_TOP_PREF,
             summarize_fused=True)
     else:
-        need_only = n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK
+        need_only = (n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK
+                     and not sharded_in)
         cents_d, assign_d, own_d_d, pref_d = kmeans(
             feats, n_buckets, kmeans_iters, seed,
             top_k=0 if need_only else _TOP_PREF)
@@ -1483,6 +1669,9 @@ def constrained_ward_bucketed(
     pt.tick("bucket-repair")
 
     nb = len(buckets)
+    if mesh is not None:  # empty buckets pad to whole shards (after repair)
+        buckets = buckets + [[] for _ in range(-nb % mesh.shape["data"])]
+        nb = len(buckets)
     counts = np.zeros(nb, np.int32)
     targets = np.zeros(nb, np.int32)
     bucket_idx = np.zeros((nb, bucket_size), np.int32)
@@ -1492,9 +1681,18 @@ def constrained_ward_bucketed(
         targets[bi] = _bucket_target(c, min_size, max_size) if c else 0
         bucket_idx[bi, :c] = members
 
-    logs, steps, births, _sizes, active = _all_buckets(
-        feats, bucket_idx, counts, targets, max_size, min_size,
-        update_rule=update_rule, absorb=reassign_dropped)
+    exchange = None
+    if mesh is not None:
+        # owner-aligned: features row-sharded, one all_to_all moves each
+        # bucket member to its bucket's rank; nothing replicates
+        local = (feats if sharded_in else local_rows(feats, mesh)).local
+        (logs, steps, births, _sizes, active), exchange = _all_buckets_mesh(
+            local, mesh, buckets, bucket_size, counts, targets, max_size,
+            min_size, update_rule, reassign_dropped)
+    else:
+        logs, steps, births, _sizes, active = _all_buckets(
+            feats, bucket_idx, counts, targets, max_size, min_size,
+            update_rule=update_rule, absorb=reassign_dropped)
     pt.tick("bucket-merges")
 
     dropped_idx: list[int] = []
@@ -1559,6 +1757,7 @@ def constrained_ward_bucketed(
     from imageclust_tpu_torch.data.native import available
 
     result.n_buckets = nb  # buckets after capacity repair
+    result.exchange = exchange  # this rank's exchange counts on a mesh
     result.phases_s = dict(pt.phases)
     # which host paths ran: the native library's or the Python ones
     result.host_paths = {

@@ -373,6 +373,130 @@ def _run_graphed(body, dev, go, limit: int, graph=None):
     return graph
 
 
+def _mesh_merge_loop(x: torch.Tensor, n_items: int, n_target: int,
+                     max_size: int, update_rule: str, mesh):
+    """The exact loop with the Ward matrix row-sharded over the mesh's
+    ``data`` ranks (JAX ``_sharded_merge_loop``, ward.py:518-667).
+
+    ``x`` is the (n_pad, d) padded f32 matrix every rank holds. Each rank
+    forms its (n_pad / D, n_pad) row block with one Gram product; the small
+    state (sizes, births, active, centroids, the log) is replicated and
+    updated identically everywhere. Each merge:
+
+    * the local feasible-pair minimum and, among its ties, the smallest
+      (birth_hi, birth_lo) (two int32 passes) packed into one int64 key,
+      then one global
+      :func:`~imageclust_tpu_torch.core.collectives.pmin_pair`: the Go
+      tie-break, as the JAX loop's three scalar ``pmin`` give it;
+    * the new distances of this rank's rows to the merged cluster (from
+      the replicated centroids, or Lance-Williams from the local columns
+      ``sa`` and ``sb``, which symmetry makes the rows, plus one scalar
+      psum for ``D[sa, sb]``), written into the local column ``sa``;
+    * one (n_pad,) all_gather of those values, which the owner of row
+      ``sa`` writes into it.
+
+    Per-merge traffic is O(n) bytes plus scalars, never O(n^2). The steps
+    run eagerly (gloo collectives cannot be captured in a CUDA graph), each
+    gated on ``found`` on the device; the host reads ``found`` every
+    :data:`FOUND_READ_EVERY` steps, the same steps on every rank. Returns
+    host arrays (log[:steps], births, sizes, active), as :func:`_merge_loop`
+    does."""
+    from imageclust_tpu_torch.core.collectives import (
+        all_gather_rows,
+        pmin_pair,
+        psum,
+    )
+    from imageclust_tpu_torch.core.mesh import owned_rows, row_block
+
+    if update_rule not in ("centroid", "lance_williams"):
+        raise ValueError(f"unknown update_rule: {update_rule}")
+    f32, i32, i64 = torch.float32, torch.int32, torch.int64
+    dev = x.device
+    n_pad = x.shape[0]
+    row0, rp = row_block(n_pad, mesh)  # n_pad splits evenly over data
+    gid = row0 + torch.arange(rp, dtype=i64, device=dev)
+    xs = x[row0:row0 + rp]
+    sq_r = torch.sum(xs * xs, dim=1)
+    sq_c = torch.sum(x * x, dim=1)
+    Dl = 0.5 * torch.clamp_min(
+        sq_r[:, None] + sq_c[None, :] - 2.0 * torch.matmul(xs, x.T), 0.0)
+
+    idx = torch.arange(n_pad, dtype=i64, device=dev)
+    active = idx < n_items
+    births = torch.where(active, idx, _BIG_I32 - n_pad + idx).to(i32)
+    sizes = active.to(i32)
+    cents = x.clone()
+    limit = max(n_items - n_target, 0)
+    log = torch.zeros((max(limit, 1), 3), dtype=i32, device=dev)
+    step = torch.zeros((), dtype=i64, device=dev)
+    counter = torch.full((), n_items, dtype=i32, device=dev)
+    inf = float("inf")
+    not_self = gid[:, None] != idx[None, :]
+
+    def merge():
+        act_r = active[row0:row0 + rp]
+        ok = (act_r[:, None] & active[None, :] & not_self
+              & ((sizes[row0:row0 + rp][:, None] + sizes[None, :])
+                 <= max_size))
+        E = torch.where(ok, Dl, inf)
+        dmin = torch.min(E)
+        tie = ok & (E == dmin)
+        b_r = births[row0:row0 + rp][:, None]
+        bhi = torch.maximum(b_r, births[None, :])
+        hi = torch.where(tie, bhi, _BIG_I32).min()
+        lo = torch.where(tie & (bhi == hi),
+                         torch.minimum(b_r, births[None, :]), _BIG_I32).min()
+        gd, gkey = pmin_pair(dmin, hi.to(i64) * (1 << 32) + lo, mesh)
+        found = torch.isfinite(gd) & (step < limit)
+        m1 = (gkey // (1 << 32)).to(i32)
+        m2 = (gkey % (1 << 32)).to(i32)
+        sa = torch.argmax((births == m1).to(i32)).view(1)
+        sb = torch.argmax((births == m2).to(i32)).view(1)
+        s_a, s_b = sizes[sa], sizes[sb]
+        s_new = s_a + s_b
+        s_a_f, s_b_f, s_new_f = s_a.to(f32), s_b.to(f32), s_new.to(f32)
+        c_new = (s_a_f * cents[sa] + s_b_f * cents[sb]) / s_new_f
+        sizes_l = sizes[row0:row0 + rp].to(f32)
+        if update_rule == "centroid":
+            dvec = ward_update_vector(
+                update_rule, sizes_f=sizes_l, s_a_f=s_a_f, s_b_f=s_b_f,
+                s_new_f=s_new_f, cents=cents[row0:row0 + rp],
+                c_new=c_new[0])
+        else:  # every read local by symmetry, D[sa, sb] from its owner
+            col_a = Dl.index_select(1, sa)[:, 0]
+            col_b = Dl.index_select(1, sb)[:, 0]
+            d_ab = psum(torch.sum(torch.where(gid == sa, col_b, 0.0)), mesh)
+            dvec = ward_update_vector(
+                update_rule, sizes_f=sizes_l, s_a_f=s_a_f, s_b_f=s_b_f,
+                s_new_f=s_new_f, d_a=col_a, d_b=col_b, d_ab=d_ab)
+        dvec = torch.where(gid == sa, 0.0, dvec)
+        full = all_gather_rows(dvec, mesh)
+        Dl.index_copy_(1, sa, torch.where(
+            found, dvec, Dl.index_select(1, sa)[:, 0])[:, None])
+        la, own = owned_rows(sa, row0, rp)
+        Dl.index_copy_(0, la, torch.where(found & own, full, Dl.index_select(
+            0, la)[0])[None])
+        sizes.index_copy_(0, sa, torch.where(found, s_new, s_a))
+        sizes.index_copy_(0, sb, torch.where(found, 0, sizes[sb]))
+        births.index_copy_(0, sa, torch.where(found, counter, births[sa]))
+        cents.index_copy_(0, sa, torch.where(found, c_new, cents[sa]))
+        active.index_copy_(0, sb, active[sb] & ~found)
+        si = step.clamp(max=log.shape[0] - 1).view(1)
+        log.index_copy_(0, si, torch.where(
+            found, torch.stack([m1, m2, counter])[None], log[si]))
+        counter.add_(found.to(i32))
+        step.add_(found.to(i64))
+        return found
+
+    for k in range(limit):
+        found = merge()
+        if (k + 1) % FOUND_READ_EVERY == 0 and not bool(found):
+            break
+    steps = int(step)
+    return (log[:steps].cpu().numpy(), births.cpu().numpy(),
+            sizes.cpu().numpy(), active.cpu().numpy())
+
+
 def _pad_len(n: int) -> int:
     """Round up to a 128-aligned padded size (the K1 contract; the same
     padding as the JAX package, so births match)."""
@@ -402,17 +526,21 @@ def _run_merges(
 ) -> tuple[list[list[int]], np.ndarray]:
     """Run the device loop; return surviving clusters' index lists in Go list
     order (birth order) plus the merge log."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the mesh exact engine is not ported yet (ROADMAP.md queue 1, "
-            "multi-device); call with mesh=None")
     n = x.shape[0]
     n_pad = _pad_len(n)
+    if mesh is not None:  # whole row blocks of 128 on every rank
+        ndev = mesh.shape["data"]
+        n_pad = -(-n_pad // (128 * ndev)) * 128 * ndev
     xp = np.zeros((n_pad, x.shape[1]), np.float32)
     xp[:n] = x
-    log, births, _sizes, active = _merge_loop(
-        torch.from_numpy(xp).to(device), n, n_target, max_size, update_rule,
-        merge_step=merge_step, eager=eager)
+    if mesh is not None:
+        log, births, _sizes, active = _mesh_merge_loop(
+            torch.from_numpy(xp).to(mesh.device), n, n_target, max_size,
+            update_rule, mesh)
+    else:
+        log, births, _sizes, active = _merge_loop(
+            torch.from_numpy(xp).to(device), n, n_target, max_size,
+            update_rule, merge_step=merge_step, eager=eager)
     children = {int(new): (int(hi), int(lo)) for hi, lo, new in log}
     surviving = sorted(int(b) for b in births[active])
     clusters = [_leaf_indices(b, n, children) for b in surviving]
@@ -488,7 +616,12 @@ def constrained_ward(
     (clustering.go:198-284). Raises :class:`ConstraintError` where the
     reference returns (nil, false). ``reassign_dropped=True`` replaces the
     reference's silent image loss with nearest-cluster reassignment.
-    ``mesh`` must be None (the mesh engine is not ported yet)."""
+    With ``mesh`` (a :class:`~imageclust_tpu_torch.core.mesh.Mesh`; every
+    rank calls with the same inputs) the Ward matrix is row-sharded over
+    its ``data`` ranks (:func:`_mesh_merge_loop`) on the mesh's device, and
+    every rank returns the same result. ``embeddings`` may then also be
+    :class:`~imageclust_tpu_torch.core.mesh.ShardedRows` (gathered: the
+    n x n matrix dwarfs the features)."""
     return _constrained_ward(
         embeddings, ids, min_size=min_size, max_size=max_size,
         update_rule=update_rule, reassign_dropped=reassign_dropped,
@@ -504,7 +637,12 @@ def _constrained_ward(embeddings, ids, *, min_size, max_size, update_rule,
     ``eager=True``, which runs the loop's steps one by one on the card
     instead of in a CUDA graph (so a graphed loop can be held against an
     eager one)."""
-    dev = resolve_device(device)
+    from imageclust_tpu_torch.core.mesh import ShardedRows, check_mesh
+
+    dev = check_mesh(mesh).device if mesh is not None \
+        else resolve_device(device)
+    if isinstance(embeddings, ShardedRows):
+        embeddings = embeddings.gather()
     if isinstance(embeddings, torch.Tensor):
         embeddings = embeddings.detach().cpu().numpy()
     x = np.asarray(embeddings, dtype=np.float32)

@@ -81,8 +81,15 @@ def finetune_resnet50(
     ``onnx_out`` as a gluon-named ONNX model when set. ``init_onnx``
     warm-starts the backbone from an ONNX ResNet50 and keeps the new head.
     Each epoch's log record carries ``epoch_stats`` (mean loss, steps, and
-    images/s after the epoch's first step). ``mesh=`` raises: the sharded
-    step is not ported yet (ROADMAP.md queue 1, item 15)."""
+    images/s after the epoch's first step).
+
+    ``mesh`` (a :class:`~imageclust_tpu_torch.core.mesh.Mesh`; every rank
+    calls with the same arguments) trains with the sharded DP x TP step on
+    the mesh's device: the batch size rounds down to a multiple of the
+    ``data`` axis (at least one image a rank), the head is sharded over
+    ``model``, and each checkpoint gathers the full variables and AdamW
+    state, which rank 0 writes in the same layout (every rank waits for
+    it). Every rank returns the whole tuned model."""
     from imageclust_tpu_torch.models.convert import (
         resnet50_flax_from_state_dict,
         resnet50_state_dict_from_flax,
@@ -92,26 +99,31 @@ def finetune_resnet50(
         ResNet50V1,
         load_onnx_params,
     )
+    from imageclust_tpu_torch.core.mesh import check_mesh
     from imageclust_tpu_torch.models.train import (
+        gather_opt_state,
+        gather_variables,
         init_opt_state,
         make_train_step,
         opt_state_from_flax,
+        shard_model,
+        shard_opt_state,
     )
     from imageclust_tpu_torch.utils.checkpoint import (
         restore_variables,
         save_variables,
     )
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "finetune_resnet50(mesh=...): the sharded train step is not "
-            "ported yet (ROADMAP.md queue 1, item 15)")
-    dev = resolve_device(device)
+    mesh = check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     stage_layers = tuple(stage_layers or GLUON_STAGE_LAYERS)
     images, labels, classes = load_labeled_dir(data_dir, size=input_size)
     n = len(images)
     if n < batch_size:
         batch_size = max(1, n)
+    if mesh is not None:  # JAX registry.py:95-101's rounding
+        ndata = mesh.shape["data"]
+        batch_size = max(ndata, batch_size // ndata * ndata)
     log.info("fine-tuning on %d images, %d classes", n, len(classes))
 
     model = ResNet50V1(num_classes=len(classes), dtype="bfloat16",
@@ -127,7 +139,6 @@ def finetune_resnet50(
         model.load_state_dict(sd)
     model.to(dev)
     opt_state = init_opt_state(model)
-    step = make_train_step(model, learning_rate=learning_rate)
     rng_np = np.random.default_rng(seed)
     loss = float("nan")
 
@@ -142,6 +153,28 @@ def finetune_resnet50(
         opt_state = opt_state_from_flax(restored["opt_state"], model)
         start_epoch = int(restored["epoch"])
         log.info("resuming fine-tune from epoch %d", start_epoch)
+    if mesh is not None:
+        shard_model(model, mesh)
+        opt_state = shard_opt_state(opt_state, mesh)
+    step = make_train_step(model, learning_rate=learning_rate, mesh=mesh)
+
+    def whole():
+        """(the whole model, its whole AdamW state): gathered on a mesh."""
+        if mesh is None:
+            return model, opt_state
+        full = ResNet50V1(num_classes=len(classes), dtype="bfloat16",
+                          stage_layers=stage_layers)
+        full.load_state_dict(gather_variables(model, mesh))
+        return full, gather_opt_state(opt_state, mesh)
+
+    def write(fn):
+        """Run ``fn`` on rank 0 alone; every rank waits for it."""
+        if mesh is None or mesh.rank == 0:
+            fn()
+        if mesh is not None and mesh.size > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     for epoch in range(start_epoch, epochs):
         order = rng_np.permutation(n)
@@ -164,16 +197,23 @@ def finetune_resnet50(
                                   if len(losses) > 1 else float("nan"))}
         log.info("epoch %d: mean loss %.4f, %.1f images/s", epoch, loss,
                  stats["images_per_s"], extra={"epoch_stats": stats})
-        save_variables(state_path, _state_tree(model, opt_state, epoch + 1))
+        tree = _state_tree(*whole(), epoch + 1)
+        write(lambda: save_variables(state_path, tree))
 
-    save_variables(out_path, resnet50_flax_from_state_dict(model))
-    if onnx_out:
-        from imageclust_tpu_torch.models.onnx_export import (
-            export_resnet50_onnx,
-        )
+    model = whole()[0].to(dev)  # a mesh gathers it on the host
 
-        export_resnet50_onnx(model, onnx_out, input_size=input_size)
-    with open(os.path.join(os.path.dirname(os.path.abspath(out_path)) or ".",
-                           "classes.txt"), "w") as fh:
-        fh.write("\n".join(classes))
+    def final():
+        save_variables(out_path, resnet50_flax_from_state_dict(model))
+        if onnx_out:
+            from imageclust_tpu_torch.models.onnx_export import (
+                export_resnet50_onnx,
+            )
+
+            export_resnet50_onnx(model, onnx_out, input_size=input_size)
+        with open(os.path.join(
+                os.path.dirname(os.path.abspath(out_path)) or ".",
+                "classes.txt"), "w") as fh:
+            fh.write("\n".join(classes))
+
+    write(final)
     return model, classes, loss

@@ -18,6 +18,13 @@ channel flip folded into conv0) and a ViT batch is flipped to RGB and
 normalised on the device (JAX ``_embed_fn``); other sizes take the device
 resize first. Batches are padded to the smallest power of two that covers
 the job (capped at ``batch_size``), as the JAX executor does.
+
+With ``mesh=`` (JAX registry.py:79-137) the executor is data-parallel
+over the mesh's ``data`` ranks: the batch size rounds to a multiple of D,
+each rank embeds its row block of the job (``rows_per = ceil(n / D)``
+rows) with the weights it holds, and the features come back row-sharded
+(:class:`~imageclust_tpu_torch.core.mesh.ShardedRows`, for the engines)
+or gathered (``embed``, the whole array on every rank).
 """
 
 from __future__ import annotations
@@ -77,11 +84,22 @@ def list_models() -> list[str]:
 
 
 class Embedder:
-    """Batched embedding executor for one tower on one device."""
+    """Batched embedding executor for one tower on one device, or
+    data-parallel over a mesh's ``data`` ranks (``mesh``; the device is
+    then the mesh's)."""
 
     def __init__(self, spec: EmbedderSpec, model: torch.nn.Module,
                  batch_size: int, device: torch.device, tag: str = "",
-                 pooled: bool = False, weights_loaded: bool = False):
+                 pooled: bool = False, weights_loaded: bool = False,
+                 mesh=None):
+        from imageclust_tpu_torch.core.mesh import check_mesh
+
+        self.mesh = check_mesh(mesh)
+        if mesh is not None:
+            device = mesh.device
+            # the effective size everyone sees: producers chunk at it
+            ndata = mesh.shape["data"]
+            batch_size = max(ndata, batch_size // ndata * ndata)
         self.spec = spec
         self.model = model.to(device).eval()
         self._vit = isinstance(model, (VisionTransformer, QuantViT))
@@ -131,6 +149,13 @@ class Embedder:
         # smallest power-of-two batch that covers the job, capped at
         # batch_size (JAX registry.py:195-198)
         bs = min(self.batch_size, max(8, 1 << (n - 1).bit_length()))
+        if self.mesh is not None:  # this rank's rows, its share of a batch
+            from imageclust_tpu_torch.core.mesh import row_block
+
+            ndata = self.mesh.shape["data"]
+            bs = max(ndata, bs // ndata * ndata) // ndata
+            r0, n = row_block(n, self.mesh)
+            images = images[r0:r0 + n]
         chunks = []
         for start in range(0, n, bs):
             chunk = images[start:start + bs]
@@ -146,15 +171,26 @@ class Embedder:
 
     def embed(self, images) -> np.ndarray:
         """Embed a uint8 (N, H, W, 3) batch (BGR if spec.bgr_input).
-        Returns float32 (N, dim) on the host."""
+        Returns float32 (N, dim) on the host (on a mesh: every rank embeds
+        its rows, and every rank gets the whole array)."""
+        if self.mesh is not None:
+            return self.embed_device(images).gather().float().cpu().numpy()
         chunks = self._embed_chunks(images)
         if not chunks:
             return np.zeros((0, self.spec.dim), np.float32)
         return torch.cat(chunks).float().cpu().numpy()
 
-    def embed_device(self, images) -> torch.Tensor:
-        """Like :meth:`embed` but the result stays on the device."""
-        return torch.cat(self._embed_chunks(images))
+    def embed_device(self, images):
+        """Like :meth:`embed` but the result stays on the device: a tensor,
+        or on a mesh this rank's row block as ``ShardedRows``."""
+        chunks = self._embed_chunks(images)
+        if self.mesh is None:
+            return torch.cat(chunks)
+        from imageclust_tpu_torch.core.mesh import ShardedRows
+
+        local = torch.cat(chunks) if chunks else torch.zeros(
+            (0, self.spec.dim), device=self.device)
+        return ShardedRows.pad(local, len(images), self.mesh)
 
     def embed_stream(self, chunks, inflight: int = 4,
                      total: int | None = None) -> torch.Tensor:
@@ -185,7 +221,17 @@ class Embedder:
         forward with no transfer). ``total``: the job size, when known;
         embeddings then go into ONE preallocated (total, dim) buffer of the
         residency dtype, so the list path's final concatenation (2x the
-        feature bytes) never happens."""
+        feature bytes) never happens.
+
+        On a mesh each rank passes the chunks of ITS row block (rows
+        ``[d * ceil(total / D), ...)`` of the job, in order; ``total`` is
+        the job's size and required) and gets its block back as
+        ``ShardedRows``. The int8 scale is then the single device's: the
+        largest |value| of the job's first ``batch_size`` rows, taken
+        across ranks (one all_gather, which every rank joins at its first
+        chunk)."""
+        if self.mesh is not None and total is None:
+            raise ValueError("a mesh stream needs total= (the job's size)")
         if out_dtype in (None, torch.float32, np.float32, "float32"):
             out_dtype = torch.float32
         elif out_dtype not in (torch.bfloat16, torch.int8):
@@ -193,8 +239,13 @@ class Embedder:
         bs = self.batch_size
         expect = (self.spec.input_size, self.spec.input_size, 3)
         buf = None
+        n_out = total
+        if self.mesh is not None:
+            from imageclust_tpu_torch.core.mesh import row_block
+
+            row0, n_out = row_block(total, self.mesh)
         if total is not None:
-            buf = torch.empty((total, self.spec.dim), dtype=out_dtype,
+            buf = torch.empty((n_out, self.spec.dim), dtype=out_dtype,
                               device=self.device)
         outs: list[torch.Tensor] = []
         written = 0
@@ -216,8 +267,12 @@ class Embedder:
             emb = emb[:c] if c < bs else emb
             if out_dtype == torch.int8:
                 if n_chunks == 0:  # one host read, first chunk only
-                    scale = max(float(torch.amax(torch.abs(emb)))
-                                * margin / 127.0, 1e-30)
+                    if self.mesh is not None:
+                        scale = self._mesh_scale(emb[:max(0, bs - row0)],
+                                                 margin)
+                    else:
+                        scale = max(float(torch.amax(torch.abs(emb)))
+                                    * margin / 127.0, 1e-30)
                     s = torch.tensor(scale, dtype=torch.float32,
                                      device=emb.device)
                 emb = to_grid(emb, s)
@@ -238,15 +293,35 @@ class Embedder:
                     fence.synchronize()  # bound the queued work
                 fence = torch.cuda.Event()
                 fence.record()
+        if (self.mesh is not None and out_dtype == torch.int8
+                and n_chunks == 0):  # join the calibration all the same
+            scale = self._mesh_scale(buf[:0], margin)
         if buf is not None:
-            if written != total:
-                raise ValueError(
-                    f"stream yielded {written} rows, expected total={total}")
+            if written != n_out:
+                mine = "" if self.mesh is None else (
+                    f" ({n_out} in this rank's block)")
+                raise ValueError(f"stream yielded {written} rows, expected "
+                                 f"total={total}{mine}")
+            if self.mesh is not None:
+                from imageclust_tpu_torch.core.mesh import ShardedRows
+
+                return ShardedRows.pad(buf, total, self.mesh), scale
             return buf, scale
         if not outs:
             return torch.zeros((0, self.spec.dim), dtype=out_dtype,
                                device=self.device), scale
         return (outs[0] if len(outs) == 1 else torch.cat(outs)), scale
+
+
+    def _mesh_scale(self, first_rows: torch.Tensor, margin: float) -> float:
+        """The int8 scale from the job's first ``batch_size`` rows across
+        the mesh's ranks (``first_rows``: this rank's share of them)."""
+        from imageclust_tpu_torch.core.collectives import pmax
+
+        amax = (torch.amax(torch.abs(first_rows)) if first_rows.numel()
+                else torch.zeros((), device=self.device))
+        amax = pmax(amax.view(1).float(), self.mesh)[0]
+        return max(float(amax) * margin / 127.0, 1e-30)
 
 
 def _load_flax(model: torch.nn.Module, variables: Mapping) -> None:
@@ -441,14 +516,16 @@ def create_embedder(
     device: str | torch.device | None = None,
     seed: int = 0,
     variables: Mapping | None = None,
+    mesh=None,
 ) -> Embedder:
     """Build the configured tower on ``device`` (default ``"cuda"``).
     ``variables``: Flax variables from the JAX package to load instead of
     the seeded random init. With ``embed.quantize="int8"`` the tower is
     quantized after its weights are loaded (ONNX, HF checkpoint or
-    ``variables``), calibrating on the device."""
+    ``variables``), calibrating on the device. ``mesh``: the data-parallel
+    executor on the mesh's device (every rank builds the same tower)."""
     cfg = cfg or EmbedConfig()
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if cfg.quantize not in ("", "int8"):
         raise ValueError(f"unknown quantize mode {cfg.quantize!r}")
     if cfg.model not in list_models():
@@ -472,4 +549,4 @@ def create_embedder(
         model = _quantize(model.to(dev), spec, cfg, weights_loaded)
     batch = cfg.batch_size or DEFAULT_BATCH[cfg.model]
     return Embedder(spec, model, batch, dev, tag=tag, pooled=pooled,
-                    weights_loaded=weights_loaded)
+                    weights_loaded=weights_loaded, mesh=mesh)

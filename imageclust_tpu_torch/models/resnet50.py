@@ -73,7 +73,16 @@ class _BatchNorm(nn.Module):
     max(E[x^2] - mean^2, 0)`` over N, H and W in float32, and moves the
     running statistics to ``0.9 * running + 0.1 * batch`` outside
     autograd. ``F.batch_norm(training=True)`` would put the unbiased
-    variance into the running buffer."""
+    variance into the running buffer.
+
+    ``stat_sum``, when set (the sharded train step sets it for the length
+    of a step), takes the (2, C) float32 sums of x and x^2 over this
+    rank's N, H and W and the element count, and returns the sums and
+    count of the whole (global) batch, differentiably: the mean and the
+    biased variance are then those of the global batch, as the JAX step's
+    are (it normalises over the batch that the mesh shards)."""
+
+    stat_sum = None
 
     def __init__(self, c: int):
         super().__init__()
@@ -86,10 +95,17 @@ class _BatchNorm(nn.Module):
                 train: bool = False) -> torch.Tensor:
         shape = (1, -1, 1, 1)
         xf = x.float()
-        if train:
+        if train and self.stat_sum is not None:
+            sums, count = self.stat_sum(torch.stack(
+                [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]),
+                xf.shape[0] * xf.shape[2] * xf.shape[3])
+            mean = sums[0] / count
+            var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
+        elif train:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min(
                 (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+        if train:
             with torch.no_grad():
                 self.running_mean.copy_(
                     _MOMENTUM * self.running_mean + (1 - _MOMENTUM) * mean)

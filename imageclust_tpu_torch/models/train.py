@@ -22,9 +22,17 @@ the two packages' ``_state`` checkpoints are interchangeable. ``count``
 stays an int32 tensor on the host: the bias corrections are computed
 there in float32 and no step waits on the card for them.
 
-The JAX package shards this step over a (data, model) mesh; that half is
-not ported yet (ROADMAP.md queue 1, item 15), so ``mesh=``,
-:func:`param_spec` and :func:`shard_variables` raise.
+With ``mesh=`` (JAX train.py:117-130) the step is DP x TP over a (data,
+model) :class:`~imageclust_tpu_torch.core.mesh.Mesh`, one rank per device:
+each rank takes its ``data`` share of the global batch; the head
+``dense0`` (or a ``projection`` Linear) is sharded by output rows over
+``model`` (:func:`param_spec`) and everything else replicated; BatchNorm
+normalises with the global batch's statistics (the float32 sums of x and
+x^2 psum'd over ``data``, differentiably); the head's logits are gathered
+over ``model`` before the float32 softmax cross entropy; the loss is the
+mean over the global batch and the gradients are psum'd over ``data``.
+The AdamW moments follow their parameter (they are created from the
+rank's shards); the count is replicated.
 """
 
 from __future__ import annotations
@@ -37,26 +45,127 @@ import torch.nn.functional as F
 
 __all__ = ["make_train_step", "init_opt_state",
            "adamw_update", "opt_state_to_flax", "opt_state_from_flax",
-           "param_spec", "shard_variables", "WEIGHT_DECAY"]
+           "param_spec", "shard_variables", "variable_shardings",
+           "opt_shardings", "shard_model", "gather_variables",
+           "gather_opt_state", "shard_opt_state", "WEIGHT_DECAY"]
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 WEIGHT_DECAY = 1e-4  # optax.adamw's default
 
 
-def _mesh_not_ported(what: str):
-    raise NotImplementedError(
-        f"{what}: the sharded (data x model mesh) train step is not ported "
-        f"yet (ROADMAP.md queue 1, item 15)")
+def param_spec(path, leaf) -> tuple:
+    """The sharding rule (JAX train.py:41-51): the wide head (``dense0``, or
+    a ``projection`` Linear) is sharded on its output dimension over
+    ``model``; everything else is replicated. ``path`` is a state-dict
+    name (``"dense0.weight"``) or a sequence of path components. Returns
+    the mesh axis of each dimension of the torch tensor: ``("model",
+    None)`` for the head's (out, in) weight (JAX's ``P(None, "model")`` on
+    the (in, out) Flax kernel), ``("model",)`` for its bias, ``()`` for a
+    replicated leaf."""
+    names = (path.split(".") if isinstance(path, str)
+             else [str(getattr(p, "key", p)) for p in path])
+    joined = "/".join(names)
+    if "dense0" in joined or "projection" in joined:
+        ndim = len(getattr(leaf, "shape", ()))
+        if names[-1] in ("weight", "kernel") and ndim == 2:
+            return ("model", None)
+        if names[-1] == "bias" and ndim == 1:
+            return ("model",)
+    return ()
 
 
-def param_spec(path, leaf):
-    """The JAX package's sharding rule; waits for the multi-device half."""
-    _mesh_not_ported("param_spec")
+def variable_shardings(variables: Mapping, mesh) -> dict:
+    """Each leaf's :func:`param_spec` (JAX train.py:62)."""
+    from imageclust_tpu_torch.core.mesh import check_mesh
+
+    check_mesh(mesh)
+    return {k: param_spec(k, v) for k, v in variables.items()}
 
 
-def shard_variables(variables, mesh):
-    """The JAX package's mesh placement; waits for the multi-device half."""
-    _mesh_not_ported("shard_variables")
+def opt_shardings(opt_state: tuple) -> tuple:
+    """The AdamW state's specs (JAX ``_opt_shardings``, train.py:133): the
+    moments follow their parameter, the count is replicated."""
+    adam = opt_state[0]
+    return ({"count": (),
+             "mu": {k: param_spec(k, v) for k, v in adam["mu"].items()},
+             "nu": {k: param_spec(k, v) for k, v in adam["nu"].items()}},
+            None, None)
+
+
+def _shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``."""
+    if "model" not in spec:
+        return t
+    dim = spec.index("model")
+    parts = mesh.shape["model"]
+    if t.shape[dim] % parts:
+        raise ValueError(f"dimension {dim} of {tuple(t.shape)} does not "
+                         f"split over model={parts}")
+    return torch.chunk(t, parts, dim=dim)[mesh.index("model")]
+
+
+def shard_variables(variables: Mapping, mesh) -> dict:
+    """This rank's share of a state dict per :func:`param_spec`, on the
+    mesh's device (JAX train.py:54)."""
+    from imageclust_tpu_torch.core.mesh import check_mesh
+
+    check_mesh(mesh)
+    return {k: _shard(v, param_spec(k, v), mesh).to(mesh.device)
+            for k, v in variables.items()}
+
+
+@torch.no_grad()
+def shard_model(model: torch.nn.Module, mesh) -> torch.nn.Module:
+    """``model`` moved to the mesh's device with its head cut to this
+    rank's rows, in place (the layout :func:`make_train_step` with
+    ``mesh`` takes)."""
+    model.to(mesh.device)
+    for name, p in list(model.named_parameters()):
+        spec = param_spec(name, p)
+        if spec:
+            mod_name, _, attr = name.rpartition(".")
+            mod = model.get_submodule(mod_name)
+            setattr(mod, attr, torch.nn.Parameter(
+                _shard(p.detach(), spec, mesh).clone()))
+    return model
+
+
+def gather_opt_state(opt_state: tuple, mesh) -> tuple:
+    """The whole AdamW state of a sharded model on every rank (its head's
+    moments all-gathered over ``model``), on the host."""
+    from imageclust_tpu_torch.core.collectives import all_gather_rows
+
+    adam = opt_state[0]
+    out = {"count": adam["count"]}
+    for which in ("mu", "nu"):
+        out[which] = {
+            k: (all_gather_rows(v.contiguous(), mesh, "model")
+                if param_spec(k, v) else v).cpu()
+            for k, v in adam[which].items()}
+    return (out, None, None)
+
+
+def shard_opt_state(opt_state: tuple, mesh) -> tuple:
+    """This rank's share of a whole AdamW state (:func:`opt_shardings`),
+    on the mesh's device."""
+    adam = opt_state[0]
+    return ({"count": adam["count"],
+             "mu": shard_variables(adam["mu"], mesh),
+             "nu": shard_variables(adam["nu"], mesh)}, None, None)
+
+
+def gather_variables(model: torch.nn.Module, mesh) -> dict:
+    """The whole state dict of a sharded model on every rank (its head's
+    rows all-gathered over ``model``), on the host."""
+    from imageclust_tpu_torch.core.collectives import all_gather_rows
+
+    out = {}
+    for k, v in model.state_dict().items():
+        spec = param_spec(k, v)
+        if spec:  # the sharded dim is dim 0 of torch's (out, in) layout
+            v = all_gather_rows(v.detach().contiguous(), mesh, "model")
+        out[k] = v.detach().cpu()
+    return out
 
 
 def init_opt_state(model: torch.nn.Module) -> tuple:
@@ -108,11 +217,19 @@ def make_train_step(model: torch.nn.Module, learning_rate: float = 1e-3,
     """Build ``step(model, opt_state, images, labels) -> loss``: one AdamW
     step of ``model`` (updated in place, its ``.grad`` left holding this
     step's gradients) on an NCHW float batch and integer labels. The
-    loss comes back as a 0-d tensor on the model's device."""
-    if mesh is not None:
-        _mesh_not_ported("make_train_step(mesh=...)")
+    loss comes back as a 0-d tensor on the model's device.
+
+    With ``mesh`` the step is the sharded one (module docstring): every
+    rank calls it with the same global batch (its size a multiple of the
+    ``data`` axis) and a model from :func:`shard_model`; each rank's
+    ``.grad`` holds the global gradient of its shard, and every rank gets
+    the global loss."""
+    from imageclust_tpu_torch.core.mesh import check_mesh
+
     if getattr(model, "fold_bn", False):
         raise ValueError("fold_bn is an inference layout; train needs BN")
+    if check_mesh(mesh) is not None:
+        return _sharded_step(learning_rate, weight_decay, mesh)
 
     def step(model, opt_state, images, labels):
         params = dict(model.named_parameters())
@@ -125,6 +242,106 @@ def make_train_step(model: torch.nn.Module, learning_rate: float = 1e-3,
         adamw_update(params, {k: p.grad for k, p in params.items()},
                      opt_state, learning_rate, weight_decay)
         return loss.detach()
+
+    return step
+
+
+class _SumOverData(torch.autograd.Function):
+    """A psum over ``data`` whose gradient is the psum of the gradients
+    (each rank's loss reads the global sum)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from imageclust_tpu_torch.core.collectives import psum
+
+        ctx.mesh = mesh
+        return psum(x, mesh, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        from imageclust_tpu_torch.core.collectives import psum
+
+        return psum(g.contiguous(), ctx.mesh, "data"), None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity on the head's input; its gradient is psum'd over ``model``
+    (every head shard contributes to it)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from imageclust_tpu_torch.core.collectives import psum
+
+        return psum(g.contiguous(), ctx.mesh, "model"), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The head shards' (b, out / M) logits gathered to (b, out) over
+    ``model``; the gradient is this rank's columns."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        from imageclust_tpu_torch.core.collectives import all_gather_rows
+
+        ctx.mesh, ctx.cols = mesh, x.shape[1]
+        return all_gather_rows(x.T.contiguous(), mesh, "model").T
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh.index("model")
+        return g[:, m * ctx.cols:(m + 1) * ctx.cols], None
+
+
+def _sharded_step(learning_rate: float, weight_decay: float, mesh):
+    from imageclust_tpu_torch.core.collectives import psum
+    from imageclust_tpu_torch.core.mesh import row_block
+    from imageclust_tpu_torch.models.resnet50 import _BatchNorm
+
+    ndata = mesh.shape["data"]
+
+    def stat_sum(sums, count):
+        return _SumOverData.apply(sums, mesh), count * ndata
+
+    def step(model, opt_state, images, labels):
+        total = images.shape[0]
+        if total % ndata:
+            raise ValueError(f"global batch {total} does not split over "
+                             f"data={ndata}")
+        r0, b = row_block(total, mesh)
+        images, labels = images[r0:r0 + b], labels[r0:r0 + b]
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        bns = [m for m in model.modules() if isinstance(m, _BatchNorm)]
+        for bn in bns:
+            bn.stat_sum = stat_sum
+        try:
+            _, pooled = model(images, return_features=True, train=True)
+        finally:
+            for bn in bns:
+                bn.stat_sum = None
+        head = model.dense0
+        logits = _GatherFromModel.apply(F.linear(
+            _CopyToModel.apply(pooled, mesh), head.weight, head.bias), mesh)
+        loss = F.cross_entropy(logits.float(), labels.long(),
+                               reduction="sum") / total
+        loss.backward()
+        names = list(params)
+        flat = psum(torch.cat([params[k].grad.reshape(-1) for k in names]),
+                    mesh, "data")
+        grads, at = {}, 0
+        for k in names:
+            p = params[k]
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+            grads[k] = p.grad
+            at += p.numel()
+        adamw_update(params, grads, opt_state, learning_rate, weight_decay)
+        return psum(loss.detach(), mesh, "data")
 
     return step
 

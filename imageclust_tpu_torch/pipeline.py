@@ -17,6 +17,17 @@ card, with no per-image labeler; the label block is the one-hot matrix
 or, with ``labels.fusion="text"``, the text tower's dense block
 (labels/text_fusion.py).
 
+On a mesh (``Pipeline(config, mesh=...)``, every rank running the same
+call on the same inputs; JAX pipeline.py:80-86, 536-590) the embedder is
+data-parallel: above ``exact_limit`` each rank reads, labels, decodes and
+embeds only its row block of the job, the per-image labels are gathered,
+the label block (replicated) is fused onto each rank's rows and the scale
+engines run over the mesh with the features row-sharded; smaller jobs
+gather the features for the mesh exact engine. Rank 0 alone names the
+clusters (the others receive its names) and writes the report and the
+uploads; every rank returns the same result. The embedding cache is off
+on a mesh (ranks would race on it).
+
 Output shape parity with the reference: {"Cluster-<i>": ClusterDetails}
 (workflow.go:192) and a clusters.html report in the work dir.
 """
@@ -78,16 +89,26 @@ class PipelineResult:
 class Pipeline:
     """Long-lived pipeline: construct once (the model loads once onto the
     device), run per job. ``device`` defaults to ``"cuda"`` and raises
-    without a card; pass ``device="cpu"`` to run on the CPU."""
+    without a card; pass ``device="cpu"`` to run on the CPU. ``mesh`` (a
+    :class:`~imageclust_tpu_torch.core.mesh.Mesh`) runs every job over its
+    ranks on the mesh's device; an ``embedder`` given with it must be
+    built on that mesh."""
 
     def __init__(self, config: AppConfig | None = None, *, device=None,
-                 embedder=None):
+                 embedder=None, mesh=None):
+        from imageclust_tpu_torch.core.mesh import check_mesh
         from imageclust_tpu_torch.models import create_embedder
 
         self.config = config or AppConfig()
-        self.device = resolve_device(device)
-        self.embedder = embedder or create_embedder(self.config.embed,
-                                                    device=self.device)
+        self.mesh = check_mesh(mesh)
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
+        self.embedder = embedder or create_embedder(
+            self.config.embed, device=self.device, mesh=mesh)
+        if mesh is not None and getattr(self.embedder, "mesh", None) \
+                is not mesh:
+            raise ValueError("the embedder of a mesh pipeline must be built "
+                             "on the same mesh (Embedder(..., mesh=mesh))")
         self.naming = create_naming_service(self.config.naming)
         self._text_encoder = None  # lazy: only labels.fusion="text" pays
         self._naming_skipped = 0  # set per run by _apply_naming
@@ -138,7 +159,8 @@ class Pipeline:
 
         with timer.profiled():
             with timer.stage("ingest"):
-                names, blobs = self._save_uploads(uploads, image_dir)
+                names, blobs = self._save_uploads(uploads, image_dir,
+                                                  write=self._rank0())
                 item_ids = [f"img_{i}" for i in range(len(names))]  # workflow.go:140
             return self._run_core(
                 names, blobs, item_ids, work_dir, cache_dir,
@@ -213,7 +235,8 @@ class Pipeline:
         ``name_fn(i) -> str`` names item i (default ``img_{i:07d}.jpg``).
         Labels: backend ``none`` (skip) or ``zero_shot`` (from the
         embeddings on the card, no image bytes needed); blob-based labelers
-        need :meth:`run_paths`."""
+        need :meth:`run_paths`. On a mesh every rank passes the same global
+        stream and embeds the rows of its block."""
         cfg = self.config
         min_size = cfg.cluster.min_size if min_size is None else min_size
         max_size = cfg.cluster.max_size if max_size is None else max_size
@@ -233,6 +256,11 @@ class Pipeline:
         timer = StageTimer(metrics, profile_dir)
         metrics.counters["images"] = n_images
         os.makedirs(work_dir, exist_ok=True)
+
+        if self.mesh is not None:  # this rank's rows of the global stream
+            from imageclust_tpu_torch.core.mesh import local_stream
+
+            chunks = local_stream(chunks, n_images, self.mesh)
 
         with timer.profiled():
             with timer.stage("embed"):
@@ -318,10 +346,11 @@ class Pipeline:
             # decodes chunk k+1 while the card runs chunk k, so host memory
             # stays O(chunk), not O(job).
             per_image_labels: list = []
+            r0, n_mine = self._block(len(sources))
 
             def chunk_iter():
                 for _start, chunk_blobs, imgs in stream_decode(
-                    sources,
+                    sources[r0:r0 + n_mine],
                     size=self.embedder.spec.input_size,
                     batch=self.embedder.batch_size,
                     workers=cfg.preprocess.decode_workers,
@@ -339,6 +368,7 @@ class Pipeline:
                     chunk_iter(), out_dtype=self._residency_dtype(),
                     total=len(sources))
             if not zero_shot_batched:
+                per_image_labels = self._gather_list(per_image_labels)
                 label_set = self._label_set(per_image_labels, cfg.labels)
                 metrics.counters["unique_labels"] = len(label_set)
                 if hasattr(labeler, "hits"):
@@ -350,7 +380,9 @@ class Pipeline:
             ]
             if not zero_shot_batched:
                 with timer.stage("label"):
-                    per_image_labels = labeling.detect_all(blobs)
+                    r0, n_mine = self._block(len(blobs))
+                    per_image_labels = self._gather_list(
+                        labeling.detect_all(blobs[r0:r0 + n_mine]))
                     label_set = self._label_set(per_image_labels, cfg.labels)
                     metrics.counters["unique_labels"] = len(label_set)
                     if hasattr(labeler, "hits"):
@@ -364,7 +396,7 @@ class Pipeline:
                 )
 
             with timer.stage("embed"):
-                if cfg.embed.cache:
+                if cfg.embed.cache and self.mesh is None:
                     from imageclust_tpu_torch.utils.checkpoint import (
                         EmbeddingCache,
                     )
@@ -402,7 +434,7 @@ class Pipeline:
                     min_size=min_size, max_size=max_size,
                     update_rule=cfg.cluster.update_rule,
                     reassign_dropped=cfg.cluster.reassign_dropped,
-                    device=self.device,
+                    mesh=self.mesh, device=self.device,
                 )
             metrics.counters["clusters"] = result.n_clusters
             metrics.counters["dropped"] = len(result.dropped)
@@ -428,9 +460,33 @@ class Pipeline:
 
     # ------------------------------------------------------------------
 
+    def _rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _block(self, n: int) -> tuple[int, int]:
+        """(first row, rows) of this rank's block of an n-item job: the
+        whole job without a mesh."""
+        if self.mesh is None:
+            return 0, n
+        from imageclust_tpu_torch.core.mesh import row_block
+
+        return row_block(n, self.mesh)
+
+    def _gather_list(self, items: list) -> list:
+        """The ranks' per-item lists concatenated in row order (the list
+        itself without a mesh)."""
+        if self.mesh is None:
+            return items
+        from imageclust_tpu_torch.core.collectives import gather_objects
+
+        return [x for part in gather_objects(items, self.mesh) for x in part]
+
     def _write_report(self, details, work_dir, image_route, report_routes):
         """report_routes = (page_route, index_route[, section_route]) for
-        job-scoped pagination links; file-relative defaults otherwise."""
+        job-scoped pagination links; file-relative defaults otherwise. On a
+        mesh rank 0 writes; the others return the same path."""
+        if not self._rank0():
+            return os.path.join(work_dir, "clusters.html")
         routes = tuple(report_routes or ())
         page_route = routes[0] if routes else "clusters_p{page}.html"
         index_route = routes[1] if len(routes) > 1 else "clusters.html"
@@ -448,10 +504,17 @@ class Pipeline:
         label set. Construction stays with create_labeler; the per-image
         label cache does not apply (the embedding cache covers the costly
         half)."""
+        from imageclust_tpu_torch.core.mesh import ShardedRows
+
         cfg = self.config.labels
         zs = create_labeler(cfg, None, embedder=self.embedder)
-        per_image_labels = zs.labels_from_embeddings(
-            image_emb, cfg.max_labels, cfg.min_confidence)
+        if isinstance(image_emb, ShardedRows):  # this rank's rows, gathered
+            per_image_labels = self._gather_list(zs.labels_from_embeddings(
+                image_emb.local[:image_emb.n_local], cfg.max_labels,
+                cfg.min_confidence))
+        else:
+            per_image_labels = zs.labels_from_embeddings(
+                image_emb, cfg.max_labels, cfg.min_confidence)
         label_set = self._label_set(per_image_labels, cfg)
         metrics.counters["unique_labels"] = len(label_set)
         return per_image_labels, label_set
@@ -494,10 +557,15 @@ class Pipeline:
         relative geometry matches the f32 pipeline."""
         import torch
 
+        from imageclust_tpu_torch.core.mesh import ShardedRows, local_rows
         from imageclust_tpu_torch.ops.pref_kernels import to_grid
 
         if not label_mat.shape[1]:
             return image_emb
+        if isinstance(image_emb, ShardedRows):  # this rank's label rows
+            lm = local_rows(label_mat, image_emb.mesh).local.cpu().numpy()
+            return image_emb.map(
+                lambda e: self._fuse_big(e, lm, emb_scale))
         lm = torch.from_numpy(np.ascontiguousarray(label_mat))
         if image_emb.dtype == torch.int8:
             had_labels = bool(label_mat.any())
@@ -523,7 +591,7 @@ class Pipeline:
                 features, item_ids,
                 min_size=min_size, max_size=max_size,
                 reassign_dropped=cfg.cluster.scale_reassign_dropped,
-                device=self.device,
+                mesh=self.mesh, device=self.device,
             )
         if cfg.cluster.scale_engine != "bucketed":
             # fail loud: a typo must not silently pick an engine
@@ -538,7 +606,7 @@ class Pipeline:
             update_rule=cfg.cluster.scale_update_rule,
             reassign_dropped=cfg.cluster.scale_reassign_dropped,
             feature_dtype=cfg.cluster.feature_dtype,
-            device=self.device,
+            mesh=self.mesh, device=self.device,
         )
 
     @staticmethod
@@ -569,18 +637,21 @@ class Pipeline:
         return build_label_set(source)
 
     def _save_uploads(
-        self, uploads: list[UploadedImage], image_dir: str
+        self, uploads: list[UploadedImage], image_dir: str,
+        write: bool = True,
     ) -> tuple[list[str], list[bytes]]:
         """Persist sanitized uploads (handlers.go:86-104 + workflow.go:120-127)
-        and return (filenames, raw bytes)."""
+        and return (filenames, raw bytes); ``write=False`` names them
+        without writing (a mesh rank other than 0)."""
         names: list[str] = []
         blobs: list[bytes] = []
         seen: set[str] = set()
         for up in uploads:
             name = dedup_name(sanitize_filename(up.filename) or "image", seen)
             seen.add(name)
-            with open(os.path.join(image_dir, name), "wb") as fh:
-                fh.write(up.data)
+            if write:
+                with open(os.path.join(image_dir, name), "wb") as fh:
+                    fh.write(up.data)
             names.append(name)
             blobs.append(up.data)
         return names, blobs
@@ -686,7 +757,16 @@ class Pipeline:
 
         state_path = os.path.join(work_dir, "naming_state.jsonl") \
             if work_dir else None
-        outputs = self.naming.name_clusters(texts, state_path=state_path)
+
+        def name():
+            return self.naming.name_clusters(texts, state_path=state_path)
+
+        if self.mesh is None:
+            outputs = name()
+        else:  # rank 0 names; its names, or its error, reach every rank
+            from imageclust_tpu_torch.core.collectives import on_rank
+
+            outputs = on_rank(name, self.mesh)
         for key, outs in outputs.items():
             d = details[key]
             for out in outs:

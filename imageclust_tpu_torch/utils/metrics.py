@@ -16,7 +16,7 @@ from dataclasses import dataclass, field
 
 log = logging.getLogger(__name__)
 
-__all__ = ["RunMetrics", "StageTimer", "ServiceMetrics"]
+__all__ = ["RunMetrics", "StageTimer", "ServiceMetrics", "CollectiveCounters"]
 
 
 class ServiceMetrics:
@@ -110,3 +110,26 @@ class StageTimer:
         with profile(activities=activities) as prof:
             yield
         prof.export_chrome_trace(os.path.join(self.profile_dir, "trace.json"))
+
+
+class CollectiveCounters:
+    """Calls and bytes of the mesh collectives, by name
+    (:mod:`imageclust_tpu_torch.core.collectives` adds to them), and the
+    host seconds spent inside them (``seconds``). Bytes are each call's
+    local payload: what this rank sends."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls: dict[str, int] = {}
+        self.bytes: dict[str, int] = {}
+        self.seconds = 0.0
+
+    def add(self, name: str, nbytes: int) -> None:
+        self.calls[name] = self.calls.get(name, 0) + 1
+        self.bytes[name] = self.bytes.get(name, 0) + int(nbytes)
+
+    def snapshot(self) -> dict:
+        return {"calls": dict(self.calls), "bytes": dict(self.bytes),
+                "seconds": self.seconds}

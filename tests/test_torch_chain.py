@@ -281,9 +281,24 @@ class TestRobustness:
         _chain(arg)
         np.testing.assert_array_equal(x, before)
 
-    def test_mesh_raises(self, gauss):
-        with pytest.raises(NotImplementedError, match="item 15"):
+    def test_mesh_raises(self, gauss, mesh8, monkeypatch):
+        """Formerly the refusal of ``mesh=``. An object that is not a Mesh
+        is a TypeError; a Mesh (a world of one rank here) runs the mesh
+        loops, ``rnn`` and ``seq``: the same partition as the JAX mesh
+        chain on the (4 x 2) virtual mesh, on tie-free Gaussian features.
+        Multi-rank meshes: tests/test_torch_mesh_engines.py."""
+        from imageclust_tpu_torch.core.mesh import create_mesh
+
+        with pytest.raises(TypeError, match="Mesh"):
             constrained_ward_chain(gauss(20), mesh=object(), device="cpu")
+        x = gauss(120)
+        one = create_mesh(data=1, device="cpu")
+        for impl in IMPLS:
+            monkeypatch.setenv("IMAGECLUST_CHAIN_IMPL", impl)
+            got = constrained_ward_chain(x, mesh=one)
+            want = jax_chain(x, mesh=mesh8)
+            assert _partition(got) == _partition(want), impl
+            assert sorted(got.dropped) == sorted(want.dropped), impl
 
     def test_default_device_needs_cuda(self, gauss, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -920,3 +920,48 @@ def test_orbax_fixture_reads_on_card_machine(cuda):
             got["params"]["conv0"]["kernel"].view(torch.uint16).numpy(),
             z["params.conv0.kernel.bf16bits"])
     assert orbax_io.libzstd_path()
+
+
+# -- the mesh on the card ---------------------------------------------------------
+#
+# Ranks started by launch_processes(device="cuda"); each worker asserts on
+# the global result against the single-card run in its own process
+# (imageclust_tpu_torch/parallel/_worker.py).
+
+
+def test_mesh_nccl_world_of_one(cuda):
+    """One rank over NCCL: psum, the train step (against the single-card
+    step: loss rtol 1e-5, gradients 1e-4 relative L2) and the mesh
+    bucketed engine (equal to the single-card engine in float32 and int8),
+    each through NCCL's collectives."""
+    from imageclust_tpu_torch.parallel import launch_processes
+
+    outs = launch_processes("imageclust_tpu_torch.parallel._worker:verify_all",
+                            1, device="cuda", backend="nccl", timeout=300)
+    for line in ("psum ok", "train step ok", "bucketed ok", "nccl"):
+        assert line in outs[0], outs[0][-2000:]
+
+
+def test_mesh_gloo_two_ranks_share_the_card(cuda):
+    """Two ranks on one card over gloo (NCCL refuses two ranks on one
+    device): the same checks, gloo's collectives on card tensors."""
+    from imageclust_tpu_torch.parallel import launch_processes
+
+    outs = launch_processes("imageclust_tpu_torch.parallel._worker:verify_all",
+                            2, device="cuda", backend="gloo", timeout=300)
+    for out in outs:
+        for line in ("psum ok", "train step ok", "bucketed ok", "gloo",
+                     "device=cuda:0"):
+            assert line in out, out[-2000:]
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda):
+    """create_mesh names the problem before NCCL would (two ranks, one
+    card, NCCL): the launch fails with the worker's ValueError."""
+    from imageclust_tpu_torch.parallel import launch_processes
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("needs exactly one card")
+    with pytest.raises(RuntimeError, match="need backend='gloo'"):
+        launch_processes("imageclust_tpu_torch.parallel._worker:verify_psum",
+                         2, device="cuda", backend="nccl", timeout=120)

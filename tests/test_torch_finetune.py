@@ -148,10 +148,35 @@ class TestFinetune:
             assert fh.read() == "green\nred"
 
     def test_mesh_raises(self, labeled_dir, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        """Formerly the refusal of ``mesh=``. An object that is not a Mesh
+        is a TypeError; a Mesh (a world of one rank here) trains with the
+        sharded step to the single device's weights (each leaf within
+        rtol 1e-5, atol 1e-5 of its largest magnitude) and writes a
+        checkpoint the JAX ``restore_variables`` reads bit for bit. Over
+        four ranks: tests/test_torch_train_sharded.py."""
+        from imageclust_tpu_torch.core.mesh import create_mesh
+
+        with pytest.raises(TypeError, match="Mesh"):
             finetune.finetune_resnet50(labeled_dir, str(tmp_path / "ck"),
                                        mesh=object(), device="cpu",
                                        **_SMALL)
+        kw = dict(epochs=1, batch_size=4, device="cpu", **_SMALL)
+        one, _, loss_one = finetune.finetune_resnet50(
+            labeled_dir, str(tmp_path / "one"), **kw)
+        got, classes, loss = finetune.finetune_resnet50(
+            labeled_dir, str(tmp_path / "mesh"),
+            mesh=create_mesh(data=1, device="cpu"), **kw)
+        assert classes == ["green", "red"]
+        np.testing.assert_allclose(loss, loss_one, rtol=1e-5)
+        back = dict(_leaves(jax_restore(str(tmp_path / "mesh"))))
+        want = dict(_leaves(resnet50_flax_from_state_dict(got)))
+        ref = dict(_leaves(resnet50_flax_from_state_dict(one)))
+        assert back.keys() == want.keys() == ref.keys()
+        for k in want:
+            np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+            np.testing.assert_allclose(
+                want[k], ref[k], rtol=1e-5,
+                atol=1e-5 * np.abs(ref[k]).max(), err_msg=k)
 
     def test_default_device_needs_cuda(self, labeled_dir, tmp_path,
                                        monkeypatch):

@@ -54,7 +54,8 @@ def test_port_has_modules():
                 "cluster/chain.py", "cluster/agreement.py",
                 "cluster/quality.py", "utils/orbax_io.py",
                 "utils/checkpoint.py", "models/train.py",
-                "models/finetune.py"):
+                "models/finetune.py", "core/mesh.py", "core/collectives.py",
+                "parallel/__init__.py", "parallel/_worker.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
@@ -229,6 +230,17 @@ def test_finetune_and_serve_checkpoint_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "['a', 'b'] []"
+
+
+def test_mesh_ranks_run_without_jax():
+    """Two gloo ranks run the collectives, the mesh bucketed engine and
+    import the mesh pipeline, chain and fine-tune with no JAX module in
+    their interpreters."""
+    from imageclust_tpu_torch.parallel import launch_processes
+
+    outs = launch_processes("tests.test_torch_mesh_targets:no_jax", 2,
+                            timeout=110.0)
+    assert all("no jax ok" in o for o in outs)
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

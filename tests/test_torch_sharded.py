@@ -413,10 +413,12 @@ class TestEngine:
         res = tsh.constrained_ward_bucketed(x, bucket_size=64, device="cpu")
         assert res.n_items == 300
 
+    # mesh=: formerly a NotImplementedError; an object that is not a Mesh is
+    # now a TypeError (the mesh engine: tests/test_torch_mesh_engines.py)
     @pytest.mark.parametrize("kw,exc", [
         (dict(feature_dtype="fp8"), ValueError),
-        (dict(mesh=object()), NotImplementedError),
-        (dict(mesh=object(), feature_dtype="int8"), NotImplementedError),
+        (dict(mesh=object()), TypeError),
+        (dict(mesh=object(), feature_dtype="int8"), TypeError),
         (dict(update_rule="nope"), ValueError)])
     def test_unported_modes_raise(self, rng, kw, exc):
         x = rng.normal(size=(300, 4)).astype(np.float32)

@@ -285,13 +285,41 @@ class TestConvert:
 
 class TestRefusals:
     def test_mesh_raises(self):
+        """Formerly the refusal of the sharded step. An object that is not a
+        Mesh is a TypeError; ``param_spec`` is the JAX package's rule on
+        every leaf: the head's (out, in) weight sharded on its output rows
+        where JAX shards the (in, out) kernel's columns, its bias likewise,
+        every other leaf replicated. The sharded step itself:
+        tests/test_torch_train_sharded.py."""
+        from jax.sharding import PartitionSpec as P
+
+        from imageclust_tpu.models.train import param_spec as jax_spec
+        from imageclust_tpu_torch.models.convert import _flax_leaf
+
         model = ResNet50V1(num_classes=_CLASSES, stage_layers=_LAYERS)
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(TypeError, match="Mesh"):
             train.make_train_step(model, mesh=object())
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(TypeError, match="Mesh"):
             train.shard_variables({}, object())
-        with pytest.raises(NotImplementedError, match="item 15"):
-            train.param_spec((), np.zeros(1))
+        assert train.param_spec((), np.zeros(1)) == ()
+        _, variables = _flax()
+        want = {}
+        for path, leaf in jax.tree_util.tree_flatten_with_path(
+                variables)[0]:
+            want["/".join(str(getattr(k, "key", k)) for k in path)] = \
+                jax_spec(path, leaf)
+        sharded = 0
+        for name, t in model.state_dict().items():
+            coll, path, _ = _flax_leaf(name, t.numpy())
+            spec = want["/".join((coll, *path))]
+            got = train.param_spec(name, t)
+            if spec == P():
+                assert got == (), name
+            else:  # the torch layout transposes Flax's (in, out) kernel
+                sharded += 1
+                assert got == tuple(reversed(tuple(spec))) or (
+                    len(spec) == 1 and got == tuple(spec)), (name, got, spec)
+        assert sharded == 2  # dense0's kernel and bias
 
     def test_fold_bn_cannot_train(self):
         model = ResNet50V1(num_classes=_CLASSES, stage_layers=_LAYERS,

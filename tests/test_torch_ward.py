@@ -185,9 +185,26 @@ class TestHostSide:
             tw.constrained_ward(_grid(1, 12, 2), update_rule="nope",
                                 device="cpu")
 
-    def test_mesh_not_ported(self):
-        with pytest.raises(NotImplementedError):
+    def test_mesh_not_ported(self, mesh8):
+        """Formerly the refusal of ``mesh=``. An object that is not a Mesh
+        is a TypeError; a Mesh (here a world of one rank: the mesh loop
+        with identity collectives) runs the row-sharded loop, whose merge
+        log on an integer grid (d = 4) is bit-identical to the JAX mesh
+        engine's on the (4 x 2) virtual mesh under both rules. Multi-rank
+        meshes: tests/test_torch_mesh_engines.py."""
+        from imageclust_tpu_torch.core.mesh import create_mesh
+
+        with pytest.raises(TypeError, match="Mesh"):
             tw.constrained_ward(_grid(1, 12, 2), mesh=object(), device="cpu")
+        x = _grid(5, 90, 4)
+        ids = [f"i{k}" for k in range(len(x))]
+        one = create_mesh(data=1, device="cpu")
+        for rule in ("centroid", "lance_williams"):
+            a = jw.constrained_ward(x, ids, min_size=3, max_size=6,
+                                    update_rule=rule, mesh=mesh8)
+            b = tw.constrained_ward(x, ids, min_size=3, max_size=6,
+                                    update_rule=rule, mesh=one)
+            _assert_identical(a, b)
 
     def test_default_device_needs_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
