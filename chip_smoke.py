@@ -10,10 +10,11 @@ line and raises on any failure:
 1. the card (``nvidia-smi`` name and power limit, printed as given) and the
    kernel build;
 2. K1 (``merge_update_argmin``) against its plain PyTorch twin on the card
-   at n in {128, 256, 1024, 4096}: random and integer-grid (tied) matrices,
+   at n in {128, 256, 1024, 2048, 4096}: random and integer-grid (tied)
+   matrices,
    random active/size/birth patterns, ``do_update`` 0 and 1, an
    all-infeasible case — bit-identical (D, dmin, bhi, blo) required; then
-   whole exact runs at n in {128, 1024, 2048} on normal, integer-grid and
+   whole exact runs at n in {128, 1024} on normal, integer-grid and
    d = 2 integer-grid (heavy ties) features, K1's loop steps (its per-row
    cache, the fused bookkeeping) against the twin steps on a copy of the
    state: (dmin, bhi, blo) bit-identical at every step, final D, log,
@@ -33,7 +34,7 @@ line and raises on any failure:
    (18 images in 3 colour groups, 200 images, the 18 again with
    ``?async=1``), then ``/api/result``, ``/api/view``, ``/api/image`` and
    ``/healthz``;
-5. ``cli run`` on 4000 BMPs in a temp directory (below ``exact_limit``);
+5. ``cli run`` on 2000 BMPs in a temp directory (below ``exact_limit``);
 6. K3 (``merge_update_argmin_batched``) against its twin on the card: C in
    {1, 8, 261} buckets of B in {128, 512}, random and integer-grid
    matrices, mixed ``do_update``, ``absorb_min`` -1 and 3, an all-infeasible
@@ -64,7 +65,7 @@ line and raises on any failure:
    bucket-merges phase; for the centroid rule the lockstep loop's seconds,
    its peak device memory, and one iteration split into K3, the float work
    and the gaps (torch.profiler over a third run);
-9. ``cli run`` on 6000 BMPs (above ``exact_limit``): streamed ingest, the
+9. ``cli run`` on 4500 BMPs (above ``exact_limit``): streamed ingest, the
    bucketed engine on K2, the report;
 10. ``Pipeline.run_stream`` on 16,384 images made on the card as CUDA
     ``uint8`` chunks;
@@ -78,7 +79,7 @@ line and raises on any failure:
     with ``models.vit.attention`` swapped for the twin: per-row cosine
     >= ``VIT_COS_FLOOR``, 12 K5 launches per batch, images/s;
 13. the server of phase 4 with ``embed.model=vit_b32``;
-14. ``cli run --model vit_b32`` on 10,000 BMPs (streamed, the bucketed
+14. ``cli run --model vit_b32`` on 4500 BMPs (streamed, the bucketed
     engine on K2), 12 K5 launches per batch of 1024;
 15. ``vit_b16``, ``vit_l14``, ``vit_l14_336`` and ``siglip_so400m`` at full
     width on 256 images each: finite (256, proj_dim) output, no K5 launch
@@ -92,15 +93,18 @@ line and raises on any failure:
     up to near ties; times of each dtype and row path (CUDA events around
     a burst, the profiler beside them) beside their bounds, the twin's and
     a ``torch.matmul`` + ``torch.topk`` yardstick (bf16 and f32);
-17. the bucketed engine at n = 2,000,000 (5209 buckets: one K4 launch) on
-    seeded normal features in int8 (d = 1024), bf16 and f32 (d = 512):
-    sizes in [3, 6], no image lost; the int8 run identical to a run with
-    every kernel swapped for its twin, the bf16/f32 assignments' share
-    that matches a twin summarize on the same centroids at least
-    ``ASSIGN_MATCH_FLOOR``; K2's summed device time beside bucket-merges;
+17. the bucketed engine at n = 1,600,000 (4167 buckets: one K4 launch) on
+    seeded normal features in int8 (d = 1024) and f32 (d = 512; bf16 at
+    d = 512 is phase 18's engine run): sizes in [3, 6], no image lost; the
+    int8 run identical to a run with every kernel swapped for its twin,
+    the f32 assignments' share that matches a twin summarize on the same
+    centroids at least ``ASSIGN_MATCH_FLOOR``; K2's summed device time
+    beside bucket-merges;
 18. ``Pipeline.run_stream`` on 1,600,000 images made on the card, with
-    ``embed.model=vit_b32`` and ``cluster.feature_dtype=bfloat16`` (4167
-    buckets): 12 K5 launches a batch, one K4 launch, the naming budget;
+    ``embed.model=vit_b32`` (full width, its depth cut to
+    ``STREAM_VIT_DEPTH`` = 2 blocks) and ``cluster.feature_dtype=bfloat16``
+    (4167 buckets): 2 K5 launches a batch, one K4 launch, the naming
+    budget;
 19. ONNX at full width: the seeded ResNet50 (1000 classes) exported twice
     through the port's exporter into ``$IMAGECLUST_SMOKE_OUT`` (equal
     sha256), loaded through ``embed.onnx_path`` (weights bit-identical to
@@ -132,22 +136,23 @@ line and raises on any failure:
 23. ``Pipeline.run_stream`` on 1,600,000 images as in phase 18, with
     ``labels.backend=zero_shot`` (a ``cli bank`` over four of the job's own
     colour bases) and ``labels.fusion=text``: BASELINE config 5's joint
-    features, 512 + 512 bf16 columns into the engine, 12 K5 launches a
-    batch, one K4 launch, labels fired; then K4 on this job's centroids
-    against its twin at bf16 d = 1024, every differing pick a near tie of
-    the float32 score;
+    features, 512 + 512 bf16 columns into the engine, 2 K5 launches a
+    batch (the tower and the bank's at 2 blocks, as in phase 18), one K4
+    launch, labels fired; then K4 on this job's centroids against its twin
+    at bf16 d = 1024, every differing pick a near tie of the float32 score;
 24. the NN-chain engine (``constrained_ward_chain``): at n = 4096, d = 512
     (seeded Gaussian features, the JAX spot check's shape) the same
     partition and dropped set as the exact engine on K1 under the centroid
-    rule; at n = 20,000, d = 64 the sequential chain (CUDA graph replays)
+    rule; at n = 10,000, d = 64 the sequential chain (CUDA graph replays)
     gives the card's rounds' partition, with its steps per second, and on
-    the first 10,000 rows the rounds on the CPU give the card's; the rounds on phase 8's 100,000 x
-    1000 features: sizes in [3, 6], no image lost, the caller's features
-    unchanged, wall s, recompute and merge rounds with their seconds, the
-    loop's peak device memory, and the agreement (ARI, NMI, pair recall and
-    precision) of the bucketed engine's partition with the chain's;
+    the first 5000 rows the rounds on the CPU give the card's; the rounds
+    on phase 8's 100,000 x 1000 features: sizes in [3, 6], no image lost,
+    the caller's features unchanged, wall s, recompute and merge rounds
+    with their seconds, the loop's peak device memory, and the agreement
+    (ARI, NMI, pair recall and precision) of the bucketed engine's
+    partition with the chain's;
 25. ``cli run --model vit_b32 --set cluster.scale_engine=chain`` on phase
-    14's 10,000 BMPs (12 K5 launches a batch, no K1-K4 launch) and its
+    14's 4500 BMPs (12 K5 launches a batch, no K1-K4 launch) and its
     agreement with phase 14's bucketed partition; ``Pipeline.run_stream``
     on 100,000 images made on the card with ``vit_b32`` and the chain
     engine (BASELINE config 3's job size with ViT-B/32 in place of
@@ -159,7 +164,7 @@ line and raises on any failure:
     JAX package's own rows there sit under the ARI and F1 floors, which
     the line prints as missed); text fusion against one-hot at
     n = 20,000, d = 256; int8 PTQ against bf16 towers for ResNet50 and
-    ViT-B/32 on 4096 images; every row on its own line, with the K2 (and
+    ViT-B/32 on 2048 images; every row on its own line, with the K2 (and
     K5) launches of each;
 27. fine-tuning at full width (``models/finetune.py``): the committed
     Orbax fixture (tests/data/orbax_small, written by the JAX package:
@@ -181,12 +186,30 @@ line and raises on any failure:
 28. the mesh (``core/mesh.py``, ``parallel/``): ranks started by
     ``launch_processes(device="cuda")``, (a) one rank over NCCL, (b) two
     ranks sharing the card over gloo, each against the single card: the
-    exact engine at 4096 x 1000, the bucketed engine at 100,000 x 1000
+    exact engine at 1024 x 1000, the bucketed engine at 100,000 x 1000
     under both rules (K2 and K3 on every rank), over gloo also the
-    chain's rounds at 4096 x 512, the sequential chain at 2000 x 64,
-    ``run_paths`` on 6000 BMPs and the full-width train step at batch 64
+    chain's rounds at 4096 x 512, the sequential chain at 300 x 64,
+    ``run_paths`` on 4500 BMPs and the full-width train step at batch 64
     at (data=2, model=1) and (data=1, model=2), at seeded and tuned
     weights, each beside the float64 gradient.
+29. the cloud backends and ``cli verify``: a local ``http.server`` plays the
+    container credentials endpoint and IMDSv2, reached by
+    ``resolve_credentials`` through the port's real ``urllib`` transport;
+    a stub at that transport's seam answers Rekognition, Bedrock (Claude,
+    Nova) and OpenAI, recomputing every SigV4 signature from the
+    credentials served and refusing a wrong one, with one 429 before a
+    success for Rekognition, Claude and OpenAI and a 403 on every Nova
+    request of the clusters labelled ``Colour g00`` (they end in the
+    fallback pair); one 200-image ``Pipeline.run`` (full-width ResNet50,
+    ``labels.backend=rekognition``, namers Claude Haiku, Nova Micro and
+    GPT-3.5) on the card: the labels in its cache equal the canned ones
+    image by image, the names are the stub's titles in display order, K1
+    in its window, sizes in [3, 6], no image lost; the same job again on
+    its label cache sends no Rekognition request; the payload shrink of an
+    18 MB BMP (a JPEG at most 2048 px where cv2 is importable, else the
+    ValueError naming cv2); ``cli verify --clip-text`` (PASS) on the
+    phase-21 checkpoint and ``--onnx`` on a seeded export (PASS with cv2,
+    else exit 2 naming cv2), both with ``--device cuda``.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -197,7 +220,8 @@ bucket dispatcher formed. K3: each lockstep phase launches between its
 iterations + 1 and its iterations + K times (64 iterations a CUDA graph
 replay, one host read of the chunk's "a bucket ran" flag after each). K4: one launch per job with
 k >= 4096 buckets on the card, none below. The line before the last is
-the ``{"kernels": [...]}`` summary (K1's launches from the server phase, K2's
+the ``{"kernels": [...]}`` summary (K1's launches from the server phase
+and phase 29's first job, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
 phase and the int8 ViT server request of phase 20, K4's from the
 1.6M-image ``run_stream``; phases 21-27 print their launches on their
@@ -235,14 +259,14 @@ K3_KERNEL = ("lockstep_step_kernel",)  # K3's
 TIMING_REPS = 25
 DEVICE = "cuda"
 ENGINE_N = 4096     # phase 3: the exact engine's largest padded size
-CLI_GROUPS = 800    # phase 5: 800 groups x 5 = 4000 images (< exact_limit)
+CLI_GROUPS = 400    # phase 5: 400 groups x 5 = 2000 images (< exact_limit)
 SERVER_GROUPS = 40  # phase 4: 40 groups x 5 = 200 images in one request
 BIG_N, BIG_D = 100_000, 1000  # phase 8: the bucketed engine's job
 # phase 6: K3 at the 100,000-image job's one chunk (261 buckets of 512
 # slots, 384 items each), its cached call timed after 100 iterations
 K3_C, K3_B, K3_ITEMS, K3_WARM_ITERS = 261, 512, 384, 100
 SPIN_CYCLES = 200_000  # about 0.1 ms of device spin ahead of a queued call
-BIG_CLI_GROUPS = 1200  # phase 9: 1200 groups x 5 = 6000 images
+BIG_CLI_GROUPS = 900  # phase 9: 900 groups x 5 = 4500 images (> 4096)
 STREAM_N = 16_384      # phase 10
 FP32_OPS_PER_S = 67e12  # H100 SXM data sheet, FP32 outside the tensor cores
 # K2's work on these inputs: one scan of each bucket's active pairs, per
@@ -257,7 +281,7 @@ BF16_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 VIT_B32_DEPTH = 12      # encoder blocks of ViT-B/32: one K5 launch each
 VIT_N = 4096            # phase 12: images through the full-width ViT-B/32
 VIT_COS_FLOOR = 0.999   # phase 12: per-row cosine, K5 run vs twin run
-VIT_CLI_GROUPS = 2000   # phase 14: 2000 groups x 5 = 10,000 images
+VIT_CLI_GROUPS = 900    # phase 14: 900 groups x 5 = 4500 images
 OTHER_TOWER_N = 256     # phase 15: images per tower
 # phase 11: K5's shapes (B, T, H, Dh): ViT-B/32 at batch 1024, the longest
 # sequence and the odd sizes the wrapper takes
@@ -282,8 +306,12 @@ K4_NEAR_TIE = 1e-5  # relative, float64 distances of differing picks
 # phase 17: least share of f32/bf16 k-means assignments equal to a twin
 # summarize's on the same centroids (they may differ only at near ties)
 ASSIGN_MATCH_FLOOR = 0.9999
-ENGINE_2M = 2_000_000    # phase 17: 5209 buckets, the K4 path
+ENGINE_K4_N = 1_600_000  # phase 17: 4167 buckets, the K4 path
 STREAM_BIG_N = 1_600_000  # phase 18: 4167 buckets (>= 4096 from 1,572,864)
+# phases 18 and 23: ViT-B/32 at full width with its encoder cut from 12
+# blocks to 2 (seeded random weights), so that the 1.6M-image streams
+# spend their time in the stages after the tower
+STREAM_VIT_DEPTH = 2
 ONNX_SEED = 0          # phase 19: the seeded tower written to ONNX
 ONNX_EMBED_N = 256     # phase 19: images through the seeded and loaded towers
 ONNX_COS_FLOOR = 0.99999  # phase 19: per-row cosine, loaded vs seeded
@@ -298,13 +326,13 @@ BANK_IMAGES_PER_LABEL = 4  # phases 22-23: BMPs per label directory
 # check's shape, the sequential chain against the rounds, then the rounds
 # on phase 8's features
 CHAIN_GREEDY_N, CHAIN_GREEDY_D = 4096, 512
-CHAIN_SEQ_N, CHAIN_SEQ_D = 20_000, 64
-CHAIN_CPU_N = 10_000  # the rounds on the card against the CPU, at CHAIN_SEQ_D
+CHAIN_SEQ_N, CHAIN_SEQ_D = 10_000, 64
+CHAIN_CPU_N = 5_000  # the rounds on the card against the CPU, at CHAIN_SEQ_D
 CHAIN_STREAM_N = 100_000  # phase 25: run_stream, BASELINE config 3's size
 # phases 18, 23 and 25: the streamed jobs name their largest clusters only
 # (naming.max_clusters; the default 50,000 kept the fake namer on the host
 # for 23-56 s a job)
-STREAM_NAMING_BUDGET = 5_000
+STREAM_NAMING_BUDGET = 1_000
 # phase 26: the scoreboards' sizes (residency: tests/test_agreement.py's
 # size, where its floors were set, and BASELINE.md round 5's `bench.py
 # --quality` size) and tests/test_agreement.py's floors. At 100,000 x 256
@@ -315,7 +343,7 @@ STREAM_NAMING_BUDGET = 5_000
 SCORE_RESIDENCY_FLOORS = (2000, 64)
 SCORE_RESIDENCY = (100_000, 256)
 SCORE_FUSION = (20_000, 256)
-SCORE_PTQ_N = 4096
+SCORE_PTQ_N = 2048
 QUALITY_FLOORS = {"ari": 0.30, "same_pair_f1": 0.30, "nmi": 0.80,
                   "truth_ari_below_f32": 0.05}
 # phase 27: fine-tuning at full width: 8 classes x 64 BMPs at 224, batch 64,
@@ -484,9 +512,10 @@ def phase_k1(card: str):
     gen = torch.Generator().manual_seed(1234)
     cases = 0
     max_err = 0.0
-    # 128, 256 and 4096 are the padded sizes of the main path's jobs
-    # (18, 200 and 4000 images); 1024 sits between
-    for n in (128, 256, 1024, 4096):
+    # 128, 256 and 2048 are the padded sizes of the main path's jobs
+    # (18, 200 and 2000 images), 4096 the exact engine's largest; 1024
+    # sits between
+    for n in (128, 256, 1024, 2048, 4096):
         for integer_grid in (False, True):
             D, dvec, births, sizes, active = _k1_state(gen, n, dev,
                                                        integer_grid)
@@ -523,7 +552,7 @@ def phase_k1(card: str):
     # the loop's calls: the kernel's cached steps against the twin steps
     # on a copy of the state, over whole exact runs
     sequences = []
-    for n in (128, 1024, 2048):  # phase 3 runs the engine at 4096
+    for n in (128, 1024):  # phase 3 runs the engine at 4096
         for data, rule in (("normal", "centroid"), ("integer_grid", "centroid"),
                            ("grid_d2", "lance_williams")):
             sequences.append(_k1_sequence(n, data, rule))
@@ -2178,7 +2207,7 @@ def phase_k4(card: str):
                          "device_ms"] for name in K4_STREAM_D}}
 
 
-def phase_engine_2m(card: str):
+def phase_engine_k4(card: str):
     import numpy as np
     import torch
 
@@ -2188,8 +2217,11 @@ def phase_engine_2m(card: str):
     os.environ["IMAGECLUST_CLUSTER_PROFILE"] = "1"
     gen = torch.Generator(device=DEVICE).manual_seed(17)
     k4 = {}
-    for fd, d in (("int8", 1024), ("bfloat16", 512), ("float32", 512)):
-        x = torch.randn((ENGINE_2M, d), generator=gen, device=DEVICE)
+    # bf16 at d = 512 is phase 18's engine run (the same job size and
+    # residency), and phase 23 holds K4 against its twin on a bf16 job's
+    # centroids: this phase runs the other two residencies
+    for fd, d in (("int8", 1024), ("float32", 512)):
+        x = torch.randn((ENGINE_K4_N, d), generator=gen, device=DEVICE)
         kw = dict(min_size=3, max_size=6, feature_dtype=fd, device=DEVICE)
         _zero_counters()
         torch.cuda.synchronize()
@@ -2200,10 +2232,10 @@ def phase_engine_2m(card: str):
         wall_s = time.perf_counter() - t0
         c = _counters()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        _check_scale_launches(f"engine 2M {fd}", c, "lance_williams", k4=1)
+        _check_scale_launches(f"engine 1.6M {fd}", c, "lance_williams", k4=1)
         k4[fd] = c["k4"]
-        sizes = _check_columnar(f"engine 2M {fd}", res, ENGINE_2M)
-        rec = {"phase": "bucketed_engine_2m", "card": card, "n": ENGINE_2M,
+        sizes = _check_columnar(f"engine 1.6M {fd}", res, ENGINE_K4_N)
+        rec = {"phase": "bucketed_engine_k4", "card": card, "n": ENGINE_K4_N,
                "d": d, "feature_dtype": fd, "wall_s": wall_s,
                "phases_s": res.phases_s, "k2_device_s": k2["device_s"],
                "k2_calls": k2["calls"], "host_paths": res.host_paths,
@@ -2223,23 +2255,23 @@ def phase_engine_2m(card: str):
                     and np.array_equal(res._members, ref._members)
                     and np.array_equal(res._offsets, ref._offsets)
                     and list(res._dropped_idx) == list(ref._dropped_idx)):
-                raise AssertionError("engine 2M int8: kernel run != twin run")
+                raise AssertionError("engine 1.6M int8: kernel run != twin "
+                                     "run")
             rec["identical_to_twin_run"] = True
         else:
             # the summarize pass against its twin on the same centroids
-            feats = x.to(torch.bfloat16) if fd == "bfloat16" else x
-            k = -(-ENGINE_2M // 384)
-            cents = sharded.kmeans(feats, k, summarize_fused=True)[0]
-            a_k = sharded._kmeans_summarize_fused(feats, cents, 8, True)[0]
+            k = -(-ENGINE_K4_N // 384)
+            cents = sharded.kmeans(x, k, summarize_fused=True)[0]
+            a_k = sharded._kmeans_summarize_fused(x, cents, 8, True)[0]
             with _twins():
-                a_t = sharded._kmeans_summarize_fused(feats, cents, 8,
-                                                      True)[0]
+                a_t = sharded._kmeans_summarize_fused(x, cents, 8, True)[0]
             share = float((a_k == a_t).float().mean())
             rec["assign_match_share"] = share
             if share < ASSIGN_MATCH_FLOOR:
-                raise AssertionError(f"engine 2M {fd}: K4's assignments match "
-                                     f"the twin's on {share:.6f} of items")
-            del feats, cents
+                raise AssertionError(f"engine 1.6M {fd}: K4's assignments "
+                                     f"match the twin's on {share:.6f} of "
+                                     f"items")
+            del cents
         emit(rec)
         del x, res
         torch.cuda.empty_cache()
@@ -2247,7 +2279,28 @@ def phase_engine_2m(card: str):
     return k4
 
 
+@contextlib.contextmanager
+def _vit_b32_depth(depth: int):
+    """``vit_b32`` built at full width with ``depth`` encoder blocks while
+    the block runs (the registry reads ``VIT_CONFIGS`` at build time)."""
+    import dataclasses
+
+    from imageclust_tpu_torch.models.vit import VIT_CONFIGS
+
+    full = VIT_CONFIGS["vit_b32"]
+    VIT_CONFIGS["vit_b32"] = dataclasses.replace(full, depth=depth)
+    try:
+        yield
+    finally:
+        VIT_CONFIGS["vit_b32"] = full
+
+
 def phase_stream_big(card: str):
+    with _vit_b32_depth(STREAM_VIT_DEPTH):
+        return _stream_big(card)
+
+
+def _stream_big(card: str):
     import torch
 
     from imageclust_tpu_torch.config import (
@@ -2290,7 +2343,7 @@ def phase_stream_big(card: str):
         shutil.rmtree(work, ignore_errors=True)
     _check_scale_launches("run_stream 1.6M", c, "lance_williams", k4=1)
     batches = -(-n // pipeline.embedder.batch_size)
-    if c["k5"] != VIT_B32_DEPTH * batches:
+    if c["k5"] != STREAM_VIT_DEPTH * batches:
         raise AssertionError(f"run_stream 1.6M: {c['k5']} K5 launches for "
                              f"{batches} batches")
     sizes = [len(d.images) for d in res.clusters.values()]
@@ -2300,7 +2353,8 @@ def phase_stream_big(card: str):
         raise AssertionError("run_stream 1.6M: images lost")
     metrics = res.metrics.to_dict()
     emit({"phase": "run_stream_big", "card": card, "images": n,
-          "model": "vit_b32", "feature_dtype": "bfloat16",
+          "model": "vit_b32", "vit_depth": STREAM_VIT_DEPTH,
+          "feature_dtype": "bfloat16",
           "wall_s": wall_s, "stages_s": metrics["stages_s"],
           "embed_images_per_s": metrics.get("images_per_sec_embed"),
           "clusters": len(sizes), "dropped": len(res.dropped),
@@ -2735,7 +2789,13 @@ def phase_stream_joint(card: str):
     ``labels.fusion=text`` (the phase-21 tower): BASELINE config 5's joint
     visual+text features, 512 + 512 bf16 columns into the engine. Then K4
     on this job's centroids against its twin: the share of equal picks
-    beside ``ASSIGN_MATCH_FLOOR``, and every differing pick a near tie."""
+    beside ``ASSIGN_MATCH_FLOOR``, and every differing pick a near tie.
+    The tower (the bank's too) has ``STREAM_VIT_DEPTH`` blocks."""
+    with _vit_b32_depth(STREAM_VIT_DEPTH):
+        return _stream_joint(card)
+
+
+def _stream_joint(card: str):
     import torch
 
     from imageclust_tpu_torch.cluster import sharded
@@ -2805,7 +2865,7 @@ def phase_stream_joint(card: str):
                              f"{tuple(feats.shape)} {feats.dtype}")
     _check_scale_launches("run_stream joint", c, "lance_williams", k4=1)
     batches = -(-n // pipeline.embedder.batch_size)
-    if c["k5"] != VIT_B32_DEPTH * batches:
+    if c["k5"] != STREAM_VIT_DEPTH * batches:
         raise AssertionError(f"run_stream joint: {c['k5']} K5 launches for "
                              f"{batches} batches")
     metrics = res.metrics.to_dict()
@@ -2860,7 +2920,8 @@ def phase_stream_joint(card: str):
     del feats, cents, a_k, a_t, seen
     torch.cuda.empty_cache()
     emit({"phase": "run_stream_joint", "card": card, "images": n,
-          "model": "vit_b32", "feature_dtype": "bfloat16",
+          "model": "vit_b32", "vit_depth": STREAM_VIT_DEPTH,
+          "feature_dtype": "bfloat16",
           "labels": {"backend": "zero_shot", "fusion": "text",
                      "min_confidence": cfg.labels.min_confidence},
           "bank": {"labels": colours, "images_per_label":
@@ -2962,10 +3023,11 @@ def _f32_gram():
 
 
 def _first_divergence(x, log_a, log_b, max_size: int):
-    """Where two reciprocal-NN logs of one job first differ: the row, both
-    merges, and for each cluster they involve its two nearest feasible
-    partners in float64 (after the rows both logs share) with their
-    relative gap."""
+    """Where two merge logs of one job first differ: the row, both merges,
+    for each cluster they involve its two nearest feasible partners in
+    float64 (after the rows both logs share) with their relative gap, and
+    the two merges' own Ward distances in float64 with theirs (the gap a
+    greedy engine's global minimum turns on)."""
     import numpy as np
 
     m = min(len(log_a), len(log_b))
@@ -2991,8 +3053,15 @@ def _first_divergence(x, log_a, log_b, max_size: int):
         out.append({"cluster": a, "size": int(sizes[i]),
                     "nearest": [[float(w[t]), int(births[t])] for t in j],
                     "relative_gap": float((w[j[1]] - w[j[0]]) / w[j[0]])})
+    pair = []
+    for hi, lo, _ in (log_a[k], log_b[k]):
+        i, j = (int(np.searchsorted(births, int(c))) for c in (hi, lo))
+        pair.append(float(sizes[i] * sizes[j] / (sizes[i] + sizes[j])
+                          * ((cents[i] - cents[j]) ** 2).sum()))
     return {"row": k, "of": m, "merge_a": log_a[k].tolist(),
-            "merge_b": log_b[k].tolist(), "clusters": out}
+            "merge_b": log_b[k].tolist(), "clusters": out,
+            "merge_distances": pair,
+            "merge_gap": abs(pair[0] - pair[1]) / max(min(pair), 1e-300)}
 
 
 def _recompute_split(x, n: int) -> dict:
@@ -3215,7 +3284,7 @@ def _cli_partition_vector(result: dict, names: list):
 
 def phase_chain_pipeline(card: str):
     """Phase 25: ``cli run --model vit_b32 --set
-    cluster.scale_engine=chain`` on phase 14's 10,000 BMPs (agreement with
+    cluster.scale_engine=chain`` on phase 14's 4500 BMPs (agreement with
     phase 14's bucketed partition), then ``Pipeline.run_stream`` on
     100,000 images made on the card with ``vit_b32`` and the chain
     engine."""
@@ -3738,7 +3807,8 @@ def _finetune(card: str, tmp: Path):
 # its results to $IMAGECLUST_SMOKE_OUT/mesh_<part>_rank<r>.pkl; the parent
 # holds them against the references.
 
-MESH_SEQ_N, MESH_SEQ_D = 2000, 64  # phase 28: the sequential chain's job
+MESH_SEQ_N, MESH_SEQ_D = 300, 64  # phase 28: the sequential chain's job
+MESH_EXACT_N = 1024  # phase 28: the exact engine's job (d = 1000)
 MESH_TRAIN_BATCH = 64              # phase 28: the full-width train step
 MESH_LAUNCH_S = {"nccl": 300.0, "gloo": 600.0}  # each launch's time limit
 
@@ -3748,7 +3818,7 @@ def _mesh_inputs():
     import numpy as np
 
     return {
-        "exact": {data: _loop_features(ENGINE_N, data, 1000, 7)
+        "exact": {data: _loop_features(MESH_EXACT_N, data, 1000, 7)
                   for data in ("integer_grid", "gaussian_blobs")},
         "chain_rnn": np.random.default_rng(0).standard_normal(
             (CHAIN_GREEDY_N, CHAIN_GREEDY_D)).astype(np.float32),
@@ -4026,7 +4096,7 @@ def _sha(t) -> str:
 
 
 def _mesh_pipeline(mesh) -> dict:
-    """``Pipeline.run_paths`` over the mesh on phase 9's 6000 BMPs (every
+    """``Pipeline.run_paths`` over the mesh on phase 9's 4500 BMPs (every
     rank reads, decodes and embeds its row block; the bucketed engine on
     row-sharded features). Where the partition differs from the single
     card's (pickled by the parent), the k-means assignments of the two
@@ -4058,29 +4128,48 @@ def _mesh_pipeline(mesh) -> dict:
 
 def _kmeans_trace(sharded, whole) -> dict:
     """The bucketed engine's k-means on row-sharded features (psum'd sums)
-    against one device's on the same whole features: the items assigned
-    differently and, for each, the relative gap (float64) between its
-    distances to the two buckets' centroids of the one-device run."""
+    against one device's on the same whole features, after 0, 1, ... 8
+    Lloyd iterations: the first iteration count whose assignments differ,
+    and there, for each item assigned differently, the relative gap
+    (float64) between its distances to the two buckets' centroids of the
+    one-device run, beside the largest relative difference of the two
+    runs' centroids; then the same gaps after all 8 iterations. A flip
+    moves the centroids it feeds, so a near tie at the first divergence
+    can leave later items farther apart."""
     import numpy as np
 
     from imageclust_tpu_torch.cluster import sharded as tsh
 
     n = whole.shape[0]
     k = max(1, -(-n // max(3, int(512 * 0.75))))
-    _, am, _, _ = tsh.kmeans(sharded, k, 8, 0)
-    cs, as_, _, _ = tsh.kmeans(whole, k, 8, 0)
-    am, as_ = am.cpu().numpy(), as_.cpu().numpy()
-    diff = np.nonzero(am != as_)[0]
     x = whole.double().cpu().numpy()
-    c = cs.double().cpu().numpy()
-    gaps = []
-    for i in diff:
-        da = ((x[i] - c[as_[i]]) ** 2).sum()
-        db = ((x[i] - c[am[i]]) ** 2).sum()
-        gaps.append(float(abs(db - da) / max(da, 1e-300)))
-    return {"buckets": k, "items_assigned_differently": int(len(diff)),
-            "relative_gaps": gaps[:32],
-            "max_relative_gap": max(gaps) if gaps else None}
+
+    def gaps(cs, as_, am):
+        c = cs.double().cpu().numpy()
+        out = []
+        for i in np.nonzero(am != as_)[0]:
+            da = ((x[i] - c[as_[i]]) ** 2).sum()
+            db = ((x[i] - c[am[i]]) ** 2).sum()
+            out.append(float(abs(db - da) / max(da, 1e-300)))
+        return out
+
+    trace = {"buckets": k}
+    for iters in range(9):
+        cm, am, _, _ = tsh.kmeans(sharded, k, iters, 0)
+        cs, as_, _, _ = tsh.kmeans(whole, k, iters, 0)
+        am, as_ = am.cpu().numpy(), as_.cpu().numpy()
+        if "first_divergence" not in trace and (am != as_).any():
+            g = gaps(cs, as_, am)
+            trace["first_divergence"] = {
+                "iterations": iters, "items": len(g),
+                "relative_gaps": g[:32], "max_relative_gap": max(g),
+                "centroids_max_rel_diff": float(
+                    ((cm - cs).abs().max() / cs.abs().max()).cpu())}
+    g = gaps(cs, as_, am)
+    trace.update({"items_assigned_differently": len(g),
+                  "relative_gaps": g[:32],
+                  "max_relative_gap": max(g) if g else None})
+    return trace
 
 
 def _mesh_train_step(mesh) -> dict:
@@ -4231,7 +4320,8 @@ def _mesh_references(inputs, paths) -> dict:
 def _mesh_compare(name: str, got: dict, want: dict, x=None) -> dict:
     """A rank's engine result against the single card's: identical merge
     logs and partitions, or (on real-valued features) a traced difference
-    that must be a near tie (relative gap below 1e-5 in float64)."""
+    whose first divergence must be a near tie (relative gap below 1e-5 in
+    float64)."""
     import numpy as np
 
     if name == "pipeline":
@@ -4242,10 +4332,10 @@ def _mesh_compare(name: str, got: dict, want: dict, x=None) -> dict:
         if row["identical_partition"]:
             return row
         # traced: the features must be the single card's, and every item
-        # the row-block k-means assigns elsewhere a near tie
+        # the row-block k-means first assigns elsewhere a near tie
         trace = got.get("kmeans_trace") or {}
         row["kmeans_trace"] = trace
-        gap = trace.get("max_relative_gap")
+        gap = trace.get("first_divergence", {}).get("max_relative_gap")
         if not (row["identical_features"] and gap is not None
                 and gap < 1e-5):
             raise AssertionError(f"mesh {name}: partition differs from the "
@@ -4261,7 +4351,11 @@ def _mesh_compare(name: str, got: dict, want: dict, x=None) -> dict:
         raise AssertionError(f"mesh {name}: {row} against the single card")
     div = _first_divergence(x, got["merges"], want["merges"], 6)
     row["first_divergence"] = div
+    # a near tie: a cluster between two partners, or the two logs' merges
+    # at one distance
     gaps = [c["relative_gap"] for c in (div or {}).get("clusters", [])]
+    if div:
+        gaps.append(div["merge_gap"])
     if not gaps or min(gaps) > 1e-5:
         raise AssertionError(f"mesh {name}: differs beyond a near tie: "
                              f"{row}")
@@ -4304,7 +4398,7 @@ def _mesh_part_summary(part: str, ranks: list, ref: dict, inputs) -> dict:
             row["collective_bytes_per_merge"] = [
                 sum(b.values()) / max(merges, 1)
                 for b in row["collective_bytes"]]
-            if max(row["collective_bytes_per_merge"]) > 8 * 4 * ENGINE_N:
+            if max(row["collective_bytes_per_merge"]) > 8 * 4 * MESH_EXACT_N:
                 raise AssertionError(f"mesh {part} {name}: more than O(n) "
                                      f"bytes a merge: {row}")
         if name.startswith("bucketed"):
@@ -4323,11 +4417,12 @@ def _mesh_part_summary(part: str, ranks: list, ref: dict, inputs) -> dict:
 
 def phase_mesh(card: str):
     """Phase 28: the mesh on the card. (a) One rank over NCCL: the mesh
-    exact engine at 4096 x 1000 (phase 3's features) and the mesh bucketed
-    engine at 100,000 x 1000 (phase 8's) under both rules. (b) Two ranks
-    sharing the card over gloo: the same, the chain's rounds at 4096 x 512
-    (phase 24's shape) and the sequential chain at 2000 x 64,
-    ``Pipeline.run_paths`` on phase 9's 6000 BMPs, and the full-width
+    exact engine at 1024 x 1000 (phase 3's generators) and the mesh
+    bucketed engine at 100,000 x 1000 (phase 8's) under both rules. (b) Two
+    ranks sharing the card over gloo: the same, the chain's rounds at
+    4096 x 512
+    (phase 24's shape) and the sequential chain at 300 x 64,
+    ``Pipeline.run_paths`` on phase 9's 4500 BMPs, and the full-width
     ResNet50 train step at batch 64 at (data=2, model=1) and (data=1,
     model=2). Each is held against the single card: merge logs and
     partitions identical (a real-valued difference must trace to a near
@@ -4400,17 +4495,490 @@ def phase_mesh(card: str):
     return summary
 
 
+# -- the cloud backends and verify (phase 29) --------------------------------
+
+# phase 29: the AWS endpoints the stub answers for, and the services it
+# stands in for (the job's labeler and namers)
+CLOUD_REGION = "us-east-1"
+CLOUD_NAMERS = ("claude_haiku", "nova_micro", "gpt-3.5-turbo")
+CLOUD_SECRET = "smoke-secret-imds"  # the IMDS role's secret key
+CLOUD_ECS_TOKEN = "Bearer smoke-ecs-token"
+
+
+def _sigv4_valid(method: str, url: str, body: bytes, headers: dict,
+                 creds: dict, region: str, service: str) -> bool:
+    """Recompute a SigV4 signature from the credentials the endpoints
+    served (AWS's published algorithm, written out here apart from
+    ``utils/aws.py``) and hold the request's ``Authorization`` to it."""
+    import hmac
+    import re
+    import urllib.parse
+
+    h = {k.lower(): v for k, v in headers.items()}
+    m = re.fullmatch(
+        r"AWS4-HMAC-SHA256 Credential=([^/]+)/(\d{8})/([^/]+)/([^/]+)/"
+        r"aws4_request, SignedHeaders=([a-z0-9;-]+), Signature=([0-9a-f]{64})",
+        h.get("authorization", ""))
+    if m is None or m[1] != creds["AccessKeyId"] or m[3] != region \
+            or m[4] != service or h.get("x-amz-date", "")[:8] != m[2]:
+        return False
+    signed = m[5].split(";")
+    if not {"host", "x-amz-date", "x-amz-security-token"} <= set(signed) \
+            or h["x-amz-security-token"] != creds["Token"]:
+        return False
+    parts = urllib.parse.urlsplit(url)
+    values = {**h, "host": parts.netloc}
+    canonical = "\n".join([
+        method, urllib.parse.quote(parts.path or "/"), parts.query,
+        "".join(f"{k}:{values[k].strip()}\n" for k in signed),
+        ";".join(signed), hashlib.sha256(body).hexdigest()])
+    scope = f"{m[2]}/{region}/{service}/aws4_request"
+    to_sign = "\n".join(["AWS4-HMAC-SHA256", h["x-amz-date"], scope,
+                         hashlib.sha256(canonical.encode()).hexdigest()])
+    key = ("AWS4" + creds["SecretAccessKey"]).encode()
+    for part in (m[2], region, service, "aws4_request"):
+        key = hmac.new(key, part.encode(), hashlib.sha256).digest()
+    want = hmac.new(key, to_sign.encode(), hashlib.sha256).hexdigest()
+    return hmac.compare_digest(want, m[6])
+
+
+class _CredentialEndpoints:
+    """The container credentials endpoint and IMDSv2 on a local
+    ``http.server`` thread, reached through the port's real ``urllib``
+    transport. ``served`` holds the credentials each one gave."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        expiry = time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                               time.gmtime(time.time() + 3600))
+        self.served = {
+            "ecs": {"AccessKeyId": "ASIASMOKEECS",
+                    "SecretAccessKey": "smoke-secret-ecs",
+                    "Token": "smoke-session-ecs", "Expiration": expiry},
+            "imds": {"Code": "Success", "AccessKeyId": "ASIASMOKEIMDS",
+                     "SecretAccessKey": CLOUD_SECRET,
+                     "Token": "smoke-session-imds", "Expiration": expiry}}
+        self.requests = []
+        ep = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _answer(self, status: int, body):
+                body = body if isinstance(body, bytes) else body.encode()
+                self.send_response(status)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _handle(self):
+                ep.requests.append((self.command, self.path))
+                token = self.headers.get("X-aws-ec2-metadata-token")
+                role_path = "/latest/meta-data/iam/security-credentials/"
+                if self.command == "GET" and self.path == "/v2/creds/smoke":
+                    if self.headers.get("Authorization") != CLOUD_ECS_TOKEN:
+                        return self._answer(401, "bad token")
+                    return self._answer(200, json.dumps(ep.served["ecs"]))
+                if self.command == "PUT" and self.path == "/latest/api/token":
+                    return self._answer(200, "smoke-imds-token")
+                if token != "smoke-imds-token":
+                    return self._answer(401, "IMDSv2 token missing")
+                if self.path == role_path:
+                    return self._answer(200, "smoke-role\n")
+                if self.path == role_path + "smoke-role":
+                    return self._answer(200, json.dumps(ep.served["imds"]))
+                return self._answer(404, "no route")
+
+            do_GET = do_PUT = _handle
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(30)
+
+
+class _CloudStub:
+    """Rekognition, Bedrock (Claude, Nova) and OpenAI behind the port's
+    transport seam (``utils.aws.http_request``): each SigV4 signature is
+    recomputed from the IMDS credentials and a wrong one is refused (403);
+    the first Rekognition, Claude and OpenAI requests get a 429, and every
+    Nova request for a cluster that carries ``nova_403`` gets a 403, so
+    those clusters end in the fallback pair. A request to any other host
+    raises (the credentials were resolved, through the real transport,
+    before the stub went in)."""
+
+    def __init__(self, creds: dict, labels_by_sha: dict, nova_403: str):
+        self.creds = creds
+        self.labels_by_sha, self.nova_403 = labels_by_sha, nova_403
+        self.lock = threading.Lock()
+        self.counts = dict.fromkeys(("rekognition", "claude", "nova",
+                                     "openai", "throttled", "refused",
+                                     "fallback_403"), 0)
+        self.first = {"rekognition", "claude", "openai"}  # get a 429 first
+
+    def __call__(self, method, url, body=None, headers=None, timeout=30.0):
+        import base64
+        import re
+        import urllib.parse
+
+        host = urllib.parse.urlsplit(url).hostname
+        service = {f"rekognition.{CLOUD_REGION}.amazonaws.com": "rekognition",
+                   "api.openai.com": "openai"}.get(host)
+        if host == "bedrock-runtime.us-west-2.amazonaws.com":
+            service = "nova" if "nova" in url else "claude"
+        if service is None or method != "POST":
+            raise AssertionError(f"cloud stub: unexpected {method} {url}")
+        with self.lock:
+            self.counts[service] += 1
+            throttle = service in self.first
+            self.first.discard(service)
+        if service == "openai":
+            if headers.get("Authorization") != "Bearer smoke-openai-key":
+                return 401, b'{"error": "bad key"}'
+        elif not _sigv4_valid(method, url, body, headers, self.creds,
+                              *((CLOUD_REGION, "rekognition")
+                                if service == "rekognition"
+                                else ("us-west-2", "bedrock"))):
+            with self.lock:
+                self.counts["refused"] += 1
+            return 403, b'{"message": "SignatureDoesNotMatch"}'
+        if throttle:
+            with self.lock:
+                self.counts["throttled"] += 1
+            return 429, b'{"message": "ThrottlingException"}'
+        req = json.loads(body)
+        if service == "rekognition":
+            img = base64.b64decode(req["Image"]["Bytes"])
+            labels = self.labels_by_sha[hashlib.sha256(img).hexdigest()]
+            return 200, json.dumps({"Labels": [
+                {"Name": n, "Confidence": c} for n, c in labels]}).encode()
+        prompt = (req["messages"][-1]["content"] if "messages" in req
+                  else req["inputText"])
+        features = re.search(r"Features: (.*)\.$", prompt, re.S)[1]
+        if service == "nova" and self.nova_403 in features:
+            with self.lock:
+                self.counts["fallback_403"] += 1
+            return 403, b'{"message": "AccessDeniedException"}'
+        text = json.dumps({"title": _cloud_title(service, features),
+                           "catchy_phrase": f"{service} phrase"})
+        if service == "openai":
+            return 200, json.dumps(
+                {"choices": [{"message": {"content": text}}]}).encode()
+        if service == "nova":
+            return 200, json.dumps({"Results": [{"outputText": text}]}
+                                   ).encode()
+        return 200, json.dumps({"content": [{"type": "text",
+                                             "text": text}]}).encode()
+
+
+def _cloud_title(service: str, features: str) -> str:
+    return f"{service} {hashlib.sha256(features.encode()).hexdigest()[:8]}"
+
+
+@contextlib.contextmanager
+def _environ(**values):
+    """Set (a str) or remove (None) environment variables for a block."""
+    saved = {k: os.environ.get(k) for k in values}
+    try:
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_cloud(card: str):
+    """The cloud backends and ``cli verify`` on the card: credentials from a
+    local container endpoint and IMDSv2 through the real transport, one
+    200-image ``Pipeline.run`` with Rekognition labels and Claude, Nova and
+    OpenAI names (a SigV4-checking stub at the transport's seam), the same
+    job again on its label cache, the payload shrink, and ``cli verify
+    --clip-text`` / ``--onnx`` with ``--device cuda``."""
+    from imageclust_tpu_torch.utils import aws
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_cloud_"))
+    endpoints = _CredentialEndpoints()
+    real = aws.http_request
+    try:
+        with _environ(
+                AWS_ACCESS_KEY_ID=None, AWS_SECRET_ACCESS_KEY=None,
+                AWS_SESSION_TOKEN=None, AWS_WEB_IDENTITY_TOKEN_FILE=None,
+                AWS_PROFILE=None, AWS_CONTAINER_CREDENTIALS_FULL_URI=None,
+                AWS_SHARED_CREDENTIALS_FILE=str(tmp / "no_credentials"),
+                AWS_CONFIG_FILE=str(tmp / "no_config"),
+                AWS_CONTAINER_CREDENTIALS_RELATIVE_URI="/v2/creds/smoke",
+                AWS_CONTAINER_AUTHORIZATION_TOKEN=CLOUD_ECS_TOKEN,
+                IMAGECLUST_ECS_BASE=endpoints.base,
+                AWS_EC2_METADATA_SERVICE_ENDPOINT=endpoints.base,
+                AWS_EC2_METADATA_DISABLED="false",
+                OPENAI_API_KEY="smoke-openai-key"):
+            creds = _cloud_credentials(aws, endpoints)
+            out = _cloud_job(aws, creds, tmp)
+        out.update(_cloud_shrink())
+        out.update(_cloud_verify(tmp))
+    finally:
+        aws.http_request = real
+        aws._CACHE = None
+        endpoints.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if endpoints.thread.is_alive():
+        raise AssertionError("cloud: the credential server did not stop")
+    emit({"phase": "cloud", "card": card, **out,
+          "credential_requests": endpoints.requests,
+          "phase_s": time.perf_counter() - t_phase})
+    return out["k1_launches"]
+
+
+def _cloud_credentials(aws, endpoints) -> dict:
+    """Resolve through the container endpoint, then (its variables gone)
+    through IMDSv2; the IMDS credentials stay cached for the job."""
+    ecs = aws.resolve_credentials(force_refresh=True)
+    want = endpoints.served["ecs"]
+    if (ecs.access_key, ecs.secret_key, ecs.session_token) != (
+            want["AccessKeyId"], want["SecretAccessKey"], want["Token"]):
+        raise AssertionError(f"cloud: container credentials {ecs}")
+    with _environ(AWS_CONTAINER_CREDENTIALS_RELATIVE_URI=None):
+        imds = aws.resolve_credentials(force_refresh=True)
+    want = endpoints.served["imds"]
+    if (imds.access_key, imds.secret_key, imds.session_token) != (
+            want["AccessKeyId"], want["SecretAccessKey"], want["Token"]):
+        raise AssertionError(f"cloud: IMDS credentials {imds}")
+    if not imds.expiry > time.time() + 3000:
+        raise AssertionError(f"cloud: IMDS expiry {imds.expiry}")
+    if [r[0] for r in endpoints.requests] != ["GET", "PUT", "GET", "GET"]:
+        raise AssertionError(f"cloud: endpoints saw {endpoints.requests}")
+    return want
+
+
+def _cloud_job(aws, creds: dict, tmp: Path) -> dict:
+    import numpy as np
+
+    from imageclust_tpu_torch.config import (
+        AppConfig,
+        LabelConfig,
+        NamingConfig,
+    )
+    from imageclust_tpu_torch.labels.base import CachedLabeler
+    from imageclust_tpu_torch.naming.base import (
+        FALLBACK_PHRASE,
+        FALLBACK_TITLE,
+        truncate_and_sanitize,
+    )
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.pipeline import Pipeline
+    from imageclust_tpu_torch.types import UploadedImage
+
+    names, blobs, groups = group_images(np.random.default_rng(29),
+                                        SERVER_GROUPS, 5, "cloud_")
+    canned = {hashlib.sha256(b).hexdigest(): [(f"Colour g{g:02d}", 99.0),
+                                              ("Smoke Test", 88.5)]
+              for b, g in zip(blobs, groups)}
+    stub = _CloudStub(creds, canned, nova_403="Colour g00")
+    aws.http_request = stub
+    # the stub refuses a request signed with other credentials
+    try:
+        aws.aws_post_json(
+            f"https://rekognition.{CLOUD_REGION}.amazonaws.com/",
+            CLOUD_REGION, "rekognition", {"Image": {"Bytes": ""}},
+            creds=aws.AwsCredentials(creds["AccessKeyId"], "wrong-secret",
+                                     creds["Token"]))
+        raise AssertionError("cloud: a wrong signature was accepted")
+    except aws.AwsError as exc:
+        if exc.status != 403 or stub.counts["refused"] != 1:
+            raise
+    stub.counts["rekognition"] = stub.counts["refused"] = 0
+    stub.first.add("rekognition")
+
+    cfg = AppConfig(
+        labels=LabelConfig(backend="rekognition", region=CLOUD_REGION,
+                           retry_delay_s=0.0),
+        naming=NamingConfig(services=CLOUD_NAMERS, retry_delay_s=0.0))
+    pipeline = Pipeline(cfg, device=DEVICE)
+    uploads = [UploadedImage(n, b) for n, b in zip(names, blobs)]
+    work = tmp / "job"
+    mk.launches = 0
+    t0 = time.perf_counter()
+    result = pipeline.run(uploads, str(work), min_size=3, max_size=6)
+    job_s = time.perf_counter() - t0
+    launches = mk.launches
+    first = dict(stub.counts)
+    data = result.to_dict()
+    merges = int(data["metrics"]["counters"]["merges"])
+    _check_launches("cloud job", launches, merges)
+    _check_sizes(data["clusters"])
+    placed = [m for c in data["clusters"].values() for m in c["images"]]
+    if sorted(placed + data["dropped"]) != sorted(names):
+        raise AssertionError("cloud: images lost")
+    # the labels the job used, image by image, from its label cache
+    cache = CachedLabeler(None, str(work / "cache"),
+                          namespace="RekognitionLabeler")
+    for blob in blobs:
+        with open(cache._cache_path(blob)) as fh:
+            got = [(d["name"], d["confidence"])
+                   for d in json.load(fh)["labels"]]
+        if got != canned[hashlib.sha256(blob).hexdigest()]:
+            raise AssertionError(f"cloud: labels {got}")
+    # the names: the stub's titles, sorted by display order, and the
+    # fallback pair where Nova answered 403
+    order = ["Amazon Nova Micro", "OpenAI GPT-3.5 Turbo", "Claude Haiku v3.5"]
+    fallbacks = 0
+    for key, c in data["clusters"].items():
+        features = truncate_and_sanitize(c["labels"], 1000)
+        outs = c["serviceOutputs"]
+        if [o["serviceName"] for o in outs] != order:
+            raise AssertionError(f"cloud: {key} outputs {outs}")
+        want = [_cloud_title("nova", features), _cloud_title("openai",
+                                                               features),
+                _cloud_title("claude", features)]
+        if "Colour g00" in features:
+            want[0] = FALLBACK_TITLE
+            fallbacks += 1
+            if outs[0]["catchyPhrase"] != FALLBACK_PHRASE:
+                raise AssertionError(f"cloud: {key} Nova {outs[0]}")
+        if [o["title"] for o in outs] != want:
+            raise AssertionError(f"cloud: {key} titles {outs} != {want}")
+    if not fallbacks or first["throttled"] != 3 or first["refused"] \
+            or first["fallback_403"] != 3 * fallbacks \
+            or first["rekognition"] != len(names) + 1:
+        raise AssertionError(f"cloud: stub counts {first}, {fallbacks} "
+                             "fallback clusters")
+    # the same job on the same label cache: no Rekognition request
+    mk.launches = 0
+    t0 = time.perf_counter()
+    again = pipeline.run(uploads, str(work), min_size=3, max_size=6)
+    rerun_s = time.perf_counter() - t0
+    _check_launches("cloud re-run", mk.launches, merges)
+    rerun_rek = stub.counts["rekognition"] - first["rekognition"]
+    if rerun_rek or again.metrics.counters["label_cache_hits"] != len(names):
+        raise AssertionError(
+            f"cloud re-run: {rerun_rek} Rekognition requests, "
+            f"{again.metrics.counters['label_cache_hits']} cache hits")
+    if again.to_dict()["clusters"] != data["clusters"]:
+        raise AssertionError("cloud re-run: another result")
+    return {"images": len(names), "job_s": job_s, "rerun_s": rerun_s,
+            "stages_s": data["metrics"]["stages_s"],
+            "clusters": len(data["clusters"]), "merges": merges,
+            "k1_launches": launches, "nova_fallback_clusters": fallbacks,
+            "requests": first,
+            "rerun_requests": {k: stub.counts[k] - first[k]
+                               for k in stub.counts}}
+
+
+def _cloud_shrink() -> dict:
+    """An over-limit BMP through ``shrink_to_payload_limit``: a JPEG at
+    most 2048 px on its larger side where cv2 is importable, else the
+    ValueError that names cv2."""
+    import importlib.util
+
+    import numpy as np
+
+    from imageclust_tpu_torch.labels.rekognition import (
+        shrink_to_payload_limit,
+    )
+
+    limit = 5 * 1024 * 1024
+    yy, xx = np.mgrid[0:2000, 0:3000]
+    img = np.stack([yy % 256, xx % 256, (yy + xx) % 256], -1).astype(np.uint8)
+    bmp = encode_bmp(img)
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    try:
+        out = shrink_to_payload_limit(bmp, limit)
+    except ValueError as exc:
+        if has_cv2 or "cv2" not in str(exc):
+            raise
+        return {"shrink": {"cv2": False, "bmp_bytes": len(bmp),
+                           "error": str(exc)}}
+    if not has_cv2:
+        raise AssertionError("cloud: shrank an image without cv2")
+    import cv2
+
+    dec = cv2.imdecode(np.frombuffer(out, np.uint8), cv2.IMREAD_COLOR)
+    if out[:2] != b"\xff\xd8" or max(dec.shape[:2]) > 2048:
+        raise AssertionError(f"cloud: shrink gave {dec.shape}")
+    return {"shrink": {"cv2": True, "bmp_bytes": len(bmp),
+                       "jpeg_bytes": len(out), "shape": list(dec.shape)}}
+
+
+def _cli_verify(args: list) -> tuple[int, dict, str]:
+    from imageclust_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["verify", *args, "--device", DEVICE])
+    text = out.getvalue()
+    return rc, json.loads(text[:text.rindex("VERDICT")]), \
+        text.strip().splitlines()[-1]
+
+
+def _cloud_verify(tmp: Path) -> dict:
+    """``cli verify --clip-text`` on the seeded text checkpoint (PASS) and
+    ``--onnx`` on a seeded export: PASS where cv2 is importable (its
+    partition check runs K1), else exit 2 naming cv2."""
+    import importlib.util
+
+    from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.ops import merge_kernels as mk
+
+    t0 = time.perf_counter()
+    text_path = _clip_text_checkpoint()
+    try:
+        rc, text_report, verdict = _cli_verify(["--clip-text",
+                                                str(text_path)])
+    finally:
+        text_path.unlink(missing_ok=True)
+    if rc != 0 or verdict != "VERDICT: PASS" or not text_report["ok"]:
+        raise AssertionError(
+            f"verify --clip-text: {rc} {verdict} {text_report}")
+    text_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    onnx_path = tmp / "resnet50_seeded.onnx"
+    export_resnet50_onnx(ResNet50V1().init_random(ONNX_SEED), str(onnx_path))
+    mk.launches = 0
+    try:
+        rc, report, verdict = _cli_verify(["--onnx", str(onnx_path)])
+    finally:
+        onnx_path.unlink(missing_ok=True)
+    if importlib.util.find_spec("cv2") is not None:
+        if rc != 0 or verdict != "VERDICT: PASS" or not mk.launches:
+            raise AssertionError(f"verify --onnx: {rc} {verdict} {report}")
+    elif rc != 2 or "cv2" not in report.get("error", ""):
+        raise AssertionError(f"verify --onnx without cv2: {rc} {report}")
+    return {"verify_clip_text": {"rc": 0, "verdict": "VERDICT: PASS",
+                                 "s": text_s,
+                                 "checks": text_report["clip_text"]["checks"]},
+            "verify_onnx": {"rc": rc, "verdict": verdict, "report": report,
+                            "k1_launches": mk.launches,
+                            "s": time.perf_counter() - t0}}
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
     10: phase_stream, 11: phase_k5, 12: phase_vit_tower,
     13: lambda card: phase_server(card, "vit_b32"),
     14: lambda card: phase_cli_big(card, VIT_CLI_GROUPS, "vit_b32"),
-    15: phase_other_towers, 16: phase_k4, 17: phase_engine_2m,
+    15: phase_other_towers, 16: phase_k4, 17: phase_engine_k4,
     18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
     21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
     24: phase_chain, 25: phase_chain_pipeline, 26: phase_scoreboards,
-    27: phase_finetune, 28: phase_mesh,
+    27: phase_finetune, 28: phase_mesh, 29: phase_cloud,
 }
 
 
@@ -4488,6 +5056,7 @@ def main(argv: list[str] | None = None) -> int:
     run(26)
     run(27)
     run(28)
+    cloud_launches = run(29)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]
@@ -4496,7 +5065,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "imageclust_tpu_torch/csrc/merge_update_argmin.cu",
         "replaces": "imageclust_tpu/ops/pallas_kernels.py:134",
-        "launches": launches,
+        "launches": launches + cloud_launches,
         "max_abs_err": max_err,
         **t,
         "bound_by": "bytes",

@@ -9,10 +9,13 @@ F`` writes the configured ResNet50 as a gluon-named ONNX model, ``bank
 --images DIR --out F`` writes a zero-shot label bank (one prototype per
 subdirectory), ``train --images DIR --out CKPT`` fine-tunes the ResNet50
 on labeled folders and writes an Orbax checkpoint that ``--set
-embed.checkpoint_path=CKPT`` serves, and ``models`` lists the towers.
-``run``, ``serve``, ``bank``, ``export`` and ``train`` take ``--device``
-(default ``cuda``; ``cpu`` runs without a card). The JAX CLI's other
-subcommands (verify, bench) are not ported yet.
+embed.checkpoint_path=CKPT`` serves, ``verify --onnx F`` (or ``--clip``,
+``--clip-text``) gates real weights against the reference's runtime and
+prints a JSON report and a verdict, and ``models`` lists the towers.
+``run``, ``serve``, ``bank``, ``export``, ``train`` and ``verify`` take
+``--device`` (default ``cuda``; ``cpu`` runs without a card). The JAX CLI's
+``bench`` is not ported: it runs the JAX package's harness (the root
+``bench.py``), and the port's benchmark is still to be defined.
 """
 
 from __future__ import annotations
@@ -36,9 +39,10 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default=None, choices=list_models(),
                    help="embedder tower (default resnet50)")
     p.add_argument("--labeler", default=None,
-                   help="labels backend: none|fake|zero_shot")
+                   help="labels backend: none|fake|zero_shot|rekognition")
     p.add_argument("--namers", default=None,
-                   help="comma list of naming services (fake)")
+                   help="comma list: fake,claude_haiku,claude_sonnet,"
+                        "nova_micro,gpt-3.5-turbo,gpt-4")
     p.add_argument("--set", dest="sets", action="append", default=[],
                    metavar="SECTION.FIELD=VALUE",
                    help="override any config knob, e.g. "
@@ -214,6 +218,29 @@ def cmd_bank(args) -> int:
     return 0
 
 
+def cmd_verify(args) -> int:
+    """Weight-parity gate for real checkpoints: ingest -> embed fixed
+    images -> compare vs cv2.dnn (the reference's own runtime) ->
+    cluster-assignment equality. Prints a JSON report and a PASS/FAIL
+    verdict; exit code 0 (PASS), 1 (FAIL) or 2 (structural failure)."""
+    from imageclust_tpu_torch.verify import run_verify
+
+    try:
+        ok, report = run_verify(
+            onnx=args.onnx or None, clip=args.clip or None,
+            bpe=args.bpe or None, images=args.images or None,
+            sample=args.sample, clip_text=args.clip_text or None,
+            quantize=args.quantize, device=args.device,
+        )
+    except Exception as exc:
+        print(json.dumps({"ok": False, "error": str(exc)}, indent=2))
+        print("VERDICT: FAIL (structural)")
+        return 2
+    print(json.dumps(report, indent=2))
+    print(f"VERDICT: {'PASS' if ok else 'FAIL'}")
+    return 0 if ok else 1
+
+
 def cmd_models(args) -> int:
     from imageclust_tpu_torch.models import list_models
 
@@ -274,6 +301,32 @@ def build_parser() -> argparse.ArgumentParser:
     p_export.add_argument("--out", default="embedder.onnx")
     _add_common(p_export)
     p_export.set_defaults(fn=cmd_export)
+
+    p_verify = sub.add_parser(
+        "verify",
+        help="weight-parity gate: compare real checkpoints against the "
+             "reference's runtime (cv2.dnn) on fixed images")
+    p_verify.add_argument("--onnx", default="",
+                          help="resnet50-v1-7.onnx (or compatible export); "
+                               "needs cv2")
+    p_verify.add_argument("--clip", default="",
+                          help="CLIP vision checkpoint (.pt/.bin/.npz)")
+    p_verify.add_argument("--bpe", default="",
+                          help="CLIP BPE merges file "
+                               "(with --clip/--clip-text)")
+    p_verify.add_argument("--clip-text", default="", dest="clip_text",
+                          help="HF CLIPTextModel checkpoint (.pt/.bin/.npz) "
+                               "for the text-fusion / zero-shot tower")
+    p_verify.add_argument("--images", default="",
+                          help="real images for the fixture (default: "
+                               "seeded synthetics)")
+    p_verify.add_argument("--sample", type=int, default=8)
+    p_verify.add_argument("--quantize", choices=["", "int8"], default="",
+                          help="also gate the int8 PTQ tower against the "
+                               "default tower on the same ingested weights")
+    p_verify.add_argument("--device", default="cuda",
+                          help="torch device: cuda (default) or cpu")
+    p_verify.set_defaults(fn=cmd_verify)
 
     p_models = sub.add_parser("models", help="list embedder models")
     p_models.set_defaults(fn=cmd_models)

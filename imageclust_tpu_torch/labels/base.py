@@ -122,9 +122,11 @@ def create_labeler(cfg, cache_dir: str | None = None, embedder=None) -> Labeler:
 
         inner: Labeler = FakeLabeler()
     elif backend == "rekognition":
-        raise NotImplementedError(
-            "labels backend 'rekognition' is not ported yet (ROADMAP.md, "
-            "queue 1, item 13: cloud backends)")
+        from imageclust_tpu_torch.labels.rekognition import RekognitionLabeler
+
+        inner = RekognitionLabeler(
+            region=cfg.region, max_payload_bytes=cfg.max_payload_bytes
+        )
     elif backend == "zero_shot":
         from imageclust_tpu_torch.labels.zero_shot import ZeroShotLabeler
 

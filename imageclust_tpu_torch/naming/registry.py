@@ -37,11 +37,24 @@ def build_namer(name: str, cfg: NamingConfig) -> Namer:
         from imageclust_tpu_torch.naming.fake import FakeNamer
 
         return FakeNamer()
-    if name in ("claude_haiku", "claude_sonnet", "nova_micro",
-                "gpt-3.5-turbo", "gpt-4", "gpt35", "gpt4"):
-        raise NotImplementedError(
-            f"naming service {name!r} is not ported yet (ROADMAP.md, "
-            "queue 1: naming backends)")
+    if name in ("claude_haiku", "claude_sonnet"):
+        from imageclust_tpu_torch.naming.bedrock import ClaudeBedrockNamer
+
+        return ClaudeBedrockNamer(
+            variant=name.split("_")[1],
+            region=cfg.bedrock_region,
+            retry_delay_s=cfg.retry_delay_s,
+        )
+    if name == "nova_micro":
+        from imageclust_tpu_torch.naming.bedrock import NovaBedrockNamer
+
+        return NovaBedrockNamer(region=cfg.bedrock_region,
+                                retry_delay_s=cfg.retry_delay_s)
+    if name in ("gpt-3.5-turbo", "gpt-4", "gpt35", "gpt4"):
+        from imageclust_tpu_torch.naming.openai_backend import OpenAINamer
+
+        model = {"gpt35": "gpt-3.5-turbo", "gpt4": "gpt-4"}.get(name, name)
+        return OpenAINamer(model=model, retry_delay_s=cfg.retry_delay_s)
     raise ValueError(f"unknown naming service {name!r}")
 
 

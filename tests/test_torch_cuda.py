@@ -965,3 +965,147 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda):
     with pytest.raises(RuntimeError, match="need backend='gloo'"):
         launch_processes("imageclust_tpu_torch.parallel._worker:verify_psum",
                          2, device="cuda", backend="nccl", timeout=120)
+
+
+# -- the cloud backends and verify ----------------------------------------------
+
+def _tiny_text_checkpoint(path):
+    """A seeded HF-named CLIPTextModel state dict of a small text tower."""
+    from imageclust_tpu_torch.models import text
+
+    cfg = text.TextConfig(vocab=96, width=64, depth=2, heads=2, proj_dim=12,
+                          context=10, eot_id=2)
+    state = text.TextTransformer(cfg).init_random(4).state_dict()
+    sd = {"text_model." + theirs: (state[ours][0] if ours == "pos_embed"
+                                   else state[ours])
+          for ours, theirs in text._hf_pairs(cfg)}
+    sd["text_projection.weight"] = state["projection.weight"]
+    torch.save({k: v.contiguous() for k, v in sd.items()}, path)
+    return str(path)
+
+
+def test_verify_clip_text_on_card(cuda, tmp_path, capsys):
+    """``cli verify --clip-text --device cuda``: PASS, with the report the
+    CPU gives."""
+    import json
+
+    from imageclust_tpu_torch import cli, verify
+
+    path = _tiny_text_checkpoint(tmp_path / "text.pt")
+    got = verify.verify_clip_text(path, device="cuda")
+    assert got == verify.verify_clip_text(path, device="cpu")
+    assert got["ok"] and got["checks"]["ingested"]
+    assert cli.main(["verify", "--clip-text", path, "--device", "cuda"]) == 0
+    out = capsys.readouterr().out
+    assert out.strip().endswith("VERDICT: PASS")
+    assert json.loads(out[:out.rindex("VERDICT")])["clip_text"] == got
+
+
+def test_verify_onnx_on_card(cuda, tmp_path, capsys):
+    """``verify --onnx`` on a seeded export: on the card its forward and
+    the partition check (K1) pass where cv2, the reference's runtime, is
+    importable; without cv2 the CLI fails structurally naming it."""
+    import importlib.util
+    import json
+
+    from imageclust_tpu_torch import cli, verify
+    from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+
+    path = str(tmp_path / "rn50.onnx")
+    export_resnet50_onnx(ResNet50V1().init_random(7), path)
+    rc = cli.main(["verify", "--onnx", path, "--sample", "6", "--device",
+                   "cuda"])
+    out = capsys.readouterr().out
+    report = json.loads(out[:out.rindex("VERDICT")])
+    if importlib.util.find_spec("cv2") is None:
+        assert rc == 2 and "cv2" in report["error"]
+        return
+    before = mk.launches
+    got = verify.verify_onnx(path, sample=6, device="cuda")
+    assert mk.launches > before  # the partition check ran K1
+    assert rc == 0 and got["ok"] and got["checks"]["assignments_equal"]
+    assert got["checks"]["cosine_min"] > verify.COSINE_GATE
+
+
+def test_cloud_job_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
+    """``Pipeline.run`` with Rekognition labels and Bedrock and OpenAI
+    names (a stub at the transport's seam) on the card and on the CPU: the
+    same clusters, labels and names; K1 ran on the card."""
+    import base64
+    import hashlib
+    import json
+
+    from imageclust_tpu_torch.config import (
+        AppConfig,
+        LabelConfig,
+        NamingConfig,
+    )
+    from imageclust_tpu_torch.models.registry import Embedder, EmbedderSpec
+    from imageclust_tpu_torch.models.resnet50 import ResNet50V1
+    from imageclust_tpu_torch.pipeline import Pipeline
+    from imageclust_tpu_torch.types import UploadedImage
+    from imageclust_tpu_torch.utils import aws
+
+    rng = np.random.default_rng(0)
+    names, blobs = [], []
+    for g, base in enumerate([(200, 30, 30), (30, 200, 30), (30, 30, 200)]):
+        for i in range(6):
+            img = np.clip(np.asarray(base) + rng.integers(
+                0, 20, (224, 224, 3)), 0, 255).astype(np.uint8)
+            names.append(f"g{g}_{i}.ppm")
+            blobs.append(b"P6 224 224 255\n" + img[..., ::-1].tobytes())
+    group_of = {hashlib.sha256(b).hexdigest(): n[:2]
+                for n, b in zip(names, blobs)}
+
+    def stub(method, url, body, headers, timeout):
+        req = json.loads(body)
+        if "rekognition" in url:
+            img = base64.b64decode(req["Image"]["Bytes"])
+            g = group_of[hashlib.sha256(img).hexdigest()]
+            return 200, json.dumps({"Labels": [
+                {"Name": f"Colour {g}", "Confidence": 97.0}]}).encode()
+        prompt = (req["messages"][-1]["content"] if "messages" in req
+                  else req["inputText"])
+        t = json.dumps({"title": hashlib.sha256(prompt.encode()).hexdigest()
+                        [:10], "catchy_phrase": "p"})
+        if "openai" in url:
+            return 200, json.dumps({"choices": [{"message": {
+                "content": t}}]}).encode()
+        return 200, json.dumps({"content": [{"text": t}]}).encode()
+
+    monkeypatch.setattr(aws, "http_request", stub)
+    monkeypatch.setattr(aws, "_CACHE", aws.AwsCredentials("AK", "SK"))
+    monkeypatch.setenv("OPENAI_API_KEY", "sk-test")
+    cfg = AppConfig(
+        labels=LabelConfig(backend="rekognition", retry_delay_s=0.0),
+        naming=NamingConfig(services=("claude_haiku", "gpt-3.5-turbo"),
+                            retry_delay_s=0.0))
+    spec = EmbedderSpec(name="resnet50", input_size=224, dim=64,
+                        scale=1 / 255.0, mean=(0.0, 0.0, 0.0),
+                        std=(1.0, 1.0, 1.0), bgr_input=True)
+    src = ResNet50V1(num_classes=64, dtype="float32", norm_dtype="float32",
+                     stage_layers=(1, 1, 1, 1),
+                     stem_mode="s2d_raw").init_random(3)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        model = ResNet50V1(num_classes=64, dtype="float32",
+                           norm_dtype="float32", stage_layers=(1, 1, 1, 1),
+                           stem_mode="s2d_raw")
+        model.load_state_dict(src.state_dict())
+        emb = Embedder(spec, model, batch_size=8, device=torch.device(dev),
+                       tag=f"cloud-{dev}")
+        before = mk.launches
+        res = Pipeline(cfg, device=dev, embedder=emb).run(
+            [UploadedImage(n, b) for n, b in zip(names, blobs)],
+            str(tmp_path / dev), min_size=3, max_size=6)
+        results[dev] = (res.to_dict()["clusters"], res.dropped,
+                        mk.launches - before, res.metrics.counters["merges"])
+    (gpu, gpu_drop, k1, merges), (cpu, cpu_drop, k1_cpu, _) = (
+        results["cuda"], results["cpu"])
+    assert gpu == cpu and gpu_drop == cpu_drop
+    assert merges <= k1 <= merges + ward.FOUND_READ_EVERY and k1_cpu == 0
+    for c in gpu.values():
+        assert c["labels"].startswith("Colour g")
+        assert [o["serviceName"] for o in c["serviceOutputs"]] == [
+            "OpenAI GPT-3.5 Turbo", "Claude Haiku v3.5"]

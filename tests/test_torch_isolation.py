@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: no JAX, no Flax, no optax, Orbax or
-tensorstore, nothing of the JAX package, anywhere in
+tensorstore, no ``requests``, nothing of the JAX package, anywhere in
 ``imageclust_tpu_torch/`` or ``chip_smoke.py``."""
 
 import ast
@@ -14,7 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "imageclust_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "imageclust_tpu")
+             "imageclust_tpu", "requests")
 
 torch.set_num_threads(2)
 
@@ -55,7 +55,10 @@ def test_port_has_modules():
                 "cluster/quality.py", "utils/orbax_io.py",
                 "utils/checkpoint.py", "models/train.py",
                 "models/finetune.py", "core/mesh.py", "core/collectives.py",
-                "parallel/__init__.py", "parallel/_worker.py"):
+                "parallel/__init__.py", "parallel/_worker.py",
+                "utils/aws.py", "labels/rekognition.py", "naming/bedrock.py",
+                "naming/openai_backend.py", "cluster/oracle.py",
+                "verify.py"):
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
@@ -230,6 +233,84 @@ def test_finetune_and_serve_checkpoint_without_jax(tmp_path):
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "['a', 'b'] []"
+
+
+def test_cloud_backends_and_verify_without_jax_requests_or_cv2(tmp_path):
+    """The SigV4 client, Rekognition, Bedrock, OpenAI, the oracle and
+    ``verify`` import and run with JAX, ``requests`` and cv2 absent: the
+    cloud calls through a stub at the transport's one seam, an under-limit
+    image passes the shrink untouched, an over-limit one names cv2, and
+    ``cli verify --onnx`` fails structurally (exit 2) naming cv2."""
+    code = (
+        "import sys, json, io, contextlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'imageclust_tpu', 'cv2', "
+        "'PIL', 'requests'):\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from imageclust_tpu_torch.utils import aws\n"
+        "from imageclust_tpu_torch.labels import rekognition\n"
+        "from imageclust_tpu_torch.naming import bedrock, openai_backend\n"
+        "from imageclust_tpu_torch.cluster import oracle\n"
+        "from imageclust_tpu_torch import verify, cli\n"
+        "sent = []\n"
+        "def stub(method, url, body, headers, timeout):\n"
+        "    sent.append(url)\n"
+        "    t = json.dumps({'title': 'T', 'catchy_phrase': 'P'})\n"
+        "    if 'rekognition' in url:\n"
+        "        return 200, b'{\"Labels\": [{\"Name\": \"Cat\", "
+        "\"Confidence\": 90}]}'\n"
+        "    if 'openai' in url:\n"
+        "        return 200, json.dumps({'choices': [{'message': "
+        "{'content': t}}]}).encode()\n"
+        "    return 200, json.dumps({'content': [{'text': t}]}).encode()\n"
+        "aws.http_request = stub\n"
+        "creds = aws.AwsCredentials('A', 'S')\n"
+        "labels = rekognition.RekognitionLabeler(creds=creds)"
+        ".detect_labels(b'x' * 10, 5, 1.0)\n"
+        "assert [(l.name, l.confidence) for l in labels] == [('Cat', 90.0)]\n"
+        "assert bedrock.ClaudeBedrockNamer(creds=creds).generate('c', 1)"
+        " == ('T', 'P')\n"
+        "import os\n"
+        "os.environ['OPENAI_API_KEY'] = 'k'\n"
+        "assert openai_backend.OpenAINamer().generate('c', 1) == "
+        "('T', 'P')\n"
+        "try:\n"
+        "    rekognition.shrink_to_payload_limit(b'x' * 10, 5)\n"
+        "except ValueError as e:\n"
+        "    assert 'cv2' in str(e)\n"
+        "else:\n"
+        "    raise AssertionError('no error')\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    rc = cli.main(['verify', '--onnx', 'absent.onnx', '--device', "
+        "'cpu'])\n"
+        "assert rc == 2 and 'cv2' in out.getvalue(), out.getvalue()\n"
+        "print(len(sent), sorted(m for m in ('cv2', 'requests', 'jax') "
+        "if sys.modules.get(m) is not None))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, env=env,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "3 []"
+
+
+def test_cloud_modules_import_no_cv2_or_requests():
+    code = ("import sys\n"
+            "from imageclust_tpu_torch.utils import aws\n"
+            "from imageclust_tpu_torch.labels import rekognition\n"
+            "from imageclust_tpu_torch.naming import bedrock, "
+            "openai_backend, registry\n"
+            "from imageclust_tpu_torch.cluster import oracle\n"
+            "from imageclust_tpu_torch import verify\n"
+            "print(sorted(m for m in ('cv2', 'requests', 'jax', 'PIL') "
+            "if m in sys.modules))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
 
 
 def test_mesh_ranks_run_without_jax():

@@ -290,18 +290,39 @@ class TestErrors:
         out = emb.embed(u8)
         assert out.shape == (3, emb.spec.dim) and np.isfinite(out).all()
 
-    @pytest.mark.parametrize("backend", ["rekognition"])
-    def test_unported_labelers_raise(self, towers, backend):
+    @pytest.mark.parametrize("backend", ["rekognition", "fake", "none"])
+    def test_unported_labelers_raise(self, towers, backend, tmp_path):
+        """Every blob-based labels backend builds the port's class, as the
+        JAX registry builds its own (the name is from before the cloud
+        backends were ported, when "rekognition" refused)."""
+        from imageclust_tpu.labels import create_labeler as jax_create
         from imageclust_tpu_torch.labels import create_labeler
 
-        with pytest.raises(NotImplementedError, match="not ported"):
-            create_labeler(LabelConfig(backend=backend))
+        for cache in (None, str(tmp_path)):
+            got = create_labeler(LabelConfig(backend=backend), cache)
+            want = jax_create(JaxLabelConfig(backend=backend), cache)
+            assert type(got).__name__ == type(want).__name__
+            assert type(got).__module__.startswith("imageclust_tpu_torch.")
+            if hasattr(want, "inner"):
+                assert type(got.inner).__name__ == type(want.inner).__name__
+                assert type(got.inner).__module__.startswith(
+                    "imageclust_tpu_torch.")
 
     def test_unported_namers_raise(self):
+        """Every naming service name, aliases included, builds the port's
+        namer with the JAX namer's display name and order (the name is from
+        before the cloud namers were ported, when they refused)."""
+        from imageclust_tpu.naming import create_naming_service as jax_create
         from imageclust_tpu_torch.naming import create_naming_service
 
-        with pytest.raises(NotImplementedError, match="not ported"):
-            create_naming_service(NamingConfig(services=("claude_haiku",)))
+        services = ("fake", "claude_haiku", "claude_sonnet", "nova_micro",
+                    "gpt-3.5-turbo", "gpt-4", "gpt35", "gpt4")
+        got = create_naming_service(NamingConfig(services=services))
+        want = jax_create(JaxNamingConfig(services=services))
+        assert [(type(n).__name__, n.name, n.order) for n in got.namers] == [
+            (type(n).__name__, n.name, n.order) for n in want.namers]
+        assert all(type(n).__module__.startswith("imageclust_tpu_torch.")
+                   for n in got.namers)
 
 
 class TestEmbedder:

@@ -319,9 +319,23 @@ class TestCreateLabeler:
         want = JaxZeroShot.default(_Embedder(16), text_checkpoint=ckpt)
         np.testing.assert_allclose(zs.bank, want.bank, **_TOL)
 
-    def test_rekognition_still_raises(self):
-        with pytest.raises(NotImplementedError, match="item 13|cloud"):
-            create_labeler(LabelConfig(backend="rekognition"))
+    def test_rekognition_still_raises(self, tmp_path):
+        """``backend="rekognition"`` builds the port's RekognitionLabeler,
+        wrapped in CachedLabeler when given a cache dir (the name is from
+        before Rekognition was ported, when it refused)."""
+        from imageclust_tpu_torch.labels.rekognition import (
+            RekognitionLabeler,
+        )
+
+        cfg = LabelConfig(backend="rekognition", region="eu-west-1")
+        bare = create_labeler(cfg)
+        assert isinstance(bare, RekognitionLabeler)
+        assert (bare.region, bare.max_payload_bytes) == (
+            "eu-west-1", cfg.max_payload_bytes)
+        cached = create_labeler(cfg, str(tmp_path))
+        assert isinstance(cached, CachedLabeler)
+        assert isinstance(cached.inner, RekognitionLabeler)
+        assert cached.namespace == "RekognitionLabeler"
 
     def test_default_device_needs_cuda(self, monkeypatch):
         """A host array goes to the embedder's device: "cuda" by default,
