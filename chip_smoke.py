@@ -77,7 +77,10 @@ line and raises on any failure:
 12. the full-width ViT-B/32 tower (bf16, batch 1024, seeded random init)
     on 4096 noise images through ``Embedder.embed``, once on K5 and once
     with ``models.vit.attention`` swapped for the twin: per-row cosine
-    >= ``VIT_COS_FLOOR``, 12 K5 launches per batch, images/s;
+    >= ``VIT_COS_FLOOR``, 12 K5 launches per batch, images/s; then
+    ``Embedder.embed_blob`` on 256 of the images preprocessed on the host
+    into a float32 NCHW blob, per-row cosine against ``embed``'s rows >=
+    ``BLOB_COS_FLOOR``;
 13. the server of phase 4 with ``embed.model=vit_b32``;
 14. ``cli run --model vit_b32`` on 4500 BMPs (streamed, the bucketed
     engine on K2), 12 K5 launches per batch of 1024;
@@ -109,7 +112,9 @@ line and raises on any failure:
     through the port's exporter into ``$IMAGECLUST_SMOKE_OUT`` (equal
     sha256), loaded through ``embed.onnx_path`` (weights bit-identical to
     the seeded ones), 256 images through both towers (max abs difference,
-    per-row cosine >= ``ONNX_COS_FLOOR``), then one 200-image
+    per-row cosine >= ``ONNX_COS_FLOOR``), the seeded tower's
+    ``Embedder.embed_blob`` on those images as a host-made float32 blob
+    against its ``embed`` (as in phase 12), then one 200-image
     ``POST /api/cluster`` and a 500-image ``cli run`` from the file (which
     is deleted after);
 20. the int8 PTQ towers at full width, ResNet50 and ViT-B/32: calibration
@@ -315,6 +320,11 @@ STREAM_VIT_DEPTH = 2
 ONNX_SEED = 0          # phase 19: the seeded tower written to ONNX
 ONNX_EMBED_N = 256     # phase 19: images through the seeded and loaded towers
 ONNX_COS_FLOOR = 0.99999  # phase 19: per-row cosine, loaded vs seeded
+# phases 12 and 19: per-row cosine of ``Embedder.embed_blob`` on a blob
+# preprocessed on the host against ``Embedder.embed`` on the same uint8
+# images (the bf16 floor of tests/test_torch_resnet50.py and _vit.py)
+BLOB_N = 256
+BLOB_COS_FLOOR = 0.99
 INT8_N = 4096          # phase 20: images through each int8 and bf16 tower
 INT8_CLI_GROUPS = 100  # phases 19-20: 100 groups x 5 = 500 images, cli run
 TEXT_SEED = 21          # phase 21: the seeded CLIP text tower
@@ -1923,6 +1933,31 @@ def _noise_images(n: int, size: int, seed: int):
         0, 256, (n, size, size, 3), dtype=np.uint8)
 
 
+def _blob_check(emb, images, want) -> dict:
+    """``Embedder.embed_blob`` on the card: the float32 (N, 3, S, S) blob
+    preprocessed on the host in numpy (channel flip, scale, mean, std, as
+    the embedder does at the input size) against ``want``, the same
+    tower's ``Embedder.embed`` rows of the same uint8 images."""
+    import numpy as np
+
+    spec = emb.spec
+    x = images.astype(np.float32)
+    if spec.bgr_input:
+        x = x[..., ::-1]
+    x = (x * np.float32(spec.scale) - np.asarray(spec.mean, np.float32)) \
+        / np.asarray(spec.std, np.float32)
+    blob = np.ascontiguousarray(x.transpose(0, 3, 1, 2), np.float32)
+    got = emb.embed_blob(blob)
+    cos = _cosines(got, want)
+    if got.shape != want.shape or got.dtype != np.float32 or not (
+            np.isfinite(got).all() and cos.min() >= BLOB_COS_FLOOR):
+        raise AssertionError(f"{spec.name} embed_blob: {got.shape} "
+                             f"{got.dtype}, min cosine {cos.min()}")
+    return {"images": len(blob), "cosine_min": float(cos.min()),
+            "cosine_floor": BLOB_COS_FLOOR,
+            "max_abs_diff": float(np.abs(got - want).max())}
+
+
 def phase_vit_tower(card: str):
     import numpy as np
     import torch
@@ -1963,6 +1998,7 @@ def phase_vit_tower(card: str):
     if not cos.min() >= VIT_COS_FLOOR:
         raise AssertionError(f"ViT-B/32 on K5 vs twin: min cosine "
                              f"{cos.min()} < {VIT_COS_FLOOR}")
+    blob = _blob_check(emb, images[:BLOB_N], got[:BLOB_N])
     # one batch under the profiler: the tower's device time and K5's share
     x = torch.from_numpy(images[:emb.batch_size]).to(DEVICE)
     torch.cuda.synchronize()
@@ -1978,6 +2014,7 @@ def phase_vit_tower(card: str):
           "twin_images_per_s": VIT_N / twin_s, "k5_launches": launches,
           "cosine_min": float(cos.min()), "cosine_floor": VIT_COS_FLOOR,
           "batch_device_ms": all_us / 1e3, "batch_k5_device_ms": k5_us / 1e3,
+          "embed_blob": blob,
           "timing": "wall: host clock around Embedder.embed (host copy in, "
                     "embeddings back to the host); batch_*: torch.profiler "
                     "kernel time of one batch's forward"})
@@ -2437,13 +2474,15 @@ def _onnx_round_trip(card: str, seeded, paths):
             cos.min() >= ONNX_COS_FLOOR):
         raise AssertionError(f"ONNX tower vs seeded: {b.shape}, min cosine "
                              f"{cos.min()}")
+    blob = _blob_check(seeded, images[:BLOB_N], a[:BLOB_N])
     emit({"phase": "onnx", "card": card, "file": os.path.relpath(paths[0],
                                                                REPO),
           "bytes": paths[0].stat().st_size, "sha256": digests[0],
           "exports_equal": True, "export_s": export_s, "load_s": load_s,
           "weights_bit_identical": True, "images": ONNX_EMBED_N,
           "max_abs_diff": float(np.abs(a - b).max()),
-          "cosine_min": float(cos.min()), "embedder_tag": loaded.tag})
+          "cosine_min": float(cos.min()), "embedder_tag": loaded.tag,
+          "embed_blob": blob})
     del loaded
     torch.cuda.empty_cache()
     phase_server(card, "resnet50", {"onnx_path": str(paths[0])},

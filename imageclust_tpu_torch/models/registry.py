@@ -135,6 +135,11 @@ class Embedder:
                 chunk, size=spec.input_size, scale=spec.scale,
                 mean=spec.mean, std=spec.std, bgr_to_rgb=spec.bgr_input,
                 channels_first=False)
+        return self._tower(x)
+
+    def _tower(self, x: torch.Tensor) -> torch.Tensor:
+        """The tower on a preprocessed float batch, NHWC or NCHW (JAX
+        ``_apply_fn``)."""
         if self._vit:
             return self.model(x)
         logits, feats = self.model(x, return_features=True,
@@ -179,6 +184,16 @@ class Embedder:
         if not chunks:
             return np.zeros((0, self.spec.dim), np.float32)
         return torch.cat(chunks).float().cpu().numpy()
+
+    @torch.inference_mode()
+    def embed_blob(self, blob) -> np.ndarray:
+        """Embed an already-preprocessed float32 (N, 3, S, S) blob, the
+        exact tensor the reference feeds its DNN (embeddings.go:103; JAX
+        registry.py:380-387). Returns float32 (N, dim) on the host. On a
+        mesh every rank embeds the whole blob on its own device."""
+        x = torch.from_numpy(np.ascontiguousarray(blob, np.float32)).to(
+            self.device)
+        return self._tower(x).float().cpu().numpy()
 
     def embed_device(self, images):
         """Like :meth:`embed` but the result stays on the device: a tensor,

@@ -202,3 +202,49 @@ class TestRandomInit:
         fan_in = w[0].numel()
         assert abs(float(w.std()) - fan_in ** -0.5) < 0.1 * fan_in ** -0.5
         assert float(w.abs().max()) <= 2 * fan_in ** -0.5 / 0.8796 + 1e-6
+
+
+class TestEmbedBlob:
+    """``Embedder.embed_blob`` on a preprocessed (N, 3, S, S) blob against
+    the JAX ``Embedder.embed_blob`` on the same Flax variables (small
+    stages): f32 allclose at 1e-4, bf16 per-row cosine >= 0.99."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("pooled", [False, True])
+    def test_matches_jax(self, rng, dtype, pooled):
+        from imageclust_tpu.models.registry import Embedder as JaxEmbedder
+        from imageclust_tpu.models.registry import EmbedderSpec as JaxSpec
+        from imageclust_tpu_torch.models.registry import (
+            Embedder,
+            EmbedderSpec,
+        )
+
+        v = _flax_variables(_SMALL)
+        dt = jnp.dtype(dtype)
+        flax_model = FlaxResNet(dtype=dt, norm_dtype=dt, stage_layers=_SMALL,
+                                num_classes=10)
+
+        def apply_fn(variables, x):
+            logits, feats = flax_model.apply(variables, x,
+                                             return_features=True)
+            return feats if pooled else logits
+
+        spec = dict(name="resnet50", input_size=64,
+                    dim=2048 if pooled else 10, scale=1 / 255.0,
+                    mean=(0.0, 0.0, 0.0), std=(1.0, 1.0, 1.0),
+                    bgr_input=True)
+        jax_emb = JaxEmbedder(JaxSpec(**spec), apply_fn, v, batch_size=8)
+        port_emb = Embedder(
+            EmbedderSpec(**spec),
+            ResNet50V1(num_classes=10, dtype=dtype, norm_dtype=dtype,
+                       stage_layers=_SMALL),
+            batch_size=8, device=torch.device("cpu"), pooled=pooled)
+        port_emb.load_flax_variables(v)
+        _, blob = _images(rng, 5, 64)
+        got = port_emb.embed_blob(blob)
+        want = np.asarray(jax_emb.embed_blob(blob), np.float32)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+        else:
+            assert _cosine(got, want).min() >= 0.99
