@@ -191,9 +191,9 @@ line and raises on any failure:
 28. the mesh (``core/mesh.py``, ``parallel/``): ranks started by
     ``launch_processes(device="cuda")``, (a) one rank over NCCL, (b) two
     ranks sharing the card over gloo, each against the single card: the
-    exact engine at 1024 x 1000, the bucketed engine at 100,000 x 1000
+    exact engine at 512 x 1000, the bucketed engine at 100,000 x 1000
     under both rules (K2 and K3 on every rank), over gloo also the
-    chain's rounds at 4096 x 512, the sequential chain at 300 x 64,
+    chain's rounds at 4096 x 512, the sequential chain at 200 x 64,
     ``run_paths`` on 4500 BMPs and the full-width train step at batch 64
     at (data=2, model=1) and (data=1, model=2), at seeded and tuned
     weights, each beside the float64 gradient.
@@ -215,6 +215,17 @@ line and raises on any failure:
     ValueError naming cv2); ``cli verify --clip-text`` (PASS) on the
     phase-21 checkpoint and ``--onnx`` on a seeded export (PASS with cv2,
     else exit 2 naming cv2), both with ``--device cuda``.
+30. the benchmark harness (``imageclust_tpu_torch/bench.py``, ``cli
+    bench``) in this process, each mode once at a small size: e2e and
+    e2e-stream on 4096 images (ResNet50, batch 512), cluster-only auto at
+    4096 x 64 (the exact engine, K1) and bucketed at 100,000 x 64 (K2),
+    embed-only for ``resnet50`` and ``vit_b32`` on 4096 images, decode on
+    1000 JPEGs (the RuntimeError naming cv2 where cv2 is missing), quality
+    at 5000 x 64 without towers; each mode's result line is a phase line,
+    held to bench.py's metric name, a positive value, ``vs_baseline``
+    null exactly in the four modes that divide by the TPU north star,
+    the card as ``nvidia-smi`` names it, the e2e features on the card
+    and the K1, K2 and K5 launches of the modes that reach them.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -228,7 +239,8 @@ k >= 4096 buckets on the card, none below. The line before the last is
 the ``{"kernels": [...]}`` summary (K1's launches from the server phase
 and phase 29's first job, K2's
 and K3's from the 100,000-image engine runs, K5's from the ViT server
-phase and the int8 ViT server request of phase 20, K4's from the
+phase and the int8 ViT server request of phase 20, each with phase 30's
+launches of it added, K4's from the
 1.6M-image ``run_stream``; phases 21-27 print their launches on their
 own lines); the last line is
 ``{"ok": true, "device": {...}}``. Long outputs (the nvcc log, the CLI
@@ -363,6 +375,15 @@ FT_CLASSES, FT_PER_CLASS = 8, 64
 FT_BATCH, FT_EPOCHS, FT_LR = 64, 2, 1e-3
 FT_CHECK_BATCH = 8
 FT_SERVE_N = 256
+# phase 30: the benchmark harness's modes in-process, cut to run in about
+# 40 s (the full-size runs are `python -m imageclust_tpu_torch.cli bench`)
+BENCH_E2E_N = 4096      # e2e and e2e-stream images (ResNet50)
+BENCH_E2E_BATCH = 512   # e2e: bench.py's --batch 0 for the e2e benches
+BENCH_CLUSTER = ((4096, "auto"), (100_000, "bucketed"))  # cluster-only
+BENCH_D = 64            # cluster-only and quality feature width
+BENCH_EMBED_N = 4096    # embed-only images per tower
+BENCH_DECODE_N = 1000   # decode: JPEG copies (cv2)
+BENCH_QUALITY_N = 5000  # quality: residency and fusion rows, no towers
 
 _JOBS: dict = {}  # cli_run_big results by tag, for phase 25's agreement
 
@@ -3846,8 +3867,8 @@ def _finetune(card: str, tmp: Path):
 # its results to $IMAGECLUST_SMOKE_OUT/mesh_<part>_rank<r>.pkl; the parent
 # holds them against the references.
 
-MESH_SEQ_N, MESH_SEQ_D = 300, 64  # phase 28: the sequential chain's job
-MESH_EXACT_N = 1024  # phase 28: the exact engine's job (d = 1000)
+MESH_SEQ_N, MESH_SEQ_D = 200, 64  # phase 28: the sequential chain's job
+MESH_EXACT_N = 512  # phase 28: the exact engine's job (d = 1000)
 MESH_TRAIN_BATCH = 64              # phase 28: the full-width train step
 MESH_LAUNCH_S = {"nccl": 300.0, "gloo": 600.0}  # each launch's time limit
 
@@ -4456,11 +4477,11 @@ def _mesh_part_summary(part: str, ranks: list, ref: dict, inputs) -> dict:
 
 def phase_mesh(card: str):
     """Phase 28: the mesh on the card. (a) One rank over NCCL: the mesh
-    exact engine at 1024 x 1000 (phase 3's generators) and the mesh
+    exact engine at 512 x 1000 (phase 3's generators) and the mesh
     bucketed engine at 100,000 x 1000 (phase 8's) under both rules. (b) Two
     ranks sharing the card over gloo: the same, the chain's rounds at
     4096 x 512
-    (phase 24's shape) and the sequential chain at 300 x 64,
+    (phase 24's shape) and the sequential chain at 200 x 64,
     ``Pipeline.run_paths`` on phase 9's 4500 BMPs, and the full-width
     ResNet50 train step at batch 64 at (data=2, model=1) and (data=1,
     model=2). Each is held against the single card: merge logs and
@@ -5007,6 +5028,121 @@ def _cloud_verify(tmp: Path) -> dict:
                             "s": time.perf_counter() - t0}}
 
 
+def _bench_mode(card: str, name: str, fn, *args, **kw) -> dict:
+    """One harness mode with the launch counters set to 0 just before and
+    read just after; its stderr detail goes to ``$IMAGECLUST_SMOKE_OUT``."""
+    err = io.StringIO()
+    _zero_counters()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        res = fn(*args, **kw)
+    s = time.perf_counter() - t0
+    c = _counters()
+    with open(OUT / "bench_phase.log", "a") as fh:
+        fh.write(f"== {name}\n{err.getvalue()}")
+    detail = res.pop("detail")
+    emit({"phase": "bench", "mode": name, "line": res, "detail": detail,
+          "launches": {k: c[k] for k in ("k1", "k2", "k3", "k4", "k5")},
+          "s": s})
+    if detail["device"] != {"card": card, "count": 1}:
+        raise AssertionError(f"bench {name}: device {detail['device']}, "
+                             f"card {card!r}")
+    if not res["value"] > 0:
+        raise AssertionError(f"bench {name}: value {res['value']}")
+    return {"metric": res["metric"], "vs_baseline": res["vs_baseline"],
+            **c}
+
+
+def phase_bench(card: str):
+    """The benchmark harness's modes on the card, each once at a small
+    size (30). Returns the K1, K2 and K5 launches of the modes that reach
+    them."""
+    import importlib.util
+
+    from imageclust_tpu_torch import bench
+    from imageclust_tpu_torch.models.registry import DEFAULT_BATCH
+
+    t_phase = time.perf_counter()
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "bench_phase.log").unlink(missing_ok=True)
+    seen = []
+    real = bench.constrained_ward_bucketed
+
+    def spy(feats, **kw):  # where the e2e features live
+        seen.append((type(feats).__name__, str(feats.device)))
+        return real(feats, **kw)
+
+    n, d = BENCH_E2E_N, BENCH_D
+    runs = {}
+    bench.constrained_ward_bucketed = spy
+    try:
+        runs["e2e"] = _bench_mode(card, "e2e", bench.bench_e2e, n,
+                                  BENCH_E2E_BATCH, 256, device=DEVICE)
+    finally:
+        bench.constrained_ward_bucketed = real
+    if len(seen) != 2 or any(w[0] != "Tensor" or not w[1].startswith(DEVICE)
+                             for w in seen):
+        raise AssertionError(f"bench e2e: features at {seen}")
+    with tempfile.TemporaryDirectory(prefix="imageclust_smoke_bench_") as wd:
+        runs["e2e-stream"] = _bench_mode(
+            card, "e2e-stream", bench.bench_e2e_stream, n, "resnet50", 0,
+            256, "float32", wd, device=DEVICE)
+    for cn, engine in BENCH_CLUSTER:
+        runs[f"cluster-only {engine}"] = _bench_mode(
+            card, f"cluster-only {engine}", bench.bench_cluster_only, cn, d,
+            256, engine, device=DEVICE)
+    for model in ("resnet50", "vit_b32"):
+        runs[f"embed-only {model}"] = _bench_mode(
+            card, f"embed-only {model}", bench.bench_embed_only, model, 0,
+            BENCH_EMBED_N, device=DEVICE)
+    if importlib.util.find_spec("cv2") is not None:
+        runs["decode"] = _bench_mode(card, "decode", bench.bench_decode,
+                                     BENCH_DECODE_N, 8, device=DEVICE)
+    else:
+        try:
+            bench.bench_decode(BENCH_DECODE_N, 8, device=DEVICE)
+        except RuntimeError as exc:
+            if "cv2" not in str(exc):
+                raise
+        else:
+            raise AssertionError("bench decode ran without cv2")
+    runs["quality"] = _bench_mode(card, "quality", bench.bench_quality,
+                                  BENCH_QUALITY_N, d, 1.0, "", 0,
+                                  device=DEVICE)
+
+    want = {
+        "e2e": f"e2e_embed+ward_{n // 1000}k_images",
+        "e2e-stream": f"e2e_stream_{n // 1000}k_images[resnet50 float32]",
+        "cluster-only auto": f"ward_cluster_{BENCH_CLUSTER[0][0]}_items",
+        "cluster-only bucketed": f"ward_cluster_{BENCH_CLUSTER[1][0]}_items",
+        **{f"embed-only {m}": f"embed_img_per_s[{m} b{DEFAULT_BATCH[m]}]"
+           for m in ("resnet50", "vit_b32")},
+        "decode": f"host_decode_{BENCH_DECODE_N}_jpegs",
+        "quality": f"quality_nonparity_min_ari[n{BENCH_QUALITY_N} d{d} "
+                   "sep1.0]",
+    }
+    null = {"e2e", "e2e-stream", "cluster-only auto",
+            "cluster-only bucketed"}
+    for name, r in runs.items():
+        if r["metric"] != want[name]:
+            raise AssertionError(f"bench {name}: metric {r['metric']}")
+        if (r["vs_baseline"] is None) != (name in null):
+            raise AssertionError(f"bench {name}: vs_baseline "
+                                 f"{r['vs_baseline']}")
+    reach = {"k1": ("cluster-only auto",),
+             "k2": ("e2e", "e2e-stream", "cluster-only bucketed",
+                    "quality"),
+             "k5": ("embed-only vit_b32",)}
+    for k, names in reach.items():
+        for name in names:
+            if not runs[name][k]:
+                raise AssertionError(f"bench {name}: no {k.upper()} launch")
+    emit({"phase": "bench_summary", "card": card, "modes": len(runs),
+          "phase_s": time.perf_counter() - t_phase})
+    return {k: sum(runs[name][k] for name in names)
+            for k, names in reach.items()}
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
@@ -5017,7 +5153,7 @@ PHASES = {
     18: phase_stream_big, 19: phase_onnx, 20: phase_int8_towers,
     21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
     24: phase_chain, 25: phase_chain_pipeline, 26: phase_scoreboards,
-    27: phase_finetune, 28: phase_mesh, 29: phase_cloud,
+    27: phase_finetune, 28: phase_mesh, 29: phase_cloud, 30: phase_bench,
 }
 
 
@@ -5032,6 +5168,10 @@ def main(argv: list[str] | None = None) -> int:
     elif args:
         print("usage: chip_smoke.py [--phases N,M,...]", file=sys.stderr)
         return 2
+    if not (REPO / "imageclust_tpu_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {REPO} is not a checkout of the repository",
+              file=sys.stderr)
+        return 2
     try:
         import torch
     except ImportError:
@@ -5040,10 +5180,6 @@ def main(argv: list[str] | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
-        return 2
-    if not (REPO / "imageclust_tpu_torch" / "csrc").is_dir():
-        print(f"chip_smoke: {REPO} is not a checkout of the repository",
-              file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
     from imageclust_tpu_torch.device import resolve_device
@@ -5096,6 +5232,7 @@ def main(argv: list[str] | None = None) -> int:
     run(27)
     run(28)
     cloud_launches = run(29)
+    bench_launches = run(30)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]
@@ -5104,7 +5241,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "imageclust_tpu_torch/csrc/merge_update_argmin.cu",
         "replaces": "imageclust_tpu/ops/pallas_kernels.py:134",
-        "launches": launches + cloud_launches,
+        "launches": launches + cloud_launches + bench_launches["k1"],
         "max_abs_err": max_err,
         **t,
         "bound_by": "bytes",
@@ -5118,7 +5255,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "imageclust_tpu_torch/csrc/merge_loop_whole.cu",
         "replaces": "imageclust_tpu/ops/pallas_kernels.py:491",
-        "launches": big_launches["k2"],
+        "launches": big_launches["k2"] + bench_launches["k2"],
         "max_abs_err": k2_err,
         **k2_t,
         "library_ms": None,
@@ -5142,7 +5279,7 @@ def main(argv: list[str] | None = None) -> int:
         "route": "cuda",
         "source": "imageclust_tpu_torch/csrc/short_seq_attention.cu",
         "replaces": "imageclust_tpu/ops/attention.py:64",
-        "launches": vit_launches + int8_launches,
+        "launches": vit_launches + int8_launches + bench_launches["k5"],
         "max_abs_err": k5_err,
         **k5_t,
         "shape": "B=1024, T=50, H=12, Dh=64 bf16 (ViT-B/32 at batch 1024)",

@@ -11,11 +11,11 @@ subdirectory), ``train --images DIR --out CKPT`` fine-tunes the ResNet50
 on labeled folders and writes an Orbax checkpoint that ``--set
 embed.checkpoint_path=CKPT`` serves, ``verify --onnx F`` (or ``--clip``,
 ``--clip-text``) gates real weights against the reference's runtime and
-prints a JSON report and a verdict, and ``models`` lists the towers.
-``run``, ``serve``, ``bank``, ``export``, ``train`` and ``verify`` take
-``--device`` (default ``cuda``; ``cpu`` runs without a card). The JAX CLI's
-``bench`` is not ported: it runs the JAX package's harness (the root
-``bench.py``), and the port's benchmark is still to be defined.
+prints a JSON report and a verdict, ``bench`` runs the benchmark
+harness (:mod:`imageclust_tpu_torch.bench`, its flags) and prints its one
+JSON line, and ``models`` lists the towers. ``run``, ``serve``, ``bank``,
+``export``, ``train``, ``verify`` and ``bench`` take ``--device`` (default
+``cuda``; ``cpu`` runs without a card).
 """
 
 from __future__ import annotations
@@ -241,6 +241,14 @@ def cmd_verify(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_bench(args) -> int:
+    """The benchmark harness, in this process (the JAX CLI starts the
+    root bench.py, which imports JAX)."""
+    from imageclust_tpu_torch import bench
+
+    return bench.run(args)
+
+
 def cmd_models(args) -> int:
     from imageclust_tpu_torch.models import list_models
 
@@ -327,6 +335,15 @@ def build_parser() -> argparse.ArgumentParser:
     p_verify.add_argument("--device", default="cuda",
                           help="torch device: cuda (default) or cpu")
     p_verify.set_defaults(fn=cmd_verify)
+
+    from imageclust_tpu_torch import bench
+
+    p_bench = sub.add_parser(
+        "bench", help="benchmark harness: e2e (default), --e2e-stream, "
+                      "--cluster-only, --embed-only, --e2e-real, --decode, "
+                      "--quality")
+    bench.add_arguments(p_bench)
+    p_bench.set_defaults(fn=cmd_bench)
 
     p_models = sub.add_parser("models", help="list embedder models")
     p_models.set_defaults(fn=cmd_models)

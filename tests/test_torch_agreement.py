@@ -25,7 +25,7 @@ from imageclust_tpu_torch.cluster import agreement as tag
 from imageclust_tpu_torch.cluster import quality as tq
 from imageclust_tpu_torch.cluster import sharded as tsh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 

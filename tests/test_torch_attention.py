@@ -18,7 +18,7 @@ import torch
 from imageclust_tpu.ops.attention import short_seq_attention as pallas_attention
 from imageclust_tpu_torch.ops import attention as at
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _TOL = {"float32": 1e-5, "bfloat16": 0.02}
 

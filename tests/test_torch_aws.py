@@ -27,7 +27,7 @@ from hypothesis import strategies as st
 import imageclust_tpu.utils.aws as jaws
 import imageclust_tpu_torch.utils.aws as paws
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 FIXED_NOW = datetime.datetime(2026, 3, 4, 5, 6, 7,
                               tzinfo=datetime.timezone.utc)

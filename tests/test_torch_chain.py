@@ -29,7 +29,7 @@ from imageclust_tpu_torch.cluster import (
 )
 from imageclust_tpu_torch.cluster import chain as tchain
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 IMPLS = ("rnn", "seq")
 

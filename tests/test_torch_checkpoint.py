@@ -36,7 +36,7 @@ from imageclust_tpu_torch.utils.checkpoint import (
     save_variables,
 )
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 DATA = Path(__file__).resolve().parent / "data"
 

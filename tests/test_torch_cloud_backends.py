@@ -51,7 +51,7 @@ from imageclust_tpu_torch.types import UploadedImage
 
 from helpers import color_group_images, encode_png
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _FIXED = __import__("datetime").datetime(
     2026, 3, 4, 5, 6, 7, tzinfo=__import__("datetime").timezone.utc)

@@ -77,9 +77,6 @@ RENAMED = {
 
 # "jax module:name" -> why the port has none
 NOT_PORTED = {
-    "cli.py:cmd_bench":
-        "runs the root bench.py, the JAX package's harness; it waits for "
-        "the port's own benchmark",
     "core/mesh.py:data_sharding":
         "a jax.sharding.NamedSharding helper; the port moves rows with "
         "local_rows and ShardedRows",

@@ -52,7 +52,7 @@ from imageclust_tpu_torch.types import UploadedImage
 
 from helpers import color_group_images, encode_png
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _SMALL = dict(stage_layers=(1, 1, 1, 1), input_size=32)
 

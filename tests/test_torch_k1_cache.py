@@ -27,7 +27,7 @@ from imageclust_tpu.ops.pallas_kernels import (
 )
 from imageclust_tpu_torch.ops import merge_kernels as mk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _BIG = 2**31 - 1
 

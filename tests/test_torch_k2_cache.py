@@ -25,7 +25,7 @@ from imageclust_tpu.ops.pallas_kernels import (
 from imageclust_tpu_torch.cluster import sharded as tsh
 from imageclust_tpu_torch.ops import bucket_kernels as bk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _BIG = 2**31 - 1
 _F32 = np.float32

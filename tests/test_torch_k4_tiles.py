@@ -35,7 +35,7 @@ import torch
 from imageclust_tpu.ops.pallas_kernels import pref_topk_block as jax_k4
 from imageclust_tpu_torch.ops import pref_kernels as pk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 KMAX, ROWS, COLS, QUEUE, THREADS = 8, 128, 128, 16, 256
 BIG = np.iinfo(np.int64).max

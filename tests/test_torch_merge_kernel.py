@@ -17,7 +17,7 @@ from imageclust_tpu.ops.pallas_kernels import (
 )
 from imageclust_tpu_torch.ops import merge_kernels as mk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _state(rng, n, quantize=False):

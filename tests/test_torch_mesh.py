@@ -30,7 +30,7 @@ from imageclust_tpu_torch.core.mesh import (
 
 import test_torch_mesh_targets as targets
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 class TestCreateMesh:
@@ -176,17 +176,28 @@ class TestCollectivesInOneProcess:
             cc.all_to_all_rows(x, m)
 
 
+# the launcher's own bodies (parallel/_worker.py), run inside each world's
+# launch after its collectives: every launch starts a fresh interpreter a
+# rank, so one launch a world keeps the tests' CPU down
+_VERIFY = {2: ("verify_all", (2, 1)), 4: ("verify_psum", (4, 1))}
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Every collective wrapper over 2 ranks (data=2) and 4 ranks (data=2 x
-    model=2, and data=4): one launch per world."""
-    out = {}
+    model=2, and data=4), then the world's ``verify_*`` body: one launch
+    per world. ``worlds["logs"][ranks]`` holds each rank's log."""
+    out = {"logs": {}}
     for ranks, specs in ((2, [(2, 1)]), (4, [(2, 2), (4, 1)])):
         cases = [(f"{kind}{d}x{m}", f"case_{name}", (d, m), {})
                  for d, m in specs
                  for kind, name in (("c", "collectives"), ("r", "rows"))]
+        fn, spec = _VERIFY[ranks]
+        cases.append(("verify", "case_verify", spec, {"fn": fn}))
+        logs = out["logs"][ranks] = []
         out[ranks] = targets.run(cases, ranks,
-                                 tmp_path_factory.mktemp(f"w{ranks}"))
+                                 tmp_path_factory.mktemp(f"w{ranks}"),
+                                 logs=logs)
     return out
 
 
@@ -310,21 +321,17 @@ class TestLauncher:
         with pytest.raises(ValueError, match="unsupported device"):
             par.launch_processes("x:y", 1, device="tpu")
 
-    def test_psum_train_step_and_bucketed_over_two_ranks(self):
+    def test_psum_train_step_and_bucketed_over_two_ranks(self, worlds):
         """The counterpart of tests/test_multiprocess.py: two ranks
         exchange real collectives (the workers assert on the global
-        results)."""
-        outs = par.launch_processes(
-            "imageclust_tpu_torch.parallel._worker:verify_all", 2,
-            timeout=110.0)
-        assert len(outs) == 2
-        for out in outs:
-            for line in ("psum ok", "train step ok", "bucketed ok",
-                         par.OK_SENTINEL):
-                assert line in out
+        results), in the two-rank world's launch."""
+        assert len(worlds[2]) == len(worlds["logs"][2]) == 2
+        for w, log in zip(worlds[2], worlds["logs"][2]):
+            for line in ("psum ok", "train step ok", "bucketed ok"):
+                assert line in w["verify"]["out"]
+            assert par.OK_SENTINEL in log
 
-    def test_psum_over_four_ranks(self):
-        outs = par.launch_processes(
-            "imageclust_tpu_torch.parallel._worker:verify_psum", 4,
-            timeout=60.0)
-        assert all("psum ok: 6.0 over 4 ranks" in o for o in outs)
+    def test_psum_over_four_ranks(self, worlds):
+        assert all("psum ok: 6.0 over 4 ranks" in w["verify"]["out"]
+                   for w in worlds[4])
+        assert all(par.OK_SENTINEL in log for log in worlds["logs"][4])

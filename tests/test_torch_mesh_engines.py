@@ -41,7 +41,7 @@ from imageclust_tpu_torch.cluster.ward import constrained_ward
 
 import test_torch_mesh_targets as targets
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _grid(seed, n, d, lo=-3, hi=4):

@@ -35,7 +35,7 @@ from imageclust_tpu_torch.pipeline import Pipeline
 from helpers import color_group_images
 import test_torch_mesh_targets as targets
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CASES = {  # name: (cluster config, run)
     "bucketed": (dict(exact_limit=4, bucket_size=16), "paths"),

@@ -231,6 +231,20 @@ def case_rows(mesh):
     return out
 
 
+def case_verify(mesh, fn: str) -> str:
+    """One of ``parallel/_worker.py``'s ``verify_*`` bodies on the world's
+    process group; returns what it printed."""
+    import contextlib
+    import io
+
+    from imageclust_tpu_torch.parallel import _worker
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        getattr(_worker, fn)()
+    return out.getvalue()
+
+
 def run_cases() -> None:
     import torch.distributed as dist
 
@@ -282,18 +296,21 @@ def hang() -> None:
         time.sleep(1)
 
 
-def run(cases, ranks: int, tmp_path, timeout: float = 110.0, env=None):
+def run(cases, ranks: int, tmp_path, timeout: float = 110.0, env=None,
+        logs: list | None = None):
     """Run ``cases`` over ``ranks`` CPU ranks (gloo); returns the list of
-    each rank's results."""
+    each rank's results. ``logs``, when given, receives each rank's log."""
     from imageclust_tpu_torch.parallel import launch_processes
 
     src = os.path.join(str(tmp_path), "cases.pkl")
     with open(src, "wb") as fh:
         pickle.dump(cases, fh)
-    launch_processes("tests.test_torch_mesh_targets:run_cases", ranks,
-                     timeout=timeout, env={
-                         **(env or {}), "IMAGECLUST_MP_IN": src,
-                         "IMAGECLUST_MP_OUT": str(tmp_path)})
+    outs = launch_processes(
+        "tests.test_torch_mesh_targets:run_cases", ranks, timeout=timeout,
+        env={**(env or {}), "IMAGECLUST_MP_IN": src,
+             "IMAGECLUST_MP_OUT": str(tmp_path)})
+    if logs is not None:
+        logs.extend(outs)
     out = []
     for r in range(ranks):
         with open(os.path.join(str(tmp_path), f"rank{r}.pkl"), "rb") as fh:

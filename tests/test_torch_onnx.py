@@ -39,7 +39,7 @@ from imageclust_tpu_torch.models.convert import resnet50_state_dict_from_flax
 from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
 from imageclust_tpu_torch.models.resnet50 import ResNet50V1, load_onnx_params
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CLASSES = 32
 

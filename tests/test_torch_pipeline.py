@@ -48,7 +48,7 @@ from imageclust_tpu_torch.types import UploadedImage
 
 from helpers import color_group_images
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _LAYERS = (1, 1, 1, 1)
 _DIM = 64

@@ -18,7 +18,7 @@ from imageclust_tpu.ops.pallas_kernels import pref_topk_block as jax_k4
 from imageclust_tpu_torch.cluster import sharded as tsh
 from imageclust_tpu_torch.ops import pref_kernels as pk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16),

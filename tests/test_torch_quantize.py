@@ -42,7 +42,7 @@ from imageclust_tpu_torch.models.quantize import (
 from imageclust_tpu_torch.models.resnet50 import ResNet50V1
 from imageclust_tpu_torch.ops.int8 import int8_conv2d, int8_mm
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CLASSES = 32
 COS_F32 = 0.99999

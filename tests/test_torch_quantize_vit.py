@@ -34,7 +34,7 @@ from imageclust_tpu_torch.models.convert import (
 from imageclust_tpu_torch.models.quantize_vit import QuantViT, quantize_vit
 from imageclust_tpu_torch.models.vit import ViTConfig, VisionTransformer
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 SMALL = dict(patch=8, width=64, depth=3, heads=2, proj_dim=16,
              image_size=32)

@@ -19,7 +19,7 @@ import torch
 import imageclust_tpu.cluster.sharded as jsh
 from imageclust_tpu_torch.cluster import sharded as tsh
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}
 _TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,

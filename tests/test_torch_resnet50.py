@@ -17,7 +17,7 @@ from imageclust_tpu.models.resnet50 import fold_bn_variables as flax_fold
 from imageclust_tpu_torch.models.convert import resnet50_state_dict_from_flax
 from imageclust_tpu_torch.models.resnet50 import ResNet50V1, fold_bn_variables
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _SMALL = (1, 1, 1, 1)
 

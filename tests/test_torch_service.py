@@ -39,7 +39,7 @@ from imageclust_tpu_torch.service.jobs import JobStore
 
 from helpers import MeanColorEmbedder, color_group_images, encode_png
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _form(names=(), blobs=(), **fields):

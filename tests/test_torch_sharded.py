@@ -20,7 +20,7 @@ import imageclust_tpu.cluster.sharded as jsh
 from imageclust_tpu_torch.cluster import sharded as tsh
 from imageclust_tpu_torch.data import native as tnative
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 def _jax_init_indices(n, k, seed=0):

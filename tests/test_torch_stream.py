@@ -41,7 +41,7 @@ from imageclust_tpu_torch.pipeline import Pipeline
 
 from helpers import color_group_images
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _LAYERS = (1, 1, 1, 1)
 _DIM = 32

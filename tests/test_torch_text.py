@@ -23,7 +23,7 @@ from imageclust_tpu_torch.models import text
 from imageclust_tpu_torch.models import tokenizer as tokmod
 from imageclust_tpu_torch.models.convert import text_state_dict_from_flax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _KW = dict(vocab=512, width=64, depth=2, heads=2, proj_dim=32, context=16)
 _TOL = dict(rtol=1e-5, atol=1e-5)

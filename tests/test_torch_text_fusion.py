@@ -18,7 +18,7 @@ from imageclust_tpu_torch.labels.onehot import build_label_set
 from imageclust_tpu_torch.models import text
 from imageclust_tpu_torch.models.convert import text_state_dict_from_flax
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _TOL = dict(rtol=1e-5, atol=1e-5)
 _NAMES = ["Shoe", "Hat", "Bag", "Red", "Running shoe", "Person"]

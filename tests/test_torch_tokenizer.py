@@ -21,7 +21,7 @@ from hypothesis import strategies as st
 from imageclust_tpu.models import tokenizer as jax_tok
 from imageclust_tpu_torch.models import tokenizer as tok
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # tests/test_tokenizer.py's table, and merges over non-ASCII bytes
 MERGES = [

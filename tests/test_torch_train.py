@@ -43,7 +43,7 @@ from imageclust_tpu_torch.models.convert import (
 )
 from imageclust_tpu_torch.models.resnet50 import ResNet50V1
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _LAYERS = (1, 1, 1, 1)
 _CLASSES = 16

@@ -50,7 +50,7 @@ from imageclust_tpu_torch.models.resnet50 import ResNet50V1
 from helpers import encode_png
 import test_torch_mesh_targets as targets
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _LAYERS = (1, 1, 1, 1)
 _CLASSES = 16

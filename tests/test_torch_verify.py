@@ -31,7 +31,7 @@ from imageclust_tpu_torch.models import vit
 from test_torch_vit import _hf_state_dict, _flax_variables
 from test_verify_cmd import TestVerifyClipText as _JaxClipText
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 _TINY_VIT = vit.ViTConfig(patch=8, width=32, depth=2, heads=4, proj_dim=16,

@@ -43,7 +43,7 @@ from imageclust_tpu_torch.types import UploadedImage
 
 from helpers import color_group_images
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _CLIP = vit.ViTConfig(patch=8, width=32, depth=2, heads=4, proj_dim=16,
                       image_size=32)

@@ -17,7 +17,7 @@ import imageclust_tpu.cluster.ward as jw
 import imageclust_tpu_torch.cluster.ward as tw
 from imageclust_tpu_torch.ops import merge_kernels as mk
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)

@@ -28,7 +28,7 @@ from imageclust_tpu_torch.models.convert import text_state_dict_from_flax
 
 from helpers import MeanColorEmbedder
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 _TOL = dict(rtol=1e-5, atol=1e-5)
 
