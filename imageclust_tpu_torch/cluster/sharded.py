@@ -67,10 +67,10 @@ tests inject JAX's indices through :func:`_kmeans_init` and
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
-import time
 from typing import Sequence
 
 import numpy as np
@@ -107,6 +107,7 @@ from imageclust_tpu_torch.ops.pref_kernels import (
     row_norms,
     to_grid,
 )
+from imageclust_tpu_torch.utils.metrics import timed
 
 __all__ = ["constrained_ward_bucketed", "kmeans"]
 
@@ -124,26 +125,22 @@ lockstep_iterations = 0
 lockstep_phases = 0
 
 
-class _PhaseTimer:
-    """Per-phase wall seconds of one engine run (``phases``), opt-in with
-    IMAGECLUST_CLUSTER_PROFILE=1: each tick synchronises the card first, so
-    the phase boundary is real, which costs pipelining."""
-
-    def __init__(self, device: torch.device):
-        self.on = bool(os.environ.get("IMAGECLUST_CLUSTER_PROFILE"))
-        self.device = device
-        self.phases: dict[str, float] = {}
-        self.t = time.perf_counter()
-
-    def tick(self, label: str) -> None:
-        if not self.on:
-            return
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        now = time.perf_counter()
-        self.phases[label] = now - self.t
-        log.info("cluster phase %-16s %7.2fs", label, now - self.t)
-        self.t = now
+@contextlib.contextmanager
+def _phase(phases: dict, device: torch.device, name: str):
+    """One phase of an engine run: its host seconds go to ``phases[name]``
+    and, under a ``torch.profiler`` trace, it is the ``record_function``
+    range ``cluster/<name>``. IMAGECLUST_CLUSTER_PROFILE=1 synchronises the card
+    at both ends, so the phase boundary is real (which costs pipelining),
+    and logs the phase."""
+    sync = bool(os.environ.get("IMAGECLUST_CLUSTER_PROFILE"))
+    if sync and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    with timed(phases, name, f"cluster/{name}"):
+        yield
+        if sync and device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if sync:
+        log.info("cluster phase %-16s %7.2fs", name, phases[name])
 
 
 _TOP_PREF = 8  # per-item bucket preferences exported to the host
@@ -1584,9 +1581,10 @@ def constrained_ward_bucketed(
     the device never leaves it). ``reassign_dropped`` (default True here)
     turns on the absorb phase and the spills, so no image is lost unless
     max_size leaves it nowhere to go. The result is columnar; its
-    ``phases_s`` holds the phase timer's seconds when
-    IMAGECLUST_CLUSTER_PROFILE=1, ``host_paths`` says whether placement and
-    member walk ran natively, ``n_buckets`` counts buckets after repair.
+    ``phases_s`` holds each phase's host seconds (:func:`_phase`; under a
+    ``torch.profiler`` trace each is a ``cluster/<phase>`` range),
+    ``host_paths`` says whether placement and member walk ran natively,
+    ``n_buckets`` counts buckets after repair.
 
     ``feature_dtype`` sets the resident matrix: "float32", "bfloat16" (one
     rounding of the inputs; a non-parity mode near ties) or "int8" (inputs
@@ -1604,7 +1602,7 @@ def constrained_ward_bucketed(
     if update_rule not in ("centroid", "lance_williams"):
         raise ValueError(f"unknown update_rule: {update_rule}")
     dev = mesh.device if mesh is not None else resolve_device(device)
-    pt = _PhaseTimer(dev)
+    phases_s: dict[str, float] = {}
     dt = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int8": torch.int8}[feature_dtype]
     sharded_in = isinstance(embeddings, ShardedRows)
@@ -1623,8 +1621,8 @@ def constrained_ward_bucketed(
         raise ValueError(f"embeddings must be (n, d), got "
                          f"{tuple(emb.shape)}")
     if dt == torch.int8 and emb.dtype != torch.int8:
-        feats = _feat_int8(emb, mesh if sharded_in else None)
-        pt.tick("quantize")
+        with _phase(phases_s, dev, "quantize"):
+            feats = _feat_int8(emb, mesh if sharded_in else None)
     else:
         feats = emb.to(dt)
     del emb
@@ -1651,100 +1649,101 @@ def constrained_ward_bucketed(
     # tile path, with the need-only mode above _PREF_NEED_ONLY_MIN_WORK
     # (never on row-sharded features: their preference rows are gathered
     # from the summarize pass).
-    if _use_summarize_fused(dev, n_buckets):
-        cents_d, assign_d, own_d_d, pref_d = kmeans(
-            feats, n_buckets, kmeans_iters, seed, top_k=_TOP_PREF,
-            summarize_fused=True)
-    else:
-        need_only = (n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK
-                     and not sharded_in)
-        cents_d, assign_d, own_d_d, pref_d = kmeans(
-            feats, n_buckets, kmeans_iters, seed,
-            top_k=0 if need_only else _TOP_PREF)
-    pt.tick("kmeans")
-    buckets = _repair_buckets_device(assign_d, own_d_d, pref_d, n_buckets,
-                                     bucket_size, min_size, feats=feats,
-                                     cents=cents_d)
-    del assign_d, own_d_d, pref_d, cents_d
-    pt.tick("bucket-repair")
-
-    nb = len(buckets)
-    if mesh is not None:  # empty buckets pad to whole shards (after repair)
-        buckets = buckets + [[] for _ in range(-nb % mesh.shape["data"])]
-        nb = len(buckets)
-    counts = np.zeros(nb, np.int32)
-    targets = np.zeros(nb, np.int32)
-    bucket_idx = np.zeros((nb, bucket_size), np.int32)
-    for bi, members in enumerate(buckets):
-        c = len(members)
-        counts[bi] = c
-        targets[bi] = _bucket_target(c, min_size, max_size) if c else 0
-        bucket_idx[bi, :c] = members
-
-    exchange = None
-    if mesh is not None:
-        # owner-aligned: features row-sharded, one all_to_all moves each
-        # bucket member to its bucket's rank; nothing replicates
-        local = (feats if sharded_in else local_rows(feats, mesh)).local
-        (logs, steps, births, _sizes, active), exchange = _all_buckets_mesh(
-            local, mesh, buckets, bucket_size, counts, targets, max_size,
-            min_size, update_rule, reassign_dropped)
-    else:
-        logs, steps, births, _sizes, active = _all_buckets(
-            feats, bucket_idx, counts, targets, max_size, min_size,
-            update_rule=update_rule, absorb=reassign_dropped)
-    pt.tick("bucket-merges")
-
-    dropped_idx: list[int] = []
-    merges_arr = _restamp_logs(logs, steps, counts, bucket_idx, n)
-    pt.tick("merge-restamp")
-
-    rec = _native_reconstruction(buckets, logs, steps, births, active)
-    if rec is not None:
-        members_glob, sizes_r, root_bucket = rec
-        members_glob = np.asarray(members_glob, dtype=np.int64)
-        sizes_r = np.asarray(sizes_r, dtype=np.int64)
-        valid = sizes_r >= min_size
-        if valid.all():
-            members_col = members_glob
+    with _phase(phases_s, dev, "kmeans"):
+        if _use_summarize_fused(dev, n_buckets):
+            cents_d, assign_d, own_d_d, pref_d = kmeans(
+                feats, n_buckets, kmeans_iters, seed, top_k=_TOP_PREF,
+                summarize_fused=True)
         else:
-            keep_rows = np.repeat(valid, sizes_r)
-            members_col = members_glob[keep_rows]
-            dropped_idx = members_glob[~keep_rows].tolist()
-        offsets_col = np.concatenate([[0], np.cumsum(sizes_r[valid])])
-        cols = _Clusters(members_col, offsets_col,
-                         np.asarray(root_bucket)[valid])
-    else:
-        clusters_l: list[list[int]] = []
-        bucket_l: list[int] = []
+            need_only = (n * n_buckets >= _PREF_NEED_ONLY_MIN_WORK
+                         and not sharded_in)
+            cents_d, assign_d, own_d_d, pref_d = kmeans(
+                feats, n_buckets, kmeans_iters, seed,
+                top_k=0 if need_only else _TOP_PREF)
+    with _phase(phases_s, dev, "bucket-repair"):
+        buckets = _repair_buckets_device(assign_d, own_d_d, pref_d,
+                                         n_buckets, bucket_size, min_size,
+                                         feats=feats, cents=cents_d)
+        del assign_d, own_d_d, pref_d, cents_d
+
+    with _phase(phases_s, dev, "bucket-merges"):
+        nb = len(buckets)
+        if mesh is not None:  # empty buckets pad to whole shards
+            buckets = buckets + [[] for _ in range(-nb % mesh.shape["data"])]
+            nb = len(buckets)
+        counts = np.zeros(nb, np.int32)
+        targets = np.zeros(nb, np.int32)
+        bucket_idx = np.zeros((nb, bucket_size), np.int32)
         for bi, members in enumerate(buckets):
             c = len(members)
-            if c == 0:
-                continue
-            log_b = logs[bi][: int(steps[bi])]
-            children = {int(new): (int(hi), int(lo))
-                        for hi, lo, new in log_b}
-            surviving = sorted(int(b) for b in births[bi][active[bi]])
-            for birth in surviving:
-                local = _leaf_indices(birth, c, children)
-                global_members = [int(members[k]) for k in local]
-                if len(global_members) < min_size:
-                    dropped_idx.extend(global_members)
-                    continue
-                clusters_l.append(global_members)
-                bucket_l.append(bi)
-        cols = _Clusters.from_lists(clusters_l, bucket_l)
-    pt.tick("reconstruction")
-    if reassign_dropped and dropped_idx:
-        dropped_idx = _spill_bucket_local(feats, buckets, cols, dropped_idx,
-                                          max_size)
-        pt.tick("spill-local")
-    if reassign_dropped and dropped_idx:
-        dropped_idx = _spill_global(feats, cols, dropped_idx, max_size)
-        pt.tick("spill-global")
+            counts[bi] = c
+            targets[bi] = _bucket_target(c, min_size, max_size) if c else 0
+            bucket_idx[bi, :c] = members
 
-    members_f, offsets_f = cols.finalize()
-    pt.tick("finalize")
+        exchange = None
+        if mesh is not None:
+            # owner-aligned: features row-sharded, one all_to_all moves
+            # each bucket member to its bucket's rank; nothing replicates
+            local = (feats if sharded_in else local_rows(feats, mesh)).local
+            (logs, steps, births, _sizes, active), exchange = \
+                _all_buckets_mesh(local, mesh, buckets, bucket_size, counts,
+                                  targets, max_size, min_size, update_rule,
+                                  reassign_dropped)
+        else:
+            logs, steps, births, _sizes, active = _all_buckets(
+                feats, bucket_idx, counts, targets, max_size, min_size,
+                update_rule=update_rule, absorb=reassign_dropped)
+
+    dropped_idx: list[int] = []
+    with _phase(phases_s, dev, "merge-restamp"):
+        merges_arr = _restamp_logs(logs, steps, counts, bucket_idx, n)
+
+    with _phase(phases_s, dev, "reconstruction"):
+        rec = _native_reconstruction(buckets, logs, steps, births, active)
+        if rec is not None:
+            members_glob, sizes_r, root_bucket = rec
+            members_glob = np.asarray(members_glob, dtype=np.int64)
+            sizes_r = np.asarray(sizes_r, dtype=np.int64)
+            valid = sizes_r >= min_size
+            if valid.all():
+                members_col = members_glob
+            else:
+                keep_rows = np.repeat(valid, sizes_r)
+                members_col = members_glob[keep_rows]
+                dropped_idx = members_glob[~keep_rows].tolist()
+            offsets_col = np.concatenate([[0], np.cumsum(sizes_r[valid])])
+            cols = _Clusters(members_col, offsets_col,
+                             np.asarray(root_bucket)[valid])
+        else:
+            clusters_l: list[list[int]] = []
+            bucket_l: list[int] = []
+            for bi, members in enumerate(buckets):
+                c = len(members)
+                if c == 0:
+                    continue
+                log_b = logs[bi][: int(steps[bi])]
+                children = {int(new): (int(hi), int(lo))
+                            for hi, lo, new in log_b}
+                surviving = sorted(int(b) for b in births[bi][active[bi]])
+                for birth in surviving:
+                    local = _leaf_indices(birth, c, children)
+                    global_members = [int(members[k]) for k in local]
+                    if len(global_members) < min_size:
+                        dropped_idx.extend(global_members)
+                        continue
+                    clusters_l.append(global_members)
+                    bucket_l.append(bi)
+            cols = _Clusters.from_lists(clusters_l, bucket_l)
+    if reassign_dropped and dropped_idx:
+        with _phase(phases_s, dev, "spill-local"):
+            dropped_idx = _spill_bucket_local(feats, buckets, cols,
+                                              dropped_idx, max_size)
+    if reassign_dropped and dropped_idx:
+        with _phase(phases_s, dev, "spill-global"):
+            dropped_idx = _spill_global(feats, cols, dropped_idx, max_size)
+
+    with _phase(phases_s, dev, "finalize"):
+        members_f, offsets_f = cols.finalize()
     result = ClusterResult(
         merges=merges_arr,
         n_items=n,
@@ -1758,7 +1757,7 @@ def constrained_ward_bucketed(
 
     result.n_buckets = nb  # buckets after capacity repair
     result.exchange = exchange  # this rank's exchange counts on a mesh
-    result.phases_s = dict(pt.phases)
+    result.phases_s = phases_s
     # which host paths ran: the native library's or the Python ones
     result.host_paths = {
         "placement": "native" if available() else "python",

@@ -15,6 +15,7 @@ import json
 import logging
 import os
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 from imageclust_tpu_torch.config import NamingConfig
@@ -29,7 +30,11 @@ from imageclust_tpu_torch.utils.ratelimit import RateLimiter
 log = logging.getLogger(__name__)
 
 __all__ = ["NamingService", "RateLimiter", "create_naming_service",
-           "build_namer"]
+           "build_namer", "NAMING_COUNTERS"]
+
+# What NamingService.name_clusters counts of one call (its ``counters=``)
+NAMING_COUNTERS = ("naming_calls", "naming_fallbacks", "naming_resumed",
+                   "naming_call_s", "naming_state_write_s")
 
 
 def build_namer(name: str, cfg: NamingConfig) -> Namer:
@@ -70,27 +75,38 @@ class NamingService:
     def generate_multi(self, aggregated_text: str) -> list[ModelOutput]:
         """Fan out to every enabled service concurrently; return outputs
         sorted by display order (wrapper.go:90-139 semantics)."""
-        if not self.namers:
-            return []
+        return self._fan_out(aggregated_text)[0]
 
-        def run(namer: Namer) -> ModelOutput:
+    def _fan_out(self, aggregated_text: str
+                 ) -> tuple[list[ModelOutput], float]:
+        """:meth:`generate_multi`'s outputs and the seconds spent inside
+        ``Namer.generate``, summed over its threads."""
+        if not self.namers:
+            return [], 0.0
+
+        def run(namer: Namer) -> tuple[ModelOutput, float]:
+            start = None
             try:
                 self.limiter.acquire()
+                start = time.perf_counter()
                 title, phrase = namer.generate(aggregated_text, self.retries)
             except Exception as exc:  # a backend must never kill the job
                 log.error("namer %s raised: %s", namer.name, exc)
                 title, phrase = FALLBACK_TITLE, FALLBACK_PHRASE
-            return ModelOutput(namer.name, title, phrase, namer.order)
+            call_s = 0.0 if start is None else time.perf_counter() - start
+            return ModelOutput(namer.name, title, phrase, namer.order), call_s
 
         with ThreadPoolExecutor(max_workers=len(self.namers)) as pool:
-            outputs = list(pool.map(run, self.namers))
-        return sorted(outputs, key=lambda o: o.order)
+            done = list(pool.map(run, self.namers))
+        outputs = sorted((o for o, _ in done), key=lambda o: o.order)
+        return outputs, sum(s for _, s in done)
 
     def name_clusters(
         self,
         texts: dict[str, str],
         state_path: str | None = None,
         progress=None,
+        counters: dict | None = None,
     ) -> dict[str, list[ModelOutput]]:
         """Name MANY clusters with bounded concurrency — the serving-tail
         counterpart of the engine's 100k tier, where ~21k clusters named
@@ -107,13 +123,21 @@ class NamingService:
           named clusters are served from the file without an LLM call.
         * ``progress(done, total)`` is invoked on each completion; by
           default a log line is emitted every ~5%.
+        * ``counters``, a dict, receives this call's :data:`NAMING_COUNTERS`:
+          ``Namer.generate`` calls and the seconds inside them (summed over
+          threads), outputs that are the fallback pair, clusters served
+          from the state file, and the seconds of the state file's appends
+          (each record's encode, write and flush under the lock).
         """
+        stats = counters if counters is not None else {}
+        stats.update(dict.fromkeys(NAMING_COUNTERS, 0))
         done: dict[str, list[ModelOutput]] = {}
         if state_path and os.path.exists(state_path):
             done = _load_naming_state(state_path, texts)
             if done:
                 log.info("naming state: %d/%d clusters already named",
                          len(done), len(texts))
+        stats["naming_resumed"] = len(done)
         todo = [cid for cid in texts if cid not in done]
         total = len(texts)
         if not todo:
@@ -137,17 +161,22 @@ class NamingService:
         counter = [len(done)]
 
         def run(cid: str) -> tuple[str, list[ModelOutput]]:
-            outs = self.generate_multi(texts[cid])
+            outs, call_s = self._fan_out(texts[cid])
+            fallbacks = sum(o.title == FALLBACK_TITLE
+                            and o.catchy_phrase == FALLBACK_PHRASE
+                            for o in outs)
             # all-fallback outputs mean every backend failed (throttle or
             # outage) — persisting them would cache the failure forever,
             # turning the documented re-run recovery path into a no-op
-            worth_saving = any(o.title != FALLBACK_TITLE
-                               or o.catchy_phrase != FALLBACK_PHRASE
-                               for o in outs)
+            worth_saving = fallbacks < len(outs)
             with lock:
                 counter[0] += 1
                 n = counter[0]
+                stats["naming_calls"] += len(outs)
+                stats["naming_fallbacks"] += fallbacks
+                stats["naming_call_s"] += call_s
                 if state_fh is not None and worth_saving:
+                    start = time.perf_counter()
                     state_fh.write(json.dumps({
                         "cluster": cid,
                         "text_sha": _text_sha(texts[cid]),
@@ -156,6 +185,8 @@ class NamingService:
                                     for o in outs],
                     }) + "\n")
                     state_fh.flush()
+                    stats["naming_state_write_s"] += (time.perf_counter()
+                                                      - start)
             if progress is not None:
                 progress(n, total)
             elif n % every == 0 or n == total:

@@ -111,7 +111,6 @@ class Pipeline:
                              "on the same mesh (Embedder(..., mesh=mesh))")
         self.naming = create_naming_service(self.config.naming)
         self._text_encoder = None  # lazy: only labels.fusion="text" pays
-        self._naming_skipped = 0  # set per run by _apply_naming
 
     def _get_text_encoder(self):
         """Text tower for dense label fusion (labels.fusion="text"), built
@@ -267,6 +266,7 @@ class Pipeline:
                 image_emb, emb_scale = self.embedder.embed_stream_quantized(
                     chunks, out_dtype=self._residency_dtype(),
                     total=n_images)
+                self._drain(timer)
 
             per_image_labels = None
             label_mat = np.zeros((n_images, 0), np.float32)
@@ -282,6 +282,7 @@ class Pipeline:
             with timer.stage("cluster"):
                 result = self._cluster_big(features, None, min_size,
                                            max_size)
+                self._engine_spans(result, metrics)
                 if result._dropped_idx is not None:
                     dropped_idx = [int(i) for i in result._dropped_idx]
                 else:  # the single-bucket hand-off: ids are "img_<k>"
@@ -293,9 +294,8 @@ class Pipeline:
 
             with timer.stage("name"):
                 details = self._prepare_details_columnar(
-                    result, name_fn, per_image_labels, work_dir=work_dir)
-                if self._naming_skipped:
-                    metrics.counters["naming_skipped"] = self._naming_skipped
+                    result, name_fn, timer, per_image_labels,
+                    work_dir=work_dir)
 
             with timer.stage("report"):
                 html_path = self._write_report(details, work_dir,
@@ -367,6 +367,7 @@ class Pipeline:
                 image_emb, emb_scale = self.embedder.embed_stream_quantized(
                     chunk_iter(), out_dtype=self._residency_dtype(),
                     total=len(sources))
+                self._drain(timer)
             if not zero_shot_batched:
                 per_image_labels = self._gather_list(per_image_labels)
                 label_set = self._label_set(per_image_labels, cfg.labels)
@@ -411,6 +412,7 @@ class Pipeline:
                     metrics.counters["embed_cache_hits"] = emb_cache.hits
                 else:
                     image_emb = self.embedder.embed(batch)
+                self._drain(timer)
 
         if zero_shot_batched:
             with timer.stage("label"):
@@ -428,6 +430,7 @@ class Pipeline:
             if big_job:
                 result = self._cluster_big(features, item_ids, min_size,
                                            max_size)
+                self._engine_spans(result, metrics)
             else:
                 result = constrained_ward(
                     features, item_ids,
@@ -443,10 +446,8 @@ class Pipeline:
         with timer.stage("name"):
             details = self._prepare_cluster_details(
                 result.cluster_map, item_ids, names, per_image_labels,
-                work_dir=work_dir,
+                timer, work_dir=work_dir,
             )
-            if self._naming_skipped:
-                metrics.counters["naming_skipped"] = self._naming_skipped
 
         with timer.stage("report"):
             html_path = self._write_report(details, work_dir, image_route,
@@ -462,6 +463,23 @@ class Pipeline:
 
     def _rank0(self) -> bool:
         return self.mesh is None or self.mesh.rank == 0
+
+    def _drain(self, timer: StageTimer) -> None:
+        """Ends the embed stage when its work has ended on the card: waits
+        for the stream's queued chunks (span ``embed/drain``, the seconds
+        the host ran ahead of the tower)."""
+        with timer.span("embed/drain"):
+            if self.device.type == "cuda":
+                import torch
+
+                torch.cuda.current_stream(self.device).synchronize()
+
+    @staticmethod
+    def _engine_spans(result, metrics: RunMetrics) -> None:
+        """The bucketed engine's phases as spans ``cluster/<phase>``. Other
+        engines, and the single-bucket hand-off, report none."""
+        for phase, seconds in getattr(result, "phases_s", {}).items():
+            metrics.spans[f"cluster/{phase}"] = seconds
 
     def _block(self, n: int) -> tuple[int, int]:
         """(first row, rows) of this rank's block of an n-item job: the
@@ -662,35 +680,38 @@ class Pipeline:
         item_ids: list[str],
         names: list[str],
         per_image_labels,
+        timer: StageTimer,
         work_dir: str | None = None,
     ) -> dict[str, ClusterDetails]:
         """workflow.go:187-229 with deterministic label order, a working
         primary-title assignment, and resumable naming state under the
         job's work dir."""
-        id_to_idx = {iid: i for i, iid in enumerate(item_ids)}
         details: dict[str, ClusterDetails] = {}
         texts: dict[str, str] = {}
-        for cluster_id, members in cluster_map.items():
-            d = ClusterDetails()
-            seen_labels: list[str] = []
-            for iid in members:
-                idx = id_to_idx[iid]
-                for label in per_image_labels[idx]:
-                    if label.name not in seen_labels:
-                        seen_labels.append(label.name)
-                d.images.append(names[idx])
-            d.labels = ", ".join(seen_labels)
-            key = f"Cluster-{cluster_id}"  # workflow.go:192
-            details[key] = d
-            texts[key] = d.labels
+        with timer.span("name/details"):
+            id_to_idx = {iid: i for i, iid in enumerate(item_ids)}
+            for cluster_id, members in cluster_map.items():
+                d = ClusterDetails()
+                seen_labels: list[str] = []
+                for iid in members:
+                    idx = id_to_idx[iid]
+                    for label in per_image_labels[idx]:
+                        if label.name not in seen_labels:
+                            seen_labels.append(label.name)
+                    d.images.append(names[idx])
+                d.labels = ", ".join(seen_labels)
+                key = f"Cluster-{cluster_id}"  # workflow.go:192
+                details[key] = d
+                texts[key] = d.labels
 
-        self._apply_naming(details, texts, work_dir)
+        self._apply_naming(details, texts, work_dir, timer)
         return details
 
     def _prepare_details_columnar(
         self,
         result,
         name_fn,
+        timer: StageTimer,
         per_image_labels=None,
         work_dir: str | None = None,
     ) -> dict[str, ClusterDetails]:
@@ -710,24 +731,25 @@ class Pipeline:
                 for c, idxs in result._index_map.items():
                     yield c, idxs
 
-        for cid, idxs in cluster_iter():
-            d = ClusterDetails()
-            if per_image_labels is None:
-                d.images = [name_fn(int(i)) for i in idxs]
-            else:
-                seen_labels: list[str] = []
-                for i in idxs:
-                    i = int(i)
-                    for label in per_image_labels[i]:
-                        if label.name not in seen_labels:
-                            seen_labels.append(label.name)
-                    d.images.append(name_fn(i))
-                d.labels = ", ".join(seen_labels)
-            key = f"Cluster-{cid}"  # workflow.go:192
-            details[key] = d
-            texts[key] = d.labels
+        with timer.span("name/details"):
+            for cid, idxs in cluster_iter():
+                d = ClusterDetails()
+                if per_image_labels is None:
+                    d.images = [name_fn(int(i)) for i in idxs]
+                else:
+                    seen_labels: list[str] = []
+                    for i in idxs:
+                        i = int(i)
+                        for label in per_image_labels[i]:
+                            if label.name not in seen_labels:
+                                seen_labels.append(label.name)
+                        d.images.append(name_fn(i))
+                    d.labels = ", ".join(seen_labels)
+                key = f"Cluster-{cid}"  # workflow.go:192
+                details[key] = d
+                texts[key] = d.labels
 
-        self._apply_naming(details, texts, work_dir)
+        self._apply_naming(details, texts, work_dir, timer)
         return details
 
     def _apply_naming(
@@ -735,12 +757,14 @@ class Pipeline:
         details: dict[str, ClusterDetails],
         texts: dict[str, str],
         work_dir: str | None,
+        timer: StageTimer,
     ) -> None:
         """Budget + name + assign titles. Naming budget
         (naming.max_clusters): name only the N largest clusters (ties by
-        cluster id); the rest keep their label text."""
+        cluster id); the rest keep their label text. The naming service's
+        counters of the call join the job's (on a mesh, rank 0's)."""
         budget = self.config.naming.max_clusters
-        self._naming_skipped = 0
+        counters = timer.metrics.counters
         if budget and len(texts) > budget:
             keys = list(texts)
             sizes = np.fromiter((len(details[k].images) for k in keys),
@@ -748,29 +772,32 @@ class Pipeline:
             ids = np.fromiter((int(k.rsplit("-", 1)[-1]) for k in keys),
                               np.int64, len(keys))
             keep = [keys[i] for i in np.lexsort((ids, -sizes))[:budget]]
-            self._naming_skipped = len(texts) - budget
+            counters["naming_skipped"] = len(texts) - budget
             log.info(
                 "naming budget: naming the %d largest of %d clusters "
                 "(%d skipped; raise naming.max_clusters to name more)",
-                budget, len(texts), self._naming_skipped)
+                budget, len(texts), counters["naming_skipped"])
             texts = {k: texts[k] for k in keep}
 
         state_path = os.path.join(work_dir, "naming_state.jsonl") \
             if work_dir else None
 
         def name():
-            return self.naming.name_clusters(texts, state_path=state_path)
+            return self.naming.name_clusters(texts, state_path=state_path,
+                                             counters=counters)
 
-        if self.mesh is None:
-            outputs = name()
-        else:  # rank 0 names; its names, or its error, reach every rank
-            from imageclust_tpu_torch.core.collectives import on_rank
+        with timer.span("name/services"):
+            if self.mesh is None:
+                outputs = name()
+            else:  # rank 0 names; its names, or its error, reach every rank
+                from imageclust_tpu_torch.core.collectives import on_rank
 
-            outputs = on_rank(name, self.mesh)
-        for key, outs in outputs.items():
-            d = details[key]
-            for out in outs:
-                d.set_output(out)
-            if d.service_outputs:  # primary = first in display order
-                d.title = d.service_outputs[0].title
-                d.catchy_phrase = d.service_outputs[0].catchy_phrase
+                outputs = on_rank(name, self.mesh)
+        with timer.span("name/assign"):
+            for key, outs in outputs.items():
+                d = details[key]
+                for out in outs:
+                    d.set_output(out)
+                if d.service_outputs:  # primary = first in display order
+                    d.title = d.service_outputs[0].title
+                    d.catchy_phrase = d.service_outputs[0].catchy_phrase

@@ -5,6 +5,11 @@ whole run (internal/workflow/workflow.go:67, :106). Here every stage reports
 duration and derived rates, and an optional ``torch.profiler`` trace (CPU
 and CUDA activities) captures the device timeline as a Chrome trace for
 Perfetto — the port's counterpart of the JAX package's ``jax.profiler``.
+
+Stages do not nest. Work inside a stage is timed as a span (``name/services``,
+``cluster/kmeans``, ``embed/drain``): host seconds kept apart from the stages,
+and under a trace a ``record_function`` range nested in its stage's range, on
+the same clock as the device's operations.
 """
 
 from __future__ import annotations
@@ -16,7 +21,40 @@ from dataclasses import dataclass, field
 
 log = logging.getLogger(__name__)
 
-__all__ = ["RunMetrics", "StageTimer", "ServiceMetrics", "CollectiveCounters"]
+__all__ = ["RunMetrics", "StageTimer", "ServiceMetrics", "CollectiveCounters",
+           "timed"]
+
+# per-job naming counters that the service's /metrics adds up
+_NAMING_TOTALS = (("naming_calls", "imageclust_naming_calls_total"),
+                  ("naming_fallbacks", "imageclust_naming_fallbacks_total"),
+                  ("naming_resumed", "imageclust_naming_resumed_total"))
+
+
+def _profiler_active() -> bool:
+    """Whether a ``torch.profiler`` trace is recording in this process
+    (the profiler's own flag; True where a torch build lacks it, so ranges
+    are never lost)."""
+    import torch.autograd.profiler as ap
+
+    return getattr(ap, "_is_profiler_enabled", True)
+
+
+@contextlib.contextmanager
+def timed(into: dict, key: str, label: str | None = None):
+    """Adds the block's host seconds (``time.perf_counter``) to
+    ``into[key]``. While a ``torch.profiler`` trace records, the block is
+    also a ``record_function`` range named ``label`` (default ``key``)."""
+    ctx = contextlib.nullcontext()
+    if _profiler_active():
+        import torch
+
+        ctx = torch.profiler.record_function(label or key)
+    start = time.perf_counter()
+    try:
+        with ctx:
+            yield
+    finally:
+        into[key] = into.get(key, 0.0) + time.perf_counter() - start
 
 
 class ServiceMetrics:
@@ -38,6 +76,8 @@ class ServiceMetrics:
         self.inc("imageclust_images_total", run.counters.get("images", 0))
         self.inc("imageclust_clusters_total", run.counters.get("clusters", 0))
         self.inc("imageclust_dropped_total", run.counters.get("dropped", 0))
+        for key, total in _NAMING_TOTALS:
+            self.inc(total, run.counters.get(key, 0))
         for stage, seconds in run.stages.items():
             self.inc(f"imageclust_stage_seconds_total{{stage=\"{stage}\"}}",
                      seconds)
@@ -48,6 +88,7 @@ class ServiceMetrics:
                 "# TYPE imageclust_jobs_total counter",
                 "# TYPE imageclust_images_total counter",
                 "# TYPE imageclust_stage_seconds_total counter",
+                *(f"# TYPE {total} counter" for _, total in _NAMING_TOTALS),
             ]
             for name in sorted(self.counters):
                 lines.append(f"{name} {self.counters[name]:.6g}")
@@ -56,8 +97,12 @@ class ServiceMetrics:
 
 @dataclass
 class RunMetrics:
+    """A job's host seconds by stage (``stages``; stages do not nest), by
+    span inside a stage (``spans``, named ``<stage>/<part>``) and its
+    counters."""
     stages: dict[str, float] = field(default_factory=dict)
     counters: dict[str, float] = field(default_factory=dict)
+    spans: dict[str, float] = field(default_factory=dict)
 
     def rate(self, counter: str, stage: str) -> float | None:
         if counter in self.counters and self.stages.get(stage):
@@ -65,7 +110,8 @@ class RunMetrics:
         return None
 
     def to_dict(self) -> dict:
-        out = {"stages_s": dict(self.stages), "counters": dict(self.counters)}
+        out = {"stages_s": dict(self.stages), "spans_s": dict(self.spans),
+               "counters": dict(self.counters)}
         embed_rate = self.rate("images", "embed")
         if embed_rate is not None:
             out["images_per_sec_embed"] = embed_rate
@@ -79,17 +125,15 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        ctx = contextlib.nullcontext()
-        if self.profile_dir:
-            import torch
-
-            ctx = torch.profiler.record_function(name)
         start = time.perf_counter()
-        with ctx:
+        with timed(self.metrics.stages, name):
             yield
-        elapsed = time.perf_counter() - start
-        self.metrics.stages[name] = self.metrics.stages.get(name, 0.0) + elapsed
-        log.info("stage %-12s %.3fs", name, elapsed)
+        log.info("stage %-12s %.3fs", name, time.perf_counter() - start)
+
+    def span(self, name: str):
+        """A part of the open stage, ``name`` as ``<stage>/<part>``: its
+        seconds go to ``metrics.spans``, never to ``metrics.stages``."""
+        return timed(self.metrics.spans, name)
 
     @contextlib.contextmanager
     def profiled(self):

@@ -334,13 +334,25 @@ class TestParity:
             lines = {ln.split(" ")[0]: ln.split(" ")[1]
                      for ln in text.splitlines()
                      if ln and not ln.startswith("#") and "seconds" not in ln}
-            return r.status, r.ctype, lines, \
-                'imageclust_stage_seconds_total{stage="embed"}' in text
+            # the port's own: its naming service's calls, fallbacks, resumes
+            naming = {k: lines.pop(k) for k in list(lines)
+                      if k.startswith("imageclust_naming_")}
+            typed = {ln.split(" ")[2] for ln in text.splitlines()
+                     if ln.startswith("# TYPE ")}
+            return (r.status, r.ctype, lines,
+                    'imageclust_stage_seconds_total{stage="embed"}' in text,
+                    naming, typed)
 
         a, b = _both(both, scenario)
-        assert a == b
+        assert a[:4] == b[:4]
         assert a[2]["imageclust_jobs_total"] == "2"
         assert a[2]["imageclust_jobs_failed_total"] == "1"
+        assert a[4] == {}
+        # one cluster named by the fake namer; the failed job counts none
+        assert b[4] == {"imageclust_naming_calls_total": "1",
+                        "imageclust_naming_fallbacks_total": "0",
+                        "imageclust_naming_resumed_total": "0"}
+        assert set(b[4]) <= b[5]
 
     def test_oversized_upload_rejected(self, both, rng):
         big = rng.integers(0, 256, (300, 300, 3), dtype=np.uint8)
