@@ -68,7 +68,7 @@ line and raises on any failure:
 9. ``cli run`` on 4500 BMPs (above ``exact_limit``): streamed ingest, the
    bucketed engine on K2, the report;
 10. ``Pipeline.run_stream`` on 16,384 images made on the card as CUDA
-    ``uint8`` chunks;
+    ``uint8`` chunks, 49 K6 launches a ResNet50 batch;
 11. K5 (``short_seq_attention``) against its twin on the card at (B, T, H,
     Dh) in {(1024, 50, 12, 64), (7, 128, 16, 64), (5, 17, 4, 32),
     (3, 1, 1, 64)}, bf16 (allclose at 0.02) and f32 (at 1e-5); times at
@@ -226,6 +226,14 @@ line and raises on any failure:
     null exactly in the four modes that divide by the TPU north star,
     the card as ``nvidia-smi`` names it, the e2e features on the card
     and the K1, K2 and K5 launches of the modes that reach them.
+31. K6 (``bn_act``, the ResNet50 tower's inference BatchNorm, residual and
+    ReLU) against its twin on the card, bit for bit, at every shape of
+    the tower at batch 512 with its residual kind (and, at the stem and
+    stage 3's output, every residual kind in the other dtype pairs); the
+    full-width bf16 tower (s2d stem, batch 512) on K6 against the same
+    tower on the twin: logits bit-identical, 49 launches a batch, ms a
+    batch, peak memory and a profiler split; K6's times at each shape
+    beside its bound (bytes over 3.35 TB/s) and the twin's.
 
 Each launch counter is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
@@ -1099,12 +1107,13 @@ def phase_cli(card: str, groups: int = CLI_GROUPS, extra=(),
 def _zero_counters():
     from imageclust_tpu_torch.cluster import sharded
     from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops import bn_act as ba
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
     from imageclust_tpu_torch.ops import pref_kernels as pk
 
     mk.launches = mk.batched_launches = bk.launches = at.launches = 0
-    pk.launches = 0
+    pk.launches = ba.launches = 0
     sharded.chunks_dispatched = 0
     sharded.lockstep_iterations = sharded.lockstep_phases = 0
 
@@ -1112,12 +1121,13 @@ def _zero_counters():
 def _counters() -> dict:
     from imageclust_tpu_torch.cluster import sharded
     from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops import bn_act as ba
     from imageclust_tpu_torch.ops import bucket_kernels as bk
     from imageclust_tpu_torch.ops import merge_kernels as mk
     from imageclust_tpu_torch.ops import pref_kernels as pk
 
     return {"k1": mk.launches, "k2": bk.launches, "k3": mk.batched_launches,
-            "k4": pk.launches, "k5": at.launches,
+            "k4": pk.launches, "k5": at.launches, "k6": ba.launches,
             "chunks": sharded.chunks_dispatched,
             "lockstep_iterations": sharded.lockstep_iterations,
             "lockstep_phases": sharded.lockstep_phases}
@@ -1148,8 +1158,12 @@ def _check_scale_launches(what: str, c: dict, rule: str,
 def _same_bits(a, b) -> bool:
     import torch
 
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return bool(torch.equal(a, b))
 
 
@@ -1861,11 +1875,16 @@ def phase_stream(card: str):
     if sum(sizes) + len(res.dropped) != STREAM_N:
         raise AssertionError("run_stream: images lost")
     metrics = res.metrics.to_dict()
+    batches = -(-STREAM_N // pipeline.embedder.batch_size)
+    if c["k6"] != K6_LAUNCHES * batches:
+        raise AssertionError(f"run_stream: {c['k6']} K6 launches for "
+                             f"{batches} ResNet50 batches")
     emit({"phase": "run_stream", "card": card, "images": STREAM_N,
           "wall_s": wall_s, "stages_s": metrics["stages_s"],
           "embed_images_per_s": metrics.get("images_per_sec_embed"),
           "clusters": len(sizes), "dropped": len(res.dropped),
           "launches": c})
+    return c["k6"]
 
 
 # -- the ViT towers (phases 11-15) ---------------------------------------------
@@ -5143,6 +5162,217 @@ def phase_bench(card: str):
             for k, names in reach.items()}
 
 
+# phase 31: K6 at the ResNet50 tower's shapes at batch 512 and 224 px: (what,
+# C, H, W, residual kind, launches a batch); 49 launches in all
+K6_BATCH = 512
+K6_SHAPES = (("stem", 64, 112, 112, "none", 1),
+             ("stage1 inner", 64, 56, 56, "none", 6),
+             ("stage1 out", 256, 56, 56, "projected", 1),
+             ("stage1 out", 256, 56, 56, "raw", 2),
+             ("stage2 inner", 128, 28, 28, "none", 8),
+             ("stage2 out", 512, 28, 28, "projected", 1),
+             ("stage2 out", 512, 28, 28, "raw", 3),
+             ("stage3 inner", 256, 14, 14, "none", 12),
+             ("stage3 out", 1024, 14, 14, "projected", 1),
+             ("stage3 out", 1024, 14, 14, "raw", 5),
+             ("stage4 inner", 512, 7, 7, "none", 6),
+             ("stage4 out", 2048, 7, 7, "projected", 1),
+             ("stage4 out", 2048, 7, 7, "raw", 2))
+K6_LAUNCHES = 49  # a ResNet50 batch: the stem's bn0, then 3 a block
+
+
+def _k6_operands(gen, shape, dt, nd, residual):
+    """(x, vectors, residual, residual vectors) on the card: activations
+    normal times 3 in channels_last memory, BatchNorm statistics and affine
+    drawn near identity (the vectors from ``_BatchNorm.vectors``)."""
+    import torch
+
+    from imageclust_tpu_torch.models.resnet50 import _BatchNorm
+
+    def act(dtype):
+        return (torch.randn(shape, generator=gen, device=DEVICE) * 3).to(
+            dtype).contiguous(memory_format=torch.channels_last)
+
+    def vectors():  # detached: K6 raises where autograd tracks an operand
+        c = shape[1]
+        bn = _BatchNorm(c).to(DEVICE)
+        with torch.no_grad():
+            for t, lo in ((bn.running_mean, -0.5), (bn.running_var, 0.5),
+                          (bn.weight, 0.5), (bn.bias, -0.5)):
+                t.copy_(torch.rand(c, generator=gen, device=DEVICE) + lo)
+            return tuple(v.detach() for v in bn.vectors())
+
+    res = rvec = None
+    if residual == "raw":  # the block's input, in norm_dtype
+        res = act(nd)
+    elif residual == "projected":  # the projection conv's output
+        res, rvec = act(dt), vectors()
+    return act(dt), vectors(), res, rvec
+
+
+def _k6_bytes(shape, dt, nd, residual) -> int:
+    """One read of x (and of the residual) and one write of the output,
+    with the per-channel vectors."""
+    import torch
+
+    n = shape[0] * shape[1] * shape[2] * shape[3]
+    size = {torch.bfloat16: 2, torch.float32: 4}
+    res = {"none": 0, "raw": size[nd], "projected": size[dt]}[residual]
+    vec = 4 * shape[1] * (6 if residual == "projected" else 3)
+    return n * (size[dt] + size[nd] + res) + vec
+
+
+def phase_k6(card: str):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imageclust_tpu_torch.config import EmbedConfig
+    from imageclust_tpu_torch.models import create_embedder
+    from imageclust_tpu_torch.models import resnet50 as rn
+    from imageclust_tpu_torch.ops import bn_act as ba
+
+    gen = torch.Generator(device=DEVICE).manual_seed(31)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(what, (K6_BATCH, c, h, w), residual, bf16, bf16)
+             for what, c, h, w, residual, _ in K6_SHAPES]
+    for what, c, h, w in (("stem", 64, 112, 112),
+                          ("stage3 out", 1024, 14, 14)):
+        for dt, nd in ((bf16, f32), (f32, f32), (f32, bf16)):
+            for residual in ("none", "raw", "projected"):
+                cases.append((what, (64, c, h, w), residual, dt, nd))
+    checked = []
+    max_err = 0.0
+    for what, shape, residual, dt, nd in cases:
+        x, vec, res, rvec = _k6_operands(gen, shape, dt, nd, residual)
+        for relu in (True, False):
+            before = ba.launches
+            got = ba.bn_act(x, *vec, nd, res, rvec, relu=relu)
+            want = ba.bn_act_plain(x, *vec, nd, res, rvec, relu=relu)
+            torch.cuda.synchronize()
+            if ba.launches != before + 1:
+                raise AssertionError("K6 call did not count one launch")
+            max_err = max(max_err, float(
+                (got.float() - want.float()).abs().max()))
+            if not (got.is_contiguous(memory_format=torch.channels_last)
+                    and _same_bits(got, want)):
+                diff = int((got.float() != want.float()).sum())
+                raise AssertionError(f"K6 != twin at {what} {shape} "
+                                     f"{residual} {dt}->{nd} relu={relu}: "
+                                     f"{diff} elements differ")
+        checked.append([what, list(shape), residual, str(dt)[6:],
+                        str(nd)[6:]])
+        del x, vec, res, rvec, got, want
+    emit({"phase": "k6_parity", "calls": 2 * len(checked),
+          "parity": "bit-identical", "cases": checked})
+
+    # the whole bf16 tower at batch 512, on K6 and on the twin in its place
+    emb = create_embedder(EmbedConfig(
+        model="resnet50", batch_size=K6_BATCH, dtype="bfloat16",
+        norm_dtype="bfloat16", s2d_stem=True), device=DEVICE)
+    model = emb.model
+    images = torch.randint(0, 256, (K6_BATCH, 224, 224, 3), generator=gen,
+                           device=DEVICE, dtype=torch.uint8)
+
+    @torch.inference_mode()
+    def tower():
+        return model(images)
+
+    def peak_bytes():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        tower()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    tower()
+    torch.cuda.synchronize()
+    before = ba.launches
+    got = tower()
+    torch.cuda.synchronize()
+    launches = ba.launches - before
+    if launches != K6_LAUNCHES:
+        raise AssertionError(f"ResNet50 batch: {launches} K6 launches")
+    k6_tower_ms = cuda_ms(tower, reps=10)
+    k6_peak = peak_bytes()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tower()
+        torch.cuda.synchronize()
+    all_us = _kernel_us(prof)
+    k6_us = _kernel_us(prof, ("bn_act",))
+    top = sorted(((e.key[:90], getattr(e, "self_device_time_total", getattr(
+        e, "self_cuda_time_total", 0.0)) / 1e3)
+        for e in prof.key_averages()), key=lambda kv: -kv[1])[:10]
+    saved = rn.batch_norm_act
+    rn.batch_norm_act = ba.bn_act_plain
+    try:
+        want = tower()
+        plain_tower_ms = cuda_ms(tower, reps=10)
+        plain_peak = peak_bytes()
+    finally:
+        rn.batch_norm_act = saved
+    tower_err = float((got.float() - want.float()).abs().max())
+    max_err = max(max_err, tower_err)
+    if not _same_bits(got, want):
+        raise AssertionError(
+            f"ResNet50 on K6 != on the twin: max abs {tower_err}")
+    emit({"phase": "k6_tower", "card": card, "batch": K6_BATCH,
+          "dtype": "bfloat16", "norm_dtype": "bfloat16", "stem": "s2d_raw",
+          "logits": "bit-identical", "k6_launches": launches,
+          "k6_batch_ms": k6_tower_ms, "plain_batch_ms": plain_tower_ms,
+          "k6_images_per_s": K6_BATCH / k6_tower_ms * 1e3,
+          "plain_images_per_s": K6_BATCH / plain_tower_ms * 1e3,
+          "k6_peak_bytes": k6_peak, "plain_peak_bytes": plain_peak,
+          "batch_device_ms": all_us / 1e3, "batch_k6_device_ms": k6_us / 1e3,
+          "top_kernels_ms": top,
+          "timing": "*_batch_ms: CUDA events around one forward, median of "
+                    "10; batch_*device_ms, top_kernels_ms: torch.profiler "
+                    "kernel time of one forward on K6; peaks: "
+                    "max_memory_allocated over one forward, above what was "
+                    "allocated before it"})
+    del emb, model, images, got, want
+
+    # K6's time at each shape of the tower beside its bound and the twin's
+    rows = []
+    k6_batch = bound_batch = plain_batch = 0.0
+    for what, c, h, w, residual, count in K6_SHAPES:
+        shape = (K6_BATCH, c, h, w)
+        x, vec, res, rvec = _k6_operands(gen, shape, bf16, bf16, residual)
+        call = lambda: ba.bn_act(x, *vec, bf16, res, rvec,  # noqa: E731
+                                 relu=True)
+        plain = lambda: ba.bn_act_plain(x, *vec, bf16, res,  # noqa: E731
+                                        rvec, relu=True)
+        ms = burst_ms(call)
+        dev_ms = device_ms(call, ("bn_act",))
+        plain_ms = burst_ms(plain)
+        nbytes = _k6_bytes(shape, bf16, bf16, residual)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        rows.append({"what": what, "shape": list(shape),
+                     "residual": residual, "launches_a_batch": count,
+                     "burst_ms": ms, "device_ms": dev_ms,
+                     "plain_burst_ms": plain_ms, "bytes": nbytes,
+                     "bound_ms": bound_ms,
+                     "pct_of_bound": 100 * bound_ms / (dev_ms or ms)})
+        k6_batch += count * (dev_ms or ms)
+        bound_batch += count * bound_ms
+        plain_batch += count * plain_ms
+        del x, vec, res, rvec
+    emit({"phase": "k6_time", "card": card, "dtype": "bfloat16",
+          "rows": rows, "batch_k6_ms": k6_batch,
+          "batch_bound_ms": bound_batch, "batch_plain_ms": plain_batch,
+          "pct_of_bound": 100 * bound_batch / k6_batch,
+          "timing": f"burst_ms: CUDA events around {TIMING_REPS} back-to-"
+                    "back warm calls, per call; device_ms: torch.profiler "
+                    f"kernel time, mean of {TIMING_REPS}; bound: bytes over "
+                    "3.35 TB/s; batch_*: summed over a batch's 49 launches "
+                    "(device_ms where the profiler read one)"})
+    stem = rows[0]
+    return max_err, launches, {"ms": stem["burst_ms"], "device_ms": stem["device_ms"],
+                 "plain_ms": stem["plain_burst_ms"],
+                 "bound_ms": stem["bound_ms"], "bound_by": "bytes",
+                 "batch_ms": k6_batch, "batch_bound_ms": bound_batch}
+
+
 PHASES = {
     2: phase_k1, 3: phase_engine, 4: phase_server, 5: phase_cli,
     6: phase_k3, 7: phase_k2, 8: phase_engine_100k, 9: phase_cli_big,
@@ -5154,6 +5384,7 @@ PHASES = {
     21: phase_text_tower, 22: phase_server_zero_shot, 23: phase_stream_joint,
     24: phase_chain, 25: phase_chain_pipeline, 26: phase_scoreboards,
     27: phase_finetune, 28: phase_mesh, 29: phase_cloud, 30: phase_bench,
+    31: phase_k6,
 }
 
 
@@ -5209,7 +5440,7 @@ def main(argv: list[str] | None = None) -> int:
     k2_err, k2_t = run(7)
     big_launches = run(8)
     run(9)
-    run(10)
+    stream_k6_launches = run(10)
     k5_err, k5_t = run(11)
     run(12)
     vit_launches = run(13)["k5"]
@@ -5233,6 +5464,7 @@ def main(argv: list[str] | None = None) -> int:
     run(28)
     cloud_launches = run(29)
     bench_launches = run(30)
+    k6_err, tower_k6_launches, k6_t = run(31)
     emit({"phase": "wall_times", "phases_s": walls,
           "script_s": time.perf_counter() - t_start})
     t = timings[4096]
@@ -5296,6 +5528,18 @@ def main(argv: list[str] | None = None) -> int:
         "shape": "n=2,000,000, k=5209, d=512 bf16, kk=8 (a 2M job's "
                  "summarize pass)",
         "parity": "bit-identical on integer grids",
+    }, {
+        "name": "bn_act",
+        "route": "cuda",
+        "source": "imageclust_tpu_torch/csrc/bn_act.cu",
+        "replaces": None,
+        "launches": stream_k6_launches + tower_k6_launches,
+        "max_abs_err": k6_err,
+        **k6_t,
+        "library_ms": None,
+        "shape": "the stem, 512 x 64 x 112 x 112 bf16 (ms, device_ms, "
+                 "plain_ms, bound_ms); batch_*: a ResNet50 batch of 512",
+        "parity": "bit-identical",
     }]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

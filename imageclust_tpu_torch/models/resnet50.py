@@ -17,6 +17,10 @@ activation dtype (``jnp.mean`` of a bf16 array) and returned as float32;
 the batch statistics and updates the running ones as Flax does (see
 :class:`_BatchNorm`). Convolutions are plain ``F.conv2d`` (cuDNN on
 the card): the JAX package left them to XLA, so they are not TPU kernels.
+At inference each BatchNorm, with the ReLU and the residual add that
+follow it, is one call of :func:`~imageclust_tpu_torch.ops.bn_act.
+batch_norm_act`: on the card the hand-written kernel K6, which rounds at
+the same points as the plain expression and so gives the same bits.
 
 Parameter names follow the Flax tree (``conv0``, ``bn0``,
 ``stage{s}_block{b}.conv{i}`` ...) so :mod:`.convert` maps one onto the
@@ -34,6 +38,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from imageclust_tpu_torch.ops.bn_act import batch_norm_act, bn_act_plain
 
 __all__ = ["ResNet50V1", "BottleneckV1", "fold_bn_variables",
            "load_onnx_params", "s2d_kernel", "s2d_input",
@@ -91,31 +97,46 @@ class _BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(c))
         self.register_buffer("running_var", torch.ones(c))
 
+    def vectors(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The float32 (mean, mul, bias) of the inference normalisation
+        ``(x - mean) * mul + bias``: the running mean and
+        ``mul = rsqrt(running_var + eps) * weight``."""
+        mul = torch.rsqrt(self.running_var + _EPS) * self.weight
+        return self.running_mean, mul, self.bias
+
     def forward(self, x: torch.Tensor, norm_dtype: torch.dtype,
-                train: bool = False) -> torch.Tensor:
-        shape = (1, -1, 1, 1)
+                train: bool = False, *, relu: bool = False,
+                residual: torch.Tensor | None = None,
+                residual_bn: "_BatchNorm | None" = None) -> torch.Tensor:
+        """Normalised ``x`` in ``norm_dtype``; then, when given, plus
+        ``residual`` (first normalised by ``residual_bn``, in the same
+        mode); then ReLU when ``relu``. At inference one
+        :func:`batch_norm_act` call (K6 on the card)."""
+        if not train:
+            return batch_norm_act(
+                x, *self.vectors(), norm_dtype, residual,
+                None if residual_bn is None else residual_bn.vectors(), relu)
         xf = x.float()
-        if train and self.stat_sum is not None:
+        if self.stat_sum is not None:
             sums, count = self.stat_sum(torch.stack(
                 [xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3))]),
                 xf.shape[0] * xf.shape[2] * xf.shape[3])
             mean = sums[0] / count
             var = torch.clamp_min(sums[1] / count - mean * mean, 0.0)
-        elif train:
+        else:
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp_min(
                 (xf * xf).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
-        if train:
-            with torch.no_grad():
-                self.running_mean.copy_(
-                    _MOMENTUM * self.running_mean + (1 - _MOMENTUM) * mean)
-                self.running_var.copy_(
-                    _MOMENTUM * self.running_var + (1 - _MOMENTUM) * var)
-        else:
-            mean, var = self.running_mean, self.running_var
+        with torch.no_grad():
+            self.running_mean.copy_(
+                _MOMENTUM * self.running_mean + (1 - _MOMENTUM) * mean)
+            self.running_var.copy_(
+                _MOMENTUM * self.running_var + (1 - _MOMENTUM) * var)
         mul = torch.rsqrt(var + _EPS) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape)
-        return (y + self.bias.view(shape)).to(norm_dtype)
+        if residual_bn is not None:
+            residual = residual_bn(residual, norm_dtype, train=True)
+        return bn_act_plain(xf, mean, mul, self.bias, norm_dtype, residual,
+                            relu=relu)
 
 
 class BottleneckV1(nn.Module):
@@ -138,18 +159,21 @@ class BottleneckV1(nn.Module):
             self.bn2 = _BatchNorm(out_ch)
             self.bn_proj = _BatchNorm(out_ch) if project else None
 
-    def _bn(self, name: str, y, norm_dtype, train: bool):
-        return (y if self.fold_bn
-                else getattr(self, name)(y, norm_dtype, train))
-
     def forward(self, x, dtype, norm_dtype, train: bool = False):
-        y = self._bn("bn0", self.conv0(x, dtype), norm_dtype, train).relu()
-        y = self._bn("bn1", self.conv1(y, dtype), norm_dtype, train).relu()
-        y = self._bn("bn2", self.conv2(y, dtype), norm_dtype, train)
+        if self.fold_bn:
+            y = self.conv0(x, dtype).relu()
+            y = self.conv1(y, dtype).relu()
+            y = self.conv2(y, dtype)
+            if self.conv_proj is not None:
+                x = self.conv_proj(x, dtype)
+            return (y + x.to(y.dtype)).relu()
+        y = self.bn0(self.conv0(x, dtype), norm_dtype, train, relu=True)
+        y = self.conv2(self.bn1(self.conv1(y, dtype), norm_dtype, train,
+                                relu=True), dtype)
         if self.conv_proj is not None:
-            x = self._bn("bn_proj", self.conv_proj(x, dtype), norm_dtype,
-                         train)
-        return (y + x.to(y.dtype)).relu()
+            x = self.conv_proj(x, dtype)
+        return self.bn2(y, norm_dtype, train, relu=True, residual=x,
+                        residual_bn=self.bn_proj)
 
 
 def _dt(name) -> torch.dtype:
@@ -225,9 +249,9 @@ class ResNet50V1(nn.Module):
             x = self._stem_standard(x)
         else:
             raise ValueError(f"unknown stem_mode {mode!r}")
-        if not self.fold_bn:
-            x = self.bn0(x, self.norm_dtype, train)
-        x = F.max_pool2d(x.relu(), 3, 2, padding=1)  # -inf padding, as JAX
+        x = (x.relu() if self.fold_bn
+             else self.bn0(x, self.norm_dtype, train, relu=True))
+        x = F.max_pool2d(x, 3, 2, padding=1)  # -inf padding, as JAX
         for si, n_blocks in enumerate(self.stage_layers):
             for bi in range(n_blocks):
                 x = getattr(self, f"stage{si + 1}_block{bi}")(

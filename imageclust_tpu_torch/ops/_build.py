@@ -32,7 +32,7 @@ _CSRC = _PKG / "csrc"
 _BUILD_ROOT = _PKG.parent / "build" / "kernels"
 SOURCES = ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
            "merge_loop_whole.cu", "short_seq_attention.cu",
-           "pref_topk_block.cu")
+           "pref_topk_block.cu", "bn_act.cu")
 HEADERS = ("lexmin.cuh", "cache_key.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,6 +120,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ic_short_seq_attention.restype = i
     lib.ic_pref_topk_block.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p]
     lib.ic_pref_topk_block.restype = i
+    lib.ic_bn_act.argtypes = [
+        p, p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
+    lib.ic_bn_act.restype = i
     return lib
 
 

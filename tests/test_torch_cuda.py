@@ -1109,3 +1109,111 @@ def test_cloud_job_on_card_matches_cpu(cuda, tmp_path, monkeypatch):
         assert c["labels"].startswith("Colour g")
         assert [o["serviceName"] for o in c["serviceOutputs"]] == [
             "OpenAI GPT-3.5 Turbo", "Claude Haiku v3.5"]
+
+
+# -- K6 (ops/bn_act.py) -------------------------------------------------------
+
+def _k6_operands(gen, shape, dt, nd, residual, dev):
+    from imageclust_tpu_torch.models.resnet50 import _BatchNorm
+
+    def act(dtype):
+        return (torch.randn(shape, generator=gen) * 3).to(dtype).to(
+            dev).contiguous(memory_format=torch.channels_last)
+
+    def vectors():
+        c = shape[1]
+        bn = _BatchNorm(c)
+        with torch.no_grad():
+            bn.running_mean.copy_(torch.rand(c, generator=gen) - 0.5)
+            bn.running_var.copy_(torch.rand(c, generator=gen) + 0.5)
+            bn.weight.copy_(torch.rand(c, generator=gen) + 0.5)
+            bn.bias.copy_(torch.rand(c, generator=gen) - 0.5)
+        with torch.no_grad():
+            return tuple(v.to(dev) for v in bn.vectors())
+
+    res = rvec = None
+    if residual == "raw":
+        res = act(nd)
+    elif residual == "projected":
+        res, rvec = act(dt), vectors()
+    return act(dt), vectors(), res, rvec
+
+
+@pytest.mark.parametrize("shape", [(3, 64, 5, 7), (2, 2048, 1, 1),
+                                   (1, 24, 3, 3), (5, 256, 9, 2)])
+@pytest.mark.parametrize("residual", ["none", "raw", "projected"])
+@pytest.mark.parametrize("dt,nd", [(torch.bfloat16, torch.bfloat16),
+                                   (torch.bfloat16, torch.float32),
+                                   (torch.float32, torch.float32),
+                                   (torch.float32, torch.bfloat16)])
+def test_bn_act_bit_identical_to_twin(cuda, shape, residual, dt, nd):
+    from imageclust_tpu_torch.ops import bn_act as ba
+
+    gen = torch.Generator().manual_seed(shape[1] + len(residual))
+    x, vec, res, rvec = _k6_operands(gen, shape, dt, nd, residual, cuda)
+    for relu in (False, True):
+        before = ba.launches
+        got = ba.bn_act(x, *vec, nd, res, rvec, relu=relu)
+        assert ba.launches == before + 1
+        want = ba.bn_act_plain(x, *vec, nd, res, rvec, relu=relu)
+        torch.cuda.synchronize()
+        assert got.dtype == nd and got.is_contiguous(
+            memory_format=torch.channels_last)
+        assert torch.equal(got.float().cpu(), want.float().cpu())
+
+
+@pytest.mark.parametrize("dtype,norm_dtype", [("bfloat16", "bfloat16"),
+                                              ("bfloat16", "float32"),
+                                              ("float32", "float32")])
+def test_resnet50_on_k6_bit_identical_to_twin(cuda, monkeypatch, dtype,
+                                              norm_dtype):
+    """The tower's logits with K6 against the same tower with the twin in
+    its place (49 launches a batch at full depth)."""
+    from imageclust_tpu_torch.models import resnet50 as rn
+    from imageclust_tpu_torch.ops import bn_act as ba
+
+    model = rn.ResNet50V1(num_classes=64, dtype=dtype, norm_dtype=norm_dtype,
+                          stem_mode="s2d_raw").init_random(5).to(cuda)
+    x = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 256, (3, 64, 64, 3), dtype=np.uint8)).to(cuda)
+    with torch.inference_mode():
+        before = ba.launches
+        got = model(x)
+        assert ba.launches == before + 49
+        monkeypatch.setattr(rn, "batch_norm_act", ba.bn_act_plain)
+        want = model(x)
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("residual", ["none", "raw", "projected"])
+def test_bn_act_empty_batch(cuda, residual):
+    """N = 0 (an empty blob) returns an empty output and launches nothing."""
+    from imageclust_tpu_torch.ops import bn_act as ba
+
+    x = torch.zeros((0, 64, 7, 7), dtype=torch.bfloat16, device=cuda
+                    ).contiguous(memory_format=torch.channels_last)
+    v = torch.zeros(64, device=cuda)
+    res = None if residual == "none" else x
+    rvec = (v, v, v) if residual == "projected" else None
+    before = ba.launches
+    got = ba.bn_act(x, v, v, v, torch.bfloat16, res, rvec, relu=True)
+    assert got.shape == x.shape and ba.launches == before
+
+
+@pytest.mark.parametrize("tracked", ["x", "mul"])
+def test_bn_act_raises_where_autograd_tracks(cuda, tracked):
+    """The kernel has no backward: a tracked operand raises, nothing falls
+    back to the twin."""
+    from imageclust_tpu_torch.ops import bn_act as ba
+
+    x = torch.zeros((2, 64, 3, 3), device=cuda).contiguous(
+        memory_format=torch.channels_last)
+    v = torch.ones(64, device=cuda)
+    mul = v.clone()
+    (x if tracked == "x" else mul).requires_grad_()
+    before = ba.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ba.batch_norm_act(x, v, mul, v, torch.float32, relu=True)
+    with torch.no_grad():
+        ba.batch_norm_act(x, v, mul, v, torch.float32, relu=True)
+    assert ba.launches == before + 1

@@ -63,7 +63,7 @@ def test_port_has_modules():
         assert mod in names
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
                 "merge_loop_whole.cu", "short_seq_attention.cu",
-                "lexmin.cuh"):
+                "bn_act.cu", "lexmin.cuh"):
         assert (PORT / "csrc" / src).exists()
 
 
@@ -123,6 +123,7 @@ _IMPORTS = (
     "import imageclust_tpu_torch.ops.merge_kernels as mk, "
     "imageclust_tpu_torch.ops.bucket_kernels as bk, "
     "imageclust_tpu_torch.ops.attention as at, "
+    "imageclust_tpu_torch.ops.bn_act as ba, "
     "imageclust_tpu_torch.models.vit as vit, "
     "imageclust_tpu_torch.cluster.sharded as sh, "
     "imageclust_tpu_torch.ops._build as b\n"
@@ -433,5 +434,6 @@ def test_kernel_build_is_lazy(clean_imports):
     """Importing the kernel modules builds nothing and needs no nvcc."""
     assert clean_imports["lazy"] is True
     for src in ("merge_update_argmin.cu", "merge_update_argmin_batched.cu",
-                "merge_loop_whole.cu", "short_seq_attention.cu"):
+                "merge_loop_whole.cu", "short_seq_attention.cu",
+                "bn_act.cu"):
         assert src in clean_imports["sources"]
