@@ -110,7 +110,8 @@ class EmbedConfig:
     """Embedding model selection and execution."""
 
     # Registry name: "resnet50" (parity with resnet50-v1-7.onnx),
-    # "vit_b32", "vit_l14", "siglip_so400m".
+    # "vit_b32", "vit_l14", "siglip_so400m", "siglip_so400m_384" (the port's
+    # own: the published SigLIP So400m/14@384 tower).
     model: str = "resnet50"
     # Path to the ONNX checkpoint for resnet50 parity weights; the mirror of
     # the reference strips the blob (.MISSING_LARGE_BLOBS:1) so random init is

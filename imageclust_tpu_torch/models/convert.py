@@ -15,7 +15,8 @@ This module maps either onto :class:`~.resnet50.ResNet50V1` by name:
 * conv ``bias`` (folded layout) -> ``bias``.
 
 The ViT towers (:func:`vit_state_dict_from_flax`) use the same kernel and
-LayerNorm rules; ``class_token`` and ``pos_embed`` carry over as they are.
+LayerNorm rules; ``class_token``, ``pos_embed`` and the attention-pooling
+head's ``head/probe`` carry over as they are.
 The text tower (:func:`text_state_dict_from_flax`) adds the token table:
 Embed ``embedding`` (vocab, width) -> ``weight`` as it is.
 
@@ -70,6 +71,8 @@ def _map_param(path: tuple, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if not scope and leaf in ("class_token", "pos_embed"):  # ViT tables
         return leaf, arr
     mod = ".".join(scope)
+    if leaf == "probe":  # the attention-pooling head's query
+        return f"{mod}.probe", arr
     if leaf == "kernel":
         if arr.ndim == 4:  # HWIO -> OIHW
             return f"{mod}.weight", np.transpose(arr, (3, 2, 0, 1))
@@ -226,8 +229,9 @@ def vit_state_dict_from_flax(variables: Mapping,
     """Convert Flax ``VisionTransformer`` variables (``{"params": ...}``)
     for ``cfg`` into a :class:`~.vit.VisionTransformer` state_dict: conv
     HWIO -> OIHW, Dense (in, out) -> (out, in), LayerNorm ``scale`` ->
-    ``weight``, ``class_token`` and ``pos_embed`` unchanged. Raises
-    ValueError on any missing, extra or mis-shaped tensor."""
+    ``weight``, ``class_token``, ``pos_embed`` and ``head/probe``
+    unchanged. Raises ValueError on any missing, extra or mis-shaped
+    tensor."""
     got, problems = _map_params(variables["params"])
     with torch.device("meta"):
         ref = VisionTransformer(cfg)

@@ -10,8 +10,10 @@ the counterpart of ``imageclust_tpu/models/quantize_vit.py``.
   accumulation, then ``y * (sx * w_scale) + bias`` in float32;
 * kept float: the patchify projection, the attention itself (through
   :func:`imageclust_tpu_torch.ops.attention.attention`: K5 on the card for
-  T <= 128, its twin on the CPU and above 128, as the bf16 towers run it),
-  the LayerNorms (float32) and the final projection (float32).
+  T <= 128, the fused library path above, the twin on the CPU, as the bf16
+  towers run it), the LayerNorms (float32), the final projection (float32)
+  and the attention-pooling head (:class:`~.vit.MAPHead`) of the published
+  SigLIP tower.
 
 Activations between layers are bf16. Parameter and buffer names follow the
 float tower's (:class:`~.vit.VisionTransformer`), with each quantized
@@ -28,6 +30,7 @@ from torch import nn
 from imageclust_tpu_torch.models.quantize import _quantize_weight, abs_stats
 from imageclust_tpu_torch.models.resnet50 import _dt
 from imageclust_tpu_torch.models.vit import (
+    MAPHead,
     ViTConfig,
     VisionTransformer,
     _Dense,
@@ -74,16 +77,16 @@ class _QBlock(nn.Module):
 
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        w = cfg.width
+        w, m = cfg.width, cfg.mlp_width
         self.cfg = cfg
-        self.ln1 = _LayerNorm(w)
+        self.ln1 = _LayerNorm(w, cfg.ln_eps)
         self.q = _QDense(w, w)
         self.k = _QDense(w, w)
         self.v = _QDense(w, w)
         self.proj = _QDense(w, w)
-        self.ln2 = _LayerNorm(w)
-        self.mlp_up = _QDense(w, 4 * w)
-        self.mlp_down = _QDense(4 * w, w)
+        self.ln2 = _LayerNorm(w, cfg.ln_eps)
+        self.mlp_up = _QDense(w, m)
+        self.mlp_down = _QDense(m, w)
 
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         c = self.cfg
@@ -96,15 +99,15 @@ class _QBlock(nn.Module):
         a = attention(q, k, v).reshape(b, t, c.width)
         x = x + self.proj(a, dt).to(x.dtype)
         y = self.ln2(x, torch.float32).to(dt)
-        y = _gelu(self.mlp_up(y, dt), c.quick_gelu)
+        y = _gelu(self.mlp_up(y, dt), c.quick_gelu, c.gelu_approx)
         return x + self.mlp_down(y, dt).to(x.dtype)
 
 
 class QuantViT(nn.Module):
     """The int8 ViT/SigLIP tower (JAX ``vit_quant_apply``): a normalized
     float batch (NHWC or NCHW, NCHW only when ``shape[1] == 3`` and the
-    last axis is not 3) at ``cfg.image_size`` in, the float32 projected
-    embedding (B, proj_dim) out."""
+    last axis is not 3) at ``cfg.image_size`` in, the float32 embedding
+    (B, ``cfg.embed_dim``) out."""
 
     def __init__(self, cfg: ViTConfig, act_dtype="bfloat16"):
         super().__init__()
@@ -120,8 +123,11 @@ class QuantViT(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, n_tok, w))
         for i in range(cfg.depth):
             self.add_module(f"block{i}", _QBlock(cfg))
-        self.ln_post = _LayerNorm(w)
-        self.projection = _Dense(w, cfg.proj_dim, bias=False)
+        self.ln_post = _LayerNorm(w, cfg.ln_eps)
+        if cfg.map_head:
+            self.head = MAPHead(cfg)
+        if cfg.projection:
+            self.projection = _Dense(w, cfg.proj_dim, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c, dt = self.cfg, self.act_dtype
@@ -137,11 +143,15 @@ class QuantViT(nn.Module):
             x = self.ln_pre(x, torch.float32).to(dt)
         for i in range(c.depth):
             x = getattr(self, f"block{i}")(x, dt)
+        if c.map_head:
+            return self.head(self.ln_post(x, torch.float32).to(dt), dt)
         if c.use_class_token:
             feat = x[:, 0]
         else:  # jnp.mean: f32 accumulation, result in the activation dtype
             feat = x.float().mean(dim=1).to(x.dtype)
         feat = self.ln_post(feat, torch.float32)
+        if not c.projection:
+            return feat
         return self.projection(feat, torch.float32)
 
 
@@ -183,7 +193,7 @@ def quantize_vit(model: VisionTransformer, calib, *, margin: float = 1.05,
 
     # the float parts as they are; block{i}.{dense}.* are replaced below
     sd = {k: v for k, v in src.items()
-          if len(k.split(".")) < 3 or k.split(".")[1] not in _QDENSE}
+          if not (k.startswith("block") and k.split(".")[1] in _QDENSE)}
     for i in range(cfg.depth):
         for name in _QDENSE:
             key = f"block{i}.{name}"

@@ -4,7 +4,11 @@ Counterpart of ``imageclust_tpu/models/registry.py``: ``resnet50`` (the
 1000-d logits the reference reads as its embedding, embeddings.go:140, or
 the 2048-d pooled features) and the ViT/SigLIP towers of
 :data:`~.vit.VIT_CONFIGS` (``vit_b32``, ``vit_b16``, ``vit_l14``,
-``vit_l14_336``, ``siglip_so400m``; the projected embedding).
+``vit_l14_336``, ``siglip_so400m``; the projected embedding). Of these,
+``siglip_so400m`` is the JAX package's SigLIP-style tower, not the
+published model; the port adds ``siglip_so400m_384``, the published SigLIP
+So400m/14@384 vision tower (its 1152-d attention-pooled embedding, no
+projection), which the JAX package does not have.
 ``quantize="int8"`` builds the int8 PTQ variant of either family
 (:mod:`.quantize`, :mod:`.quantize_vit`), calibrated after any weight
 load. ``embed.checkpoint_path`` restores a tuned ResNet50 from an Orbax
@@ -46,6 +50,7 @@ from imageclust_tpu_torch.models.vit import (
     VIT_CONFIGS,
     VisionTransformer,
     load_clip_vision_state_dict,
+    load_siglip_vision_state_dict,
 )
 from imageclust_tpu_torch.ops.pref_kernels import to_grid
 from imageclust_tpu_torch.ops.preprocess import preprocess_batch
@@ -55,7 +60,8 @@ log = logging.getLogger(__name__)
 __all__ = ["DEFAULT_BATCH", "Embedder", "EmbedderSpec", "create_embedder",
            "list_models"]
 
-# The JAX package's per-tower batch defaults (EmbedConfig.batch_size = 0).
+# The JAX package's per-tower batch defaults (EmbedConfig.batch_size = 0),
+# and the port's own tower's.
 DEFAULT_BATCH = {
     "resnet50": 512,
     "vit_b32": 1024,
@@ -63,6 +69,7 @@ DEFAULT_BATCH = {
     "vit_l14": 128,
     "vit_l14_336": 64,
     "siglip_so400m": 128,
+    "siglip_so400m_384": 128,
 }
 
 
@@ -479,10 +486,11 @@ def _build_resnet50(cfg: EmbedConfig, seed: int):
 
 def _build_vit(name: str, cfg: EmbedConfig, seed: int):
     """The ViT/SigLIP tower ``name`` with seeded random init, or the HF
-    CLIP vision checkpoint at ``embed.onnx_path`` when it is a ``.npz``,
-    ``.pt`` or ``.bin`` file (JAX registry.py:499-571). The config's
-    default ``.onnx`` path is skipped quietly; any other path that cannot
-    be loaded is warned about. ``embed.checkpoint_path`` does not load
+    vision checkpoint at ``embed.onnx_path`` when it is a ``.npz``,
+    ``.pt`` or ``.bin`` file (JAX registry.py:499-571): a
+    ``SiglipVisionModel``'s for the tower with the attention-pooling head,
+    else a ``CLIPVisionModel``'s. The config's default ``.onnx`` path is
+    skipped quietly; any other path that cannot be loaded is warned about. ``embed.checkpoint_path`` does not load
     weights here, as in the JAX package (registry.py:499-520); it only
     enters the cache tag. Returns (spec, model, loaded path or "")."""
     vcfg = VIT_CONFIGS[name]
@@ -507,7 +515,7 @@ def _build_vit(name: str, cfg: EmbedConfig, seed: int):
     spec = EmbedderSpec(
         name=name,
         input_size=vcfg.image_size,
-        dim=vcfg.proj_dim,
+        dim=vcfg.embed_dim,
         scale=1.0 / 255.0,
         mean=vcfg.mean,
         std=vcfg.std,
@@ -522,6 +530,8 @@ def _load_vit_checkpoint(path: str, vcfg) -> dict[str, torch.Tensor]:
             sd = dict(z)
     else:
         sd = torch.load(path, map_location="cpu", weights_only=True)
+    if vcfg.map_head:
+        return load_siglip_vision_state_dict(sd, vcfg)
     return load_clip_vision_state_dict(sd, vcfg)
 
 

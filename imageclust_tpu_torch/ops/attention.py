@@ -14,11 +14,16 @@ tolerance, not bit for bit (as the Pallas kernel and XLA's attention do).
 No other device is accepted, and nothing falls back.
 
 :func:`attention` is the towers' dispatch (JAX ``models/vit.py:40-59``):
-on CUDA with T <= ``_FUSED_ATTN_MAX_SEQ`` it calls K5, otherwise the twin,
-which also serves as the plain path for longer sequences (the JAX package
-leaves those to ``jax.nn.dot_product_attention``). The JAX package's
-``IMAGECLUST_VIT_ATTN`` switch is not ported: it swaps the kernel out,
-which the port's runtime rules forbid.
+on CUDA with T <= ``_FUSED_ATTN_MAX_SEQ`` it calls K5; on CUDA with longer
+sequences in bf16 :func:`long_seq_attention`, PyTorch's fused
+``scaled_dot_product_attention`` pinned to one backend (where the JAX
+package leaves those lengths to ``jax.nn.dot_product_attention``, XLA's
+work, a library call stands in the port); otherwise the twin: on the CPU
+at every length, and for float32 above 128 tokens on the card, which the
+backend does not take (a float32 tower, the int8 towers' float32
+calibration forward). The JAX package's ``IMAGECLUST_VIT_ATTN`` switch is
+not ported: it swaps the kernel out, which the port's runtime rules
+forbid.
 """
 
 from __future__ import annotations
@@ -26,9 +31,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
-__all__ = ["attention", "short_seq_attention", "short_seq_attention_plain",
-           "launches"]
+__all__ = ["attention", "long_seq_attention", "short_seq_attention",
+           "short_seq_attention_plain", "launches"]
 
 # Sequences at or under this length take K5 on the card (JAX vit.py:40).
 _FUSED_ATTN_MAX_SEQ = 128
@@ -109,9 +115,30 @@ def short_seq_attention(q, k, v):
     return out
 
 
+def long_seq_attention(q, k, v):
+    """softmax(Q Kᵀ / sqrt(Dh)) V on a CUDA device for q, k, v (B, T, H, Dh)
+    of any T: ``F.scaled_dot_product_attention`` on their (B, H, T, Dh)
+    views, pinned to cuDNN's fused backend, the fastest of flash, cuDNN and
+    memory-efficient at every long shape of the towers on an H100
+    (``tools/time_long_attention.py``, PERF.md); it never writes the
+    (T, T) logits to device memory. The math backend is left out of the pin, so a shape
+    or dtype the backend cannot take (float32, for one) raises a
+    RuntimeError instead of falling back. Returns o as a (B, T, H, Dh)
+    view in q's dtype."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    return o.transpose(1, 2)
+
+
 def attention(q, k, v):
-    """The towers' attention: K5 for CUDA tensors with T <= 128, the plain
-    path otherwise (CPU tensors, and longer sequences on any device)."""
-    if q.device.type == "cuda" and q.shape[1] <= _FUSED_ATTN_MAX_SEQ:
-        return short_seq_attention(q, k, v)
+    """The towers' attention: on CUDA tensors K5 at T <= 128 and, in bf16,
+    :func:`long_seq_attention` above; the plain twin otherwise."""
+    if q.device.type == "cuda":
+        if q.shape[1] <= _FUSED_ATTN_MAX_SEQ:
+            return short_seq_attention(q, k, v)
+        if q.dtype == torch.bfloat16:
+            return long_seq_attention(q, k, v)
     return short_seq_attention_plain(q, k, v)

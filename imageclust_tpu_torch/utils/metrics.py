@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 log = logging.getLogger(__name__)
 
 __all__ = ["RunMetrics", "StageTimer", "ServiceMetrics", "CollectiveCounters",
-           "timed"]
+           "timed", "traced"]
 
 # per-job naming counters that the service's /metrics adds up
 _NAMING_TOTALS = (("naming_calls", "imageclust_naming_calls_total"),
@@ -39,19 +39,25 @@ def _profiler_active() -> bool:
     return getattr(ap, "_is_profiler_enabled", True)
 
 
+def traced(label: str):
+    """A ``record_function`` range named ``label`` while a
+    ``torch.profiler`` trace records; otherwise nothing, at the cost of
+    the check."""
+    if _profiler_active():
+        import torch
+
+        return torch.profiler.record_function(label)
+    return contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def timed(into: dict, key: str, label: str | None = None):
     """Adds the block's host seconds (``time.perf_counter``) to
     ``into[key]``. While a ``torch.profiler`` trace records, the block is
     also a ``record_function`` range named ``label`` (default ``key``)."""
-    ctx = contextlib.nullcontext()
-    if _profiler_active():
-        import torch
-
-        ctx = torch.profiler.record_function(label or key)
     start = time.perf_counter()
     try:
-        with ctx:
+        with traced(label or key):
             yield
     finally:
         into[key] = into.get(key, 0.0) + time.perf_counter() - start

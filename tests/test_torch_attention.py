@@ -116,21 +116,26 @@ def test_wrapper_rejects_mixed_inputs():
 
 
 def test_dispatch(monkeypatch):
-    """attention(): K5 only for CUDA tensors with T <= 128; the twin for CPU
-    tensors and for T = 129 on any device."""
+    """attention(): K5 only for CUDA tensors with T <= 128, the fused
+    library path for bf16 CUDA tensors above; the twin for CPU tensors at
+    every length and for float32 CUDA tensors above 128."""
     calls = []
     monkeypatch.setattr(at, "short_seq_attention",
                         lambda q, k, v: calls.append(("k5", q.shape[1])))
+    monkeypatch.setattr(at, "long_seq_attention",
+                        lambda q, k, v: calls.append(("fused", q.shape[1])))
     monkeypatch.setattr(at, "short_seq_attention_plain",
                         lambda q, k, v: calls.append(("twin", q.shape[1])))
-    for dev in ("cuda", "cpu"):
+    for dev, dtype in (("cuda", torch.bfloat16), ("cpu", torch.bfloat16),
+                       ("cuda", torch.float32)):
         for t in (1, 50, 128, 129):
-            q = types.SimpleNamespace(device=torch.device(dev),
+            q = types.SimpleNamespace(device=torch.device(dev), dtype=dtype,
                                       shape=(2, t, 4, 64))
             at.attention(q, q, q)
-    assert calls == [("k5", 1), ("k5", 50), ("k5", 128), ("twin", 129),
+    assert calls == [("k5", 1), ("k5", 50), ("k5", 128), ("fused", 129),
                      ("twin", 1), ("twin", 50), ("twin", 128),
-                     ("twin", 129)]
+                     ("twin", 129),
+                     ("k5", 1), ("k5", 50), ("k5", 128), ("twin", 129)]
 
 
 def test_dispatch_on_cpu_is_the_twin():

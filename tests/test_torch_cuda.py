@@ -464,7 +464,7 @@ def test_attention_dispatch_on_card(cuda):
 
     q = torch.randn((2, 129, 2, 64), device=cuda, dtype=torch.bfloat16)
     before = at.launches
-    at.attention(q, q, q)  # T = 129: the plain path
+    at.attention(q, q, q)  # T = 129: the fused library path, not K5
     assert at.launches == before
     at.attention(q[:, :128].contiguous(), q[:, :128].contiguous(),
                  q[:, :128].contiguous())
@@ -494,6 +494,89 @@ def test_tiny_vit_on_k5_matches_twin(cuda, monkeypatch, dtype):
         want = model(x)
     cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
     assert float(cos.min()) >= (0.999 if dtype == "bfloat16" else 0.99999)
+
+
+# The towers' long sequences (T > 128) at their default batches: SigLIP
+# So400m/14@384, ViT-B/16, L/14, L/14@336 and the JAX package's SigLIP-style
+# tower.
+_LONG_SHAPES = [(128, 729, 16, 72), (256, 197, 12, 64), (128, 257, 16, 64),
+                (64, 577, 16, 64), (128, 256, 16, 72)]
+
+
+def _device_kernels(fn) -> list[str]:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("shape", _LONG_SHAPES)
+def test_long_seq_attention_matches_twin(cuda, shape):
+    """The pinned fused backend against the twin in bf16: one cuDNN
+    attention kernel a call, no K5, no other attention backend."""
+    from imageclust_tpu_torch.ops import attention as at
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda,
+                           dtype=torch.bfloat16) for _ in range(3))
+    before = at.launches
+    with torch.inference_mode():
+        got = at.attention(q, k, v)
+        names = _device_kernels(lambda: at.attention(q, k, v))
+        want = at.short_seq_attention_plain(q, k, v)
+    assert at.launches == before
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0.02,
+                               atol=0.02)
+    attn = [n for n in names if "sdpa" in n or "flash" in n or "fmha" in n]
+    assert len(attn) == 1 and "native_sdpa_sm90_flash_fprop" in attn[0]
+
+
+def test_long_seq_attention_raises_where_the_backend_cannot(cuda):
+    """The math backend is out of the pin: float32 raises there, and the
+    dispatch keeps float32 on the twin."""
+    from imageclust_tpu_torch.ops import attention as at
+
+    q = torch.randn((2, 200, 2, 64), device=cuda)
+    with pytest.raises(RuntimeError):
+        at.long_seq_attention(q, q, q)
+    assert torch.equal(at.attention(q, q, q),
+                       at.short_seq_attention_plain(q, q, q))
+
+
+def test_siglip_so400m_384_bf16_matches_plain_reference(cuda):
+    """The published tower at its widths in bf16 on the card against the
+    plain float32 reference (TF32 off) on 8 images of 384 px, with the
+    fused attention launched once a block (27 a batch) and K5 never."""
+    import plain_siglip
+
+    from imageclust_tpu_torch.models import vit
+    from imageclust_tpu_torch.ops import attention as at
+
+    cfg = vit.VIT_CONFIGS["siglip_so400m_384"]
+    w = plain_siglip.random_weights(cfg.width, cfg.depth, cfg.heads,
+                                    cfg.mlp_width, cfg.patch, 729, seed=0)
+    model = vit.VisionTransformer(cfg, dtype="bfloat16",
+                                  norm_dtype="bfloat16")
+    model.load_state_dict(vit.load_siglip_vision_state_dict(w, cfg))
+    model = model.to(cuda).eval()
+    images = torch.randint(0, 256, (8, 384, 384, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(1))
+    x = ((images.flip(-1).float() / 255.0 - 0.5) / 0.5).to(cuda)
+    before = at.launches
+    with torch.inference_mode():
+        got = model(x)
+        names = _device_kernels(lambda: model(x))
+    assert at.launches == before
+    assert sum("native_sdpa_sm90_flash_fprop" in n for n in names) == 27
+    want = plain_siglip.embed({k: t.to(cuda) for k, t in w.items()},
+                              images.to(cuda), cfg.heads)
+    cos = torch.nn.functional.cosine_similarity(got, want, dim=1)
+    assert got.shape == (8, 1152) and float(cos.min()) >= 0.999
 
 
 # -- int8 products and the int8 towers (models/quantize*.py, ops/int8.py) ----

@@ -240,7 +240,8 @@ class TestCli:
         assert jax_cli.main(["models"]) == 0
         theirs = capsys.readouterr().out
         assert cli.main(["models"]) == 0
-        assert capsys.readouterr().out == theirs
+        # the JAX package's towers, then the port's own
+        assert capsys.readouterr().out == theirs + "siglip_so400m_384\n"
         assert "resnet50" in theirs and "siglip_so400m" in theirs
 
     def test_export_refuses_other_towers(self, capsys, monkeypatch):

@@ -62,7 +62,9 @@ def tiny_vit_b32(monkeypatch):
     --clip`` runs in seconds."""
     monkeypatch.setitem(vit.VIT_CONFIGS, "vit_b32", _TINY_VIT)
     monkeypatch.setitem(jax_vit.VIT_CONFIGS, "vit_b32",
-                        jax_vit.ViTConfig(**_TINY_VIT.__dict__))
+                        jax_vit.ViTConfig(**{
+                            f: getattr(_TINY_VIT, f) for f in
+                            jax_vit.ViTConfig.__dataclass_fields__}))
 
 
 def _run_cli(main, args, capsys):

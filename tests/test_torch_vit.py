@@ -52,13 +52,23 @@ _SIGLIP = vit.ViTConfig(patch=8, width=32, depth=2, heads=4, proj_dim=32,
                         quick_gelu=False, mean=(0.5, 0.5, 0.5),
                         std=(0.5, 0.5, 0.5))
 _STYLES = {"clip": _CLIP, "siglip": _SIGLIP}
+# the port's ViTConfig fields that the JAX package's lacks, and the towers
+# only the port has
+_PORT_FIELDS = ("mlp_dim", "gelu_approx", "ln_eps", "map_head", "projection")
+_PORT_TOWERS = ("siglip_so400m_384",)
+
+
+def _jax_cfg(cfg):
+    """The JAX package's ViTConfig with the port config's JAX fields."""
+    return jax_vit.ViTConfig(**{f: getattr(cfg, f) for f in
+                                jax_vit.ViTConfig.__dataclass_fields__})
 
 
 def _flax_variables(cfg, seed=0):
     """Flax init with every bias, LayerNorm scale and shift perturbed (the
     init's zeros and ones would leave them untested)."""
     model = jax_vit.VisionTransformer(
-        jax_vit.ViTConfig(**cfg.__dict__), dtype=jnp.float32)
+        _jax_cfg(cfg), dtype=jnp.float32)
     x = jnp.zeros((1, 3, cfg.image_size, cfg.image_size), jnp.float32)
     v = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(seed), x))
     rng = np.random.default_rng(seed)
@@ -87,8 +97,7 @@ def _images(cfg, b=3, seed=0):
 
 def _flax_apply(cfg, variables, x, dtype):
     dt = jnp.dtype(dtype)
-    model = jax_vit.VisionTransformer(jax_vit.ViTConfig(**cfg.__dict__),
-                                      dtype=dt, norm_dtype=dt)
+    model = jax_vit.VisionTransformer(_jax_cfg(cfg), dtype=dt, norm_dtype=dt)
     emb, feat = model.apply(variables, jnp.asarray(x), return_features=True)
     return np.asarray(emb, np.float32), np.asarray(feat, np.float32)
 
@@ -179,10 +188,16 @@ class TestTower:
 
 @pytest.mark.parametrize("name", sorted(jax_vit.VIT_CONFIGS))
 def test_full_width_structure(name):
-    """Every full-width tower: the Flax parameter shapes (jax.eval_shape,
-    no compute) map one to one onto the port's state_dict (meta device)."""
+    """Every full-width tower of the JAX package: the port's config has
+    its fields and values, the port's own fields at their defaults, and the
+    Flax parameter shapes (jax.eval_shape, no compute) map one to one onto
+    the port's state_dict (meta device)."""
     jcfg = jax_vit.VIT_CONFIGS[name]
-    assert vit.VIT_CONFIGS[name].__dict__ == jcfg.__dict__
+    port = vit.VIT_CONFIGS[name]
+    assert {f: getattr(port, f) for f in jcfg.__dict__} == jcfg.__dict__
+    assert set(port.__dict__) - set(jcfg.__dict__) == set(_PORT_FIELDS)
+    default = vit.ViTConfig(patch=1, width=1, depth=1, heads=1, proj_dim=1)
+    assert all(getattr(port, f) == getattr(default, f) for f in _PORT_FIELDS)
     model = jax_vit.VisionTransformer(jcfg)
     x = jax.ShapeDtypeStruct((1, 3, jcfg.image_size, jcfg.image_size),
                              jnp.float32)
@@ -253,7 +268,7 @@ class TestClipLoader:
         sd = _hf_state_dict(cfg, v, as_torch=as_torch)
         jax_loaded = jax_vit.load_clip_vision_torch(
             {k: np.asarray(t) for k, t in sd.items()},
-            jax_vit.ViTConfig(**cfg.__dict__), dict(v))
+            _jax_cfg(cfg), dict(v))
         x = _images(cfg, seed=4)
         want, _ = _flax_apply(cfg, jax_loaded, x, "float32")
         port_sd = vit.load_clip_vision_state_dict(sd, cfg)
@@ -303,19 +318,28 @@ class TestClipLoader:
 @pytest.fixture()
 def tiny_towers(monkeypatch):
     """Every ViT name of both packages mapped to a tiny tower of its own
-    style (class token, GELU, normalisation and input size kept)."""
+    style (class token, GELU, normalisation and input size kept; the
+    port's own towers keep their head and an MLP that is not 4 x width)."""
     for name, c in list(vit.VIT_CONFIGS.items()):
         tiny = dict(c.__dict__, width=32, depth=2, heads=4,
                     image_size=c.patch * 4)
+        if c.mlp_dim:
+            tiny["mlp_dim"] = 88
+        if not c.projection:
+            tiny["proj_dim"] = 32
         monkeypatch.setitem(vit.VIT_CONFIGS, name, vit.ViTConfig(**tiny))
-        monkeypatch.setitem(jax_vit.VIT_CONFIGS, name,
-                            jax_vit.ViTConfig(**tiny))
+        if name not in _PORT_TOWERS:
+            monkeypatch.setitem(jax_vit.VIT_CONFIGS, name,
+                                _jax_cfg(vit.ViTConfig(**tiny)))
 
 
 class TestRegistry:
     def test_list_models_matches_jax(self):
-        assert list_models() == jax_list_models()
-        assert len(list_models()) == 6
+        """The JAX package's names in its order, then the port's own."""
+        ours = [m for m in list_models() if m not in _PORT_TOWERS]
+        assert ours == jax_list_models()
+        assert list_models() == jax_list_models() + list(_PORT_TOWERS)
+        assert len(jax_list_models()) == 6 and len(list_models()) == 7
 
     @pytest.mark.parametrize("name", sorted(vit.VIT_CONFIGS))
     def test_builds_and_embeds_every_tower(self, tiny_towers, name):
