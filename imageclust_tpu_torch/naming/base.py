@@ -57,6 +57,11 @@ class ModelOutput:
 class Namer(Protocol):
     name: str
     order: int
+    # Whether ``generate`` waits on a remote service. Remote namers are
+    # called from a bounded pool of clusters in flight; when every enabled
+    # namer sets False, clusters are named one after another in the
+    # calling thread. A namer without the attribute counts as remote.
+    remote: bool
 
     def generate(self, aggregated_text: str, retries: int) -> tuple[str, str]:
         """Return (title, catchy_phrase); must not raise — degrade to the

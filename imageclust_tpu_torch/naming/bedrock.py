@@ -39,6 +39,7 @@ class _BedrockNamer:
     retry_delay_s = 2.0  # claude-haiku.go:102
     name = "bedrock"
     order = 0
+    remote = True
     model_id = ""
 
     def __init__(self, region: str | None = None, retry_delay_s: float | None = None,

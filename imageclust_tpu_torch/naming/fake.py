@@ -11,6 +11,7 @@ __all__ = ["FakeNamer"]
 class FakeNamer:
     name = "Offline Namer"
     order = 0
+    remote = False  # pure Python: threads would only contend for the GIL
 
     def generate(self, aggregated_text: str, retries: int) -> tuple[str, str]:
         words = [w.strip(" ,") for w in

@@ -40,6 +40,8 @@ _MODELS = {
 
 
 class OpenAINamer:
+    remote = True
+
     def __init__(self, model: str = "gpt-3.5-turbo",
                  retry_delay_s: float = 2.0, timeout_s: float = 60.0):
         meta = _MODELS.get(model, {"name": f"OpenAI {model}", "order": 9})

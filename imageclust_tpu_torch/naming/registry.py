@@ -11,6 +11,7 @@ combination can be enabled via NamingConfig.services.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -34,7 +35,7 @@ __all__ = ["NamingService", "RateLimiter", "create_naming_service",
 
 # What NamingService.name_clusters counts of one call (its ``counters=``)
 NAMING_COUNTERS = ("naming_calls", "naming_fallbacks", "naming_resumed",
-                   "naming_call_s", "naming_state_write_s")
+                   "naming_call_s", "naming_state_write_s", "naming_inline")
 
 
 def build_namer(name: str, cfg: NamingConfig) -> Namer:
@@ -74,30 +75,45 @@ class NamingService:
 
     def generate_multi(self, aggregated_text: str) -> list[ModelOutput]:
         """Fan out to every enabled service concurrently; return outputs
-        sorted by display order (wrapper.go:90-139 semantics)."""
+        sorted by display order (wrapper.go:90-139 semantics). A single
+        namer, and offline namers, are called in this thread."""
+        if len(self.namers) > 1 and self._remote():
+            with ThreadPoolExecutor(max_workers=len(self.namers)) as pool:
+                return self._fan_out(aggregated_text, pool)[0]
         return self._fan_out(aggregated_text)[0]
 
-    def _fan_out(self, aggregated_text: str
+    def _remote(self) -> bool:
+        """Whether any enabled namer waits on a remote service (a namer
+        without :attr:`Namer.remote` counts as remote)."""
+        return any(getattr(n, "remote", True) for n in self.namers)
+
+    def _call(self, namer: Namer, aggregated_text: str
+              ) -> tuple[ModelOutput, float]:
+        """One namer's output (the fallback pair if it raises) and the
+        seconds spent inside its ``generate``."""
+        start = None
+        try:
+            self.limiter.acquire()
+            start = time.perf_counter()
+            title, phrase = namer.generate(aggregated_text, self.retries)
+        except Exception as exc:  # a backend must never kill the job
+            log.error("namer %s raised: %s", namer.name, exc)
+            title, phrase = FALLBACK_TITLE, FALLBACK_PHRASE
+        call_s = 0.0 if start is None else time.perf_counter() - start
+        return ModelOutput(namer.name, title, phrase, namer.order), call_s
+
+    def _fan_out(self, aggregated_text: str,
+                 pool: ThreadPoolExecutor | None = None
                  ) -> tuple[list[ModelOutput], float]:
         """:meth:`generate_multi`'s outputs and the seconds spent inside
-        ``Namer.generate``, summed over its threads."""
-        if not self.namers:
-            return [], 0.0
-
-        def run(namer: Namer) -> tuple[ModelOutput, float]:
-            start = None
-            try:
-                self.limiter.acquire()
-                start = time.perf_counter()
-                title, phrase = namer.generate(aggregated_text, self.retries)
-            except Exception as exc:  # a backend must never kill the job
-                log.error("namer %s raised: %s", namer.name, exc)
-                title, phrase = FALLBACK_TITLE, FALLBACK_PHRASE
-            call_s = 0.0 if start is None else time.perf_counter() - start
-            return ModelOutput(namer.name, title, phrase, namer.order), call_s
-
-        with ThreadPoolExecutor(max_workers=len(self.namers)) as pool:
-            done = list(pool.map(run, self.namers))
+        ``Namer.generate``, summed over its threads. Several namers run on
+        ``pool``; one namer, or several without a pool, run in this
+        thread."""
+        if pool is None or len(self.namers) == 1:
+            done = [self._call(n, aggregated_text) for n in self.namers]
+        else:
+            done = list(pool.map(lambda n: self._call(n, aggregated_text),
+                                 self.namers))
         outputs = sorted((o for o, _ in done), key=lambda o: o.order)
         return outputs, sum(s for _, s in done)
 
@@ -113,21 +129,29 @@ class NamingService:
         one-by-one (the reference's loop, workflow.go:187-229) would take
         hours against a ~1 s/request backend.
 
-        * ``cluster_concurrency`` clusters are in flight at once; within
-          each, services fan out exactly as :meth:`generate_multi` (the
-          per-cluster contract, wrapper.go:90-140, is unchanged).
+        * offline namers (every enabled one has ``remote = False``) name
+          the clusters one after another in the calling thread, with no
+          pool and no lock: they never wait, so threads would only contend
+          for the interpreter.
+        * otherwise ``cluster_concurrency`` clusters are in flight at once;
+          within each, services fan out exactly as :meth:`generate_multi`
+          (the per-cluster contract, wrapper.go:90-140, is unchanged) on
+          one namer pool shared by every cluster, and a single namer is
+          called in its cluster's thread.
         * every LLM request passes the shared :class:`RateLimiter`.
-        * ``state_path``: JSONL of finished clusters, appended as each
-          completes (atomic enough for crash recovery: a torn last line is
-          discarded on load). Re-running the same job resumes — already
-          named clusters are served from the file without an LLM call.
+        * ``state_path``: JSONL of finished clusters, appended and flushed
+          as each completes (atomic enough for crash recovery: a torn last
+          line is discarded on load). Re-running the same job resumes —
+          already named clusters are served from the file without an LLM
+          call.
         * ``progress(done, total)`` is invoked on each completion; by
           default a log line is emitted every ~5%.
         * ``counters``, a dict, receives this call's :data:`NAMING_COUNTERS`:
           ``Namer.generate`` calls and the seconds inside them (summed over
           threads), outputs that are the fallback pair, clusters served
-          from the state file, and the seconds of the state file's appends
-          (each record's encode, write and flush under the lock).
+          from the state file, the seconds of the state file's appends
+          (each record's encode, write and flush), and clusters named in
+          the calling thread.
         """
         stats = counters if counters is not None else {}
         stats.update(dict.fromkeys(NAMING_COUNTERS, 0))
@@ -144,7 +168,6 @@ class NamingService:
             return {cid: done[cid] for cid in texts}
 
         every = max(1, total // 20)
-        lock = threading.Lock()
         state_fh = None
         if state_path:
             # a crash can leave a torn final line WITHOUT its newline — seal
@@ -159,9 +182,12 @@ class NamingService:
             if not sealed:
                 state_fh.write("\n")
         counter = [len(done)]
+        inline = not self._remote()
+        # the pooled schedule settles one cluster at a time
+        lock = contextlib.nullcontext() if inline else threading.Lock()
 
-        def run(cid: str) -> tuple[str, list[ModelOutput]]:
-            outs, call_s = self._fan_out(texts[cid])
+        def run(cid: str, namer_pool=None) -> tuple[str, list[ModelOutput]]:
+            outs, call_s = self._fan_out(texts[cid], namer_pool)
             fallbacks = sum(o.title == FALLBACK_TITLE
                             and o.catchy_phrase == FALLBACK_PHRASE
                             for o in outs)
@@ -175,6 +201,7 @@ class NamingService:
                 stats["naming_calls"] += len(outs)
                 stats["naming_fallbacks"] += fallbacks
                 stats["naming_call_s"] += call_s
+                stats["naming_inline"] += inline
                 if state_fh is not None and worth_saving:
                     start = time.perf_counter()
                     state_fh.write(json.dumps({
@@ -194,10 +221,17 @@ class NamingService:
             return cid, outs
 
         try:
-            with ThreadPoolExecutor(
-                    max_workers=self.cluster_concurrency) as pool:
-                for cid, outs in pool.map(run, todo):
-                    done[cid] = outs
+            if inline:
+                done.update(map(run, todo))
+            else:
+                # one namer pool for every cluster, as many calls in flight
+                # as a pool per cluster allowed
+                namers = ThreadPoolExecutor(
+                    max_workers=self.cluster_concurrency * len(self.namers)
+                ) if len(self.namers) > 1 else contextlib.nullcontext()
+                with namers as namer_pool, ThreadPoolExecutor(
+                        max_workers=self.cluster_concurrency) as pool:
+                    done.update(pool.map(lambda c: run(c, namer_pool), todo))
         finally:
             if state_fh is not None:
                 state_fh.close()

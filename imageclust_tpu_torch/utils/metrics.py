@@ -27,7 +27,8 @@ __all__ = ["RunMetrics", "StageTimer", "ServiceMetrics", "CollectiveCounters",
 # per-job naming counters that the service's /metrics adds up
 _NAMING_TOTALS = (("naming_calls", "imageclust_naming_calls_total"),
                   ("naming_fallbacks", "imageclust_naming_fallbacks_total"),
-                  ("naming_resumed", "imageclust_naming_resumed_total"))
+                  ("naming_resumed", "imageclust_naming_resumed_total"),
+                  ("naming_inline", "imageclust_naming_inline_total"))
 
 
 def _profiler_active() -> bool:

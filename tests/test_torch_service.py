@@ -334,7 +334,8 @@ class TestParity:
             lines = {ln.split(" ")[0]: ln.split(" ")[1]
                      for ln in text.splitlines()
                      if ln and not ln.startswith("#") and "seconds" not in ln}
-            # the port's own: its naming service's calls, fallbacks, resumes
+            # the port's own: its naming service's calls, fallbacks,
+            # resumes and clusters named in the calling thread
             naming = {k: lines.pop(k) for k in list(lines)
                       if k.startswith("imageclust_naming_")}
             typed = {ln.split(" ")[2] for ln in text.splitlines()
@@ -348,10 +349,12 @@ class TestParity:
         assert a[2]["imageclust_jobs_total"] == "2"
         assert a[2]["imageclust_jobs_failed_total"] == "1"
         assert a[4] == {}
-        # one cluster named by the fake namer; the failed job counts none
+        # one cluster named by the fake namer, inline; the failed job
+        # counts none
         assert b[4] == {"imageclust_naming_calls_total": "1",
                         "imageclust_naming_fallbacks_total": "0",
-                        "imageclust_naming_resumed_total": "0"}
+                        "imageclust_naming_resumed_total": "0",
+                        "imageclust_naming_inline_total": "1"}
         assert set(b[4]) <= b[5]
 
     def test_oversized_upload_rejected(self, both, rng):

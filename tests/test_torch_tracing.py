@@ -5,8 +5,8 @@ nothing else; parts of a stage are spans (``name/services``,
 ``cluster/kmeans``, ``embed/drain``) in ``RunMetrics.spans``, each within
 its stage's seconds and, under ``profile_dir``, a ``record_function`` range
 nested in its stage's range of the Chrome trace. The naming service counts
-its calls, fallbacks and resumes per job, and times its calls and state
-writes.
+its calls, fallbacks, resumes and clusters named in the calling thread per
+job, and times its calls and state writes.
 """
 
 import json
@@ -219,11 +219,13 @@ class TestNamingCounters:
         assert first["naming_fallbacks"] == 0
         assert first["naming_call_s"] >= 0 and first[
             "naming_state_write_s"] > 0
+        assert first["naming_inline"] == 7  # the offline namer, inline
         again = {}
         svc.name_clusters(texts, state_path=state, counters=again)
         assert again["naming_resumed"] == 7
         assert again["naming_calls"] == 0 and _lines(state) == 7
         assert again["naming_call_s"] == again["naming_state_write_s"] == 0
+        assert again["naming_inline"] == 0
 
     def test_fallbacks_are_counted_and_not_saved(self, tmp_path):
         texts = {f"Cluster-{i}": "x" for i in range(4)}
@@ -233,6 +235,7 @@ class TestNamingCounters:
         outs = svc.name_clusters(texts, state_path=state, counters=got)
         assert got["naming_calls"] == 8
         assert got["naming_fallbacks"] == 4
+        assert got["naming_inline"] == 0  # _Down is remote: pooled
         assert all((o.title, o.catchy_phrase) == (FALLBACK_TITLE,
                                                   FALLBACK_PHRASE)
                    for v in outs.values() for o in v if o.service_name
@@ -254,8 +257,10 @@ class TestNamingCounters:
         assert first["naming_calls"] == n
         assert _lines(tmp_path / "naming_state.jsonl") == n
         assert first["naming_resumed"] == 0
+        assert first["naming_inline"] == n
         again = _stream(pipe, imgs, tmp_path).metrics.counters
         assert again["naming_resumed"] == n and again["naming_calls"] == 0
+        assert again["naming_inline"] == 0
 
     def test_service_metrics_add_the_naming_totals(self):
         svc = ServiceMetrics()
@@ -263,10 +268,11 @@ class TestNamingCounters:
             svc.observe_run(RunMetrics(
                 stages={"name": 0.5},
                 counters={"naming_calls": calls, "naming_fallbacks": 1,
-                          "naming_resumed": 2}))
+                          "naming_resumed": 2, "naming_inline": calls - 1}))
         text = svc.render()
         for total, want in (("imageclust_naming_calls_total", "7"),
                             ("imageclust_naming_fallbacks_total", "2"),
-                            ("imageclust_naming_resumed_total", "4")):
+                            ("imageclust_naming_resumed_total", "4"),
+                            ("imageclust_naming_inline_total", "5")):
             assert f"# TYPE {total} counter" in text
             assert f"{total} {want}\n" in text
