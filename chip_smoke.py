@@ -235,7 +235,8 @@ line and raises on any failure:
     batch, peak memory and a profiler split; K6's times at each shape
     beside its bound (bytes over 3.35 TB/s) and the twin's.
 
-Each launch counter is set to 0 just before the job that reads it and read
+Each kernel's launch count (``ops/_build.py``'s ``launches``, by the names
+``K1``-``K6`` below) is set to 0 just before the job that reads it and read
 just after. K1: every exact job's launches lie in [merges, merges + K],
 K = ``FOUND_READ_EVERY`` (the steps of one CUDA graph replay: the loop
 reads ``found`` after each, so the last replay may run gated no-op
@@ -281,6 +282,10 @@ OUT = REPO / os.environ.get("IMAGECLUST_SMOKE_OUT", "build/chip_smoke")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 K1_KERNEL = ("merge_update_argmin_kernel",)  # K1's name in a profile
 K3_KERNEL = ("lockstep_step_kernel",)  # K3's
+# K1-K6 by the names the launch seam counts them under (ops/_build.py)
+K1, K2, K3 = ("merge_update_argmin", "merge_loop_whole",
+              "merge_update_argmin_batched")
+K4, K5, K6 = "pref_topk_block", "short_seq_attention", "bn_act"
 TIMING_REPS = 25
 DEVICE = "cuda"
 ENGINE_N = 4096     # phase 3: the exact engine's largest padded size
@@ -774,6 +779,7 @@ def phase_engine(card: str):
 
     from imageclust_tpu_torch.cluster import ward
     from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     n, d = ENGINE_N, 1000
     kw = dict(min_size=3, max_size=6, update_rule="centroid",
@@ -783,7 +789,7 @@ def phase_engine(card: str):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        mk.launches = 0
+        launched[K1] = 0
         t0 = time.perf_counter()
         with _stage_timer(ward, ("_merge_loop", "_loop_state",
                                  "_run_graphed")) as (stages_s, returned):
@@ -804,7 +810,7 @@ def phase_engine(card: str):
                                          **kw)
         total_s = time.perf_counter() - t0
         peak = max(before + [torch.cuda.max_memory_allocated()]) - base
-        launches = mk.launches
+        launches = launched[K1]
         ctl = returned["_loop_state"][0][0].ctl  # the loop's MergeState
         rescanned = int(ctl[mk.CTL_RESCAN_TOTAL])
         rescan_max = int(ctl[mk.CTL_RESCAN_MAX])
@@ -936,8 +942,7 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
         LabelConfig,
         ServiceConfig,
     )
-    from imageclust_tpu_torch.ops import attention as at
-    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops._build import launches as launched
     from imageclust_tpu_torch.pipeline import Pipeline
     from imageclust_tpu_torch.service.app import create_server
 
@@ -957,7 +962,7 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
     big = group_images(rng, SERVER_GROUPS, 5, "b")
     requests = []
     try:
-        mk.launches = at.launches = 0
+        launched[K1] = launched[K5] = 0
         for label, (names, blobs, groups), query in (
                 (label, batch, query) for label, batch, query in (
                     ("18_images", small, ""), ("200_images", big, ""),
@@ -967,7 +972,7 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
                                                     "maxClusterSize": 6})
             if len(body) > cfg.service.max_upload_bytes:
                 raise AssertionError(f"{label}: request is {len(body)} bytes")
-            before, k5_before = mk.launches, at.launches
+            before, k5_before = launched[K1], launched[K5]
             t0 = time.perf_counter()
             status, _, raw = _http(base, "/api/cluster" + query, body, ctype)
             data = json.loads(raw)
@@ -987,7 +992,7 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
                 raise AssertionError(f"{label}: HTTP {status} {data}")
             _check_sizes(data["clusters"])
             merges = int(data["metrics"]["counters"]["merges"])
-            _check_launches(label, mk.launches - before, merges)
+            _check_launches(label, launched[K1] - before, merges)
             placed = [m for c in data["clusters"].values()
                       for m in c["images"]]
             if sorted(placed + data["dropped"]) != sorted(names):
@@ -1018,9 +1023,9 @@ def phase_server(card: str, model: str = "resnet50", embed_kw=None,
                 "dropped": len(data["dropped"]), "merges": merges,
                 "unique_labels": data["metrics"]["counters"].get(
                     "unique_labels"),
-                "k1_launches": mk.launches - before,
-                "k5_launches": at.launches - k5_before})
-        main_path_launches = {"k1": mk.launches, "k5": at.launches}
+                "k1_launches": launched[K1] - before,
+                "k5_launches": launched[K5] - k5_before})
+        main_path_launches = {"k1": launched[K1], "k5": launched[K5]}
         for path in (f"/api/result?job={job}", "/api/view",
                      f"/api/image/{names[0]}", "/healthz"):
             status, ctype, raw = _http(base, path)
@@ -1056,7 +1061,7 @@ def phase_cli(card: str, groups: int = CLI_GROUPS, extra=(),
     import numpy as np
 
     from imageclust_tpu_torch import cli
-    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     tmp = Path(tempfile.mkdtemp(prefix="imageclust_smoke_cli_"))
     try:
@@ -1067,13 +1072,13 @@ def phase_cli(card: str, groups: int = CLI_GROUPS, extra=(),
         for fname, blob in zip(names, blobs):
             (img_dir / fname).write_bytes(blob)
         out = io.StringIO()
-        mk.launches = 0
+        launched[K1] = 0
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             rc = cli.main(["run", "--images", str(img_dir), "--device",
                            DEVICE, "--out", str(tmp / "work"), *extra])
         wall_s = time.perf_counter() - t0
-        launches = mk.launches
+        launches = launched[K1]
         if rc != 0:
             raise AssertionError(f"cli run exited {rc}")
         result = json.loads(out.getvalue())
@@ -1106,28 +1111,20 @@ def phase_cli(card: str, groups: int = CLI_GROUPS, extra=(),
 
 def _zero_counters():
     from imageclust_tpu_torch.cluster import sharded
-    from imageclust_tpu_torch.ops import attention as at
-    from imageclust_tpu_torch.ops import bn_act as ba
-    from imageclust_tpu_torch.ops import bucket_kernels as bk
-    from imageclust_tpu_torch.ops import merge_kernels as mk
-    from imageclust_tpu_torch.ops import pref_kernels as pk
+    from imageclust_tpu_torch.ops._build import launches as launched
 
-    mk.launches = mk.batched_launches = bk.launches = at.launches = 0
-    pk.launches = ba.launches = 0
+    launched[K1] = launched[K3] = launched[K2] = launched[K5] = 0
+    launched[K4] = launched[K6] = 0
     sharded.chunks_dispatched = 0
     sharded.lockstep_iterations = sharded.lockstep_phases = 0
 
 
 def _counters() -> dict:
     from imageclust_tpu_torch.cluster import sharded
-    from imageclust_tpu_torch.ops import attention as at
-    from imageclust_tpu_torch.ops import bn_act as ba
-    from imageclust_tpu_torch.ops import bucket_kernels as bk
-    from imageclust_tpu_torch.ops import merge_kernels as mk
-    from imageclust_tpu_torch.ops import pref_kernels as pk
+    from imageclust_tpu_torch.ops._build import launches as launched
 
-    return {"k1": mk.launches, "k2": bk.launches, "k3": mk.batched_launches,
-            "k4": pk.launches, "k5": at.launches, "k6": ba.launches,
+    return {"k1": launched[K1], "k2": launched[K2], "k3": launched[K3],
+            "k4": launched[K4], "k5": launched[K5], "k6": launched[K6],
             "chunks": sharded.chunks_dispatched,
             "lockstep_iterations": sharded.lockstep_iterations,
             "lockstep_phases": sharded.lockstep_phases}
@@ -1894,6 +1891,7 @@ def phase_k5(card: str):
     import torch.nn.functional as F
 
     from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=DEVICE).manual_seed(11)
@@ -1904,11 +1902,11 @@ def phase_k5(card: str):
             dt = getattr(torch, name)
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                        for _ in range(3))
-            before = at.launches
+            before = launched[K5]
             got = at.short_seq_attention(q, k, v)
             want = at.short_seq_attention_plain(q, k, v)
             torch.cuda.synchronize()
-            if at.launches != before + 1:
+            if launched[K5] != before + 1:
                 raise AssertionError("K5 call did not count one launch")
             err = float((got.float() - want.float()).abs().max())
             if got.shape != q.shape or got.dtype != dt or not torch.allclose(
@@ -2007,6 +2005,7 @@ def phase_vit_tower(card: str):
     from imageclust_tpu_torch.models import create_embedder
     from imageclust_tpu_torch.models import vit
     from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     t0 = time.perf_counter()
     emb = create_embedder(EmbedConfig(model="vit_b32"), device=DEVICE)
@@ -2014,11 +2013,11 @@ def phase_vit_tower(card: str):
     images = _noise_images(VIT_N, 224, 12)
     emb.embed(images[:emb.batch_size])  # warm: cuBLAS plans, allocator
     torch.cuda.synchronize()
-    at.launches = 0
+    launched[K5] = 0
     t0 = time.perf_counter()
     got = emb.embed(images)
     wall_s = time.perf_counter() - t0
-    launches = at.launches
+    launches = launched[K5]
     batches = -(-VIT_N // emb.batch_size)
     if launches != VIT_B32_DEPTH * batches:
         raise AssertionError(f"ViT-B/32: {launches} K5 launches for "
@@ -2067,7 +2066,7 @@ def phase_other_towers(card: str):
     from imageclust_tpu_torch.config import EmbedConfig
     from imageclust_tpu_torch.models import create_embedder
     from imageclust_tpu_torch.models.vit import VIT_CONFIGS
-    from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     towers = []
     for name in ("vit_b16", "vit_l14", "vit_l14_336", "siglip_so400m"):
@@ -2078,7 +2077,7 @@ def phase_other_towers(card: str):
         images = _noise_images(OTHER_TOWER_N, vcfg.image_size, 15)
         emb.embed(images[:emb.batch_size])  # warm
         torch.cuda.synchronize()
-        at.launches = 0
+        launched[K5] = 0
         t0 = time.perf_counter()
         out = emb.embed(images)
         wall_s = time.perf_counter() - t0
@@ -2086,12 +2085,12 @@ def phase_other_towers(card: str):
         if (out.shape != (OTHER_TOWER_N, vcfg.proj_dim)
                 or not np.isfinite(out).all()):
             raise AssertionError(f"{name}: output {out.shape}")
-        if at.launches:
+        if launched[K5]:
             raise AssertionError(f"{name} (T = {seq}) launched K5")
         towers.append({"model": name, "seq": seq, "batch": emb.batch_size,
                        "embedder_build_s": build_s, "wall_s": wall_s,
                        "images_per_s": OTHER_TOWER_N / wall_s,
-                       "k5_launches": at.launches})
+                       "k5_launches": launched[K5]})
         del emb
         torch.cuda.empty_cache()
     emit({"phase": "other_towers", "card": card, "images": OTHER_TOWER_N,
@@ -2136,12 +2135,13 @@ def _k4_compare(x, c, kk: int, exact: bool):
     import torch
 
     from imageclust_tpu_torch.ops import pref_kernels as pk
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     cn = pk.row_norms(c)
-    before = pk.launches
+    before = launched[K4]
     gi, gv = pk.pref_topk_block(x, c, cn, kk)
     torch.cuda.synchronize()
-    if pk.launches != before + 1:
+    if launched[K4] != before + 1:
         raise AssertionError("K4 call did not count one launch")
     m = x.shape[0]
     wi, wv = pk.pref_topk_block_plain(x, c, cn, kk)
@@ -2584,6 +2584,7 @@ def phase_int8_towers(card: str):
     from imageclust_tpu_torch.models import quantize_vit
     from imageclust_tpu_torch.models.registry import DEFAULT_BATCH, _quantize
     from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     towers = []
     for model in ("resnet50", "vit_b32"):
@@ -2608,15 +2609,15 @@ def phase_int8_towers(card: str):
         torch.cuda.synchronize()
         walls = {"bfloat16": [], "int8": []}
         outs = {}
-        at.launches = 0
+        launched[K5] = 0
         for label, emb in (("bfloat16", bf16), ("int8", int8),
                            ("int8", int8), ("bfloat16", bf16)):
-            k5_before = at.launches
+            k5_before = launched[K5]
             t0 = time.perf_counter()
             outs[label] = emb.embed(images)
             walls[label].append(time.perf_counter() - t0)
             if label == "int8":
-                k5_int8 = at.launches - k5_before
+                k5_int8 = launched[K5] - k5_before
         batches = -(-INT8_N // int8.batch_size)
         want_k5 = VIT_B32_DEPTH * batches if model == "vit_b32" else 0
         if k5_int8 != want_k5:
@@ -2744,7 +2745,7 @@ def phase_text_tower(card: str):
     from imageclust_tpu_torch.labels.fake import _VOCAB
     from imageclust_tpu_torch.labels.zero_shot import ZeroShotLabeler
     from imageclust_tpu_torch.models import create_embedder, text
-    from imageclust_tpu_torch.ops import attention as at
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     path = _clip_text_checkpoint()
     t0 = time.perf_counter()
@@ -2773,11 +2774,11 @@ def phase_text_tower(card: str):
     del cpu
     enc.encode(names[:enc._ENCODE_BATCH])  # warm: cuBLAS plans
     torch.cuda.synchronize()
-    at.launches = 0
+    launched[K5] = 0
     t0 = time.perf_counter()
     out = enc.encode(names)
     wall_s = time.perf_counter() - t0
-    if at.launches:
+    if launched[K5]:
         raise AssertionError("the text tower launched K5")
     if out.shape != (TEXT_N, 512) or not np.isfinite(out).all():
         raise AssertionError(f"text tower output {out.shape}")
@@ -3771,7 +3772,7 @@ def _finetune(card: str, tmp: Path):
     )
     from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
     from imageclust_tpu_torch.models.resnet50 import ResNet50V1
-    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops._build import launches as launched
     from imageclust_tpu_torch.ops.preprocess import preprocess_batch
 
     fixture = _fixture_on_card()
@@ -3838,7 +3839,7 @@ def _finetune(card: str, tmp: Path):
         raise AssertionError(f"served checkpoint differs: {emb.tag}")
     del emb, mem
     torch.cuda.empty_cache()
-    mk.launches = 0
+    launched[K1] = 0
     served = phase_server(card, "resnet50",
                           {"checkpoint_path": out,
                            "num_classes": FT_CLASSES},
@@ -4859,7 +4860,7 @@ def _cloud_job(aws, creds: dict, tmp: Path) -> dict:
         FALLBACK_TITLE,
         truncate_and_sanitize,
     )
-    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops._build import launches as launched
     from imageclust_tpu_torch.pipeline import Pipeline
     from imageclust_tpu_torch.types import UploadedImage
 
@@ -4891,11 +4892,11 @@ def _cloud_job(aws, creds: dict, tmp: Path) -> dict:
     pipeline = Pipeline(cfg, device=DEVICE)
     uploads = [UploadedImage(n, b) for n, b in zip(names, blobs)]
     work = tmp / "job"
-    mk.launches = 0
+    launched[K1] = 0
     t0 = time.perf_counter()
     result = pipeline.run(uploads, str(work), min_size=3, max_size=6)
     job_s = time.perf_counter() - t0
-    launches = mk.launches
+    launches = launched[K1]
     first = dict(stub.counts)
     data = result.to_dict()
     merges = int(data["metrics"]["counters"]["merges"])
@@ -4938,11 +4939,11 @@ def _cloud_job(aws, creds: dict, tmp: Path) -> dict:
         raise AssertionError(f"cloud: stub counts {first}, {fallbacks} "
                              "fallback clusters")
     # the same job on the same label cache: no Rekognition request
-    mk.launches = 0
+    launched[K1] = 0
     t0 = time.perf_counter()
     again = pipeline.run(uploads, str(work), min_size=3, max_size=6)
     rerun_s = time.perf_counter() - t0
-    _check_launches("cloud re-run", mk.launches, merges)
+    _check_launches("cloud re-run", launched[K1], merges)
     rerun_rek = stub.counts["rekognition"] - first["rekognition"]
     if rerun_rek or again.metrics.counters["label_cache_hits"] != len(names):
         raise AssertionError(
@@ -5013,7 +5014,7 @@ def _cloud_verify(tmp: Path) -> dict:
 
     from imageclust_tpu_torch.models.onnx_export import export_resnet50_onnx
     from imageclust_tpu_torch.models.resnet50 import ResNet50V1
-    from imageclust_tpu_torch.ops import merge_kernels as mk
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     t0 = time.perf_counter()
     text_path = _clip_text_checkpoint()
@@ -5029,13 +5030,13 @@ def _cloud_verify(tmp: Path) -> dict:
     t0 = time.perf_counter()
     onnx_path = tmp / "resnet50_seeded.onnx"
     export_resnet50_onnx(ResNet50V1().init_random(ONNX_SEED), str(onnx_path))
-    mk.launches = 0
+    launched[K1] = 0
     try:
         rc, report, verdict = _cli_verify(["--onnx", str(onnx_path)])
     finally:
         onnx_path.unlink(missing_ok=True)
     if importlib.util.find_spec("cv2") is not None:
-        if rc != 0 or verdict != "VERDICT: PASS" or not mk.launches:
+        if rc != 0 or verdict != "VERDICT: PASS" or not launched[K1]:
             raise AssertionError(f"verify --onnx: {rc} {verdict} {report}")
     elif rc != 2 or "cv2" not in report.get("error", ""):
         raise AssertionError(f"verify --onnx without cv2: {rc} {report}")
@@ -5043,7 +5044,7 @@ def _cloud_verify(tmp: Path) -> dict:
                                  "s": text_s,
                                  "checks": text_report["clip_text"]["checks"]},
             "verify_onnx": {"rc": rc, "verdict": verdict, "report": report,
-                            "k1_launches": mk.launches,
+                            "k1_launches": launched[K1],
                             "s": time.perf_counter() - t0}}
 
 
@@ -5230,6 +5231,7 @@ def phase_k6(card: str):
     from imageclust_tpu_torch.models import create_embedder
     from imageclust_tpu_torch.models import resnet50 as rn
     from imageclust_tpu_torch.ops import bn_act as ba
+    from imageclust_tpu_torch.ops._build import launches as launched
 
     gen = torch.Generator(device=DEVICE).manual_seed(31)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -5245,11 +5247,11 @@ def phase_k6(card: str):
     for what, shape, residual, dt, nd in cases:
         x, vec, res, rvec = _k6_operands(gen, shape, dt, nd, residual)
         for relu in (True, False):
-            before = ba.launches
+            before = launched[K6]
             got = ba.bn_act(x, *vec, nd, res, rvec, relu=relu)
             want = ba.bn_act_plain(x, *vec, nd, res, rvec, relu=relu)
             torch.cuda.synchronize()
-            if ba.launches != before + 1:
+            if launched[K6] != before + 1:
                 raise AssertionError("K6 call did not count one launch")
             max_err = max(max_err, float(
                 (got.float() - want.float()).abs().max()))
@@ -5287,10 +5289,10 @@ def phase_k6(card: str):
 
     tower()
     torch.cuda.synchronize()
-    before = ba.launches
+    before = launched[K6]
     got = tower()
     torch.cuda.synchronize()
-    launches = ba.launches - before
+    launches = launched[K6] - before
     if launches != K6_LAUNCHES:
         raise AssertionError(f"ResNet50 batch: {launches} K6 launches")
     k6_tower_ms = cuda_ms(tower, reps=10)

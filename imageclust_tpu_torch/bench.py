@@ -471,14 +471,14 @@ def _flops_per_batch(embedder, batch: torch.Tensor) -> float:
     from torch.utils.flop_counter import FlopCounterMode
 
     from imageclust_tpu_torch.models.vit import VIT_CONFIGS
-    from imageclust_tpu_torch.ops import attention
+    from imageclust_tpu_torch.ops._build import launches
 
-    before = attention.launches
+    before = launches["short_seq_attention"]
     with FlopCounterMode(display=False, custom_mapping={
             torch.ops.aten._int_mm: _int_mm_flops}) as counter:
         embedder._forward(batch)
     flops = float(counter.get_total_flops())
-    k5 = attention.launches - before
+    k5 = launches["short_seq_attention"] - before
     if k5:
         vc = VIT_CONFIGS[embedder.spec.name]
         t = (vc.image_size // vc.patch) ** 2 + int(vc.use_class_token)

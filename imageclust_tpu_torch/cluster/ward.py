@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from imageclust_tpu_torch.device import resolve_device
+from imageclust_tpu_torch.ops import _build
 from imageclust_tpu_torch.ops import merge_kernels as mk
 
 __all__ = [
@@ -342,7 +343,7 @@ def _run_graphed(body, dev, go, limit: int, graph=None):
     ``graph`` that an earlier call returned (the same steps on the same
     tensors), it skips the eager step and the capture and replays that
     graph from the first step. Returns the graph (None if the eager step
-    ended the run). The K1 and K3 launches captured in the graph count as
+    ended the run). The kernel launches captured in the graph count as
     launches at every replay."""
     done = 0
     if graph is None:
@@ -357,16 +358,15 @@ def _run_graphed(body, dev, go, limit: int, graph=None):
             return None
         steps = min(FOUND_READ_EVERY, limit - done)
         graph = torch.cuda.CUDAGraph()
-        before = (mk.captured_launches, mk.captured_batched_launches)
+        before = _build.captured.copy()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             for _ in range(steps):
                 body()
-        graph.per_replay = (mk.captured_launches - before[0],
-                            mk.captured_batched_launches - before[1])
+        graph.per_replay = _build.captured - before
         graph.steps = steps
     while done < limit:
         graph.replay()
-        mk.count_replay(*graph.per_replay)
+        _build.count_replay(graph.per_replay)
         done += graph.steps
         if not bool(go):
             break

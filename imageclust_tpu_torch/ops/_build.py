@@ -11,6 +11,9 @@ keyed on a hash of the sources and flags: an edited kernel is rebuilt at its
 first use, an unchanged one is loaded as it is.
 
 Nothing here runs at import time; :func:`load_kernels` builds on first call.
+:func:`launch` is the one way the port's wrappers run a kernel: it checks
+alignment, launches on the current stream, raises on a CUDA error and
+counts the launch by kernel name.
 """
 
 from __future__ import annotations
@@ -23,9 +26,13 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
-__all__ = ["load_kernels", "build_info", "SOURCES", "HEADERS"]
+import torch
+
+__all__ = ["load_kernels", "build_info", "launch", "count_replay", "launches",
+           "captured", "KERNELS", "SOURCES", "HEADERS"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -95,34 +102,44 @@ def _compile(nvcc: str, out_dir: Path) -> str:
     return "\n".join(logs)
 
 
+_p, _i = ctypes.c_void_p, ctypes.c_int
+# Each kernel's C entry point and argument types, by the name it is counted
+# and reported under. Every entry point takes the stream last and returns a
+# CUDA error code, 0 for none.
+KERNELS = {
+    "merge_update_argmin": (
+        "ic_merge_update_argmin", [_p] * 6 + [_i] * 2 + [_p] * 7),
+    "merge_update_argmin_batched": (
+        "ic_lockstep_step", [_p] * 6 + [_i] * 4 + [_p] * 8),
+    "merge_loop_whole": (
+        "ic_merge_loop_whole", [_p] * 3 + [_i] * 4 + [_p] * 5),
+    "short_seq_attention": (
+        "ic_short_seq_attention",
+        [_p] * 4 + [_i] * 4 + [ctypes.c_float, _i]),
+    "pref_topk_block": ("ic_pref_topk_block", [_p] * 3 + [_i] * 6 + [_p] * 2),
+    "bn_act": ("ic_bn_act", [_p] * 9 + [ctypes.c_longlong] + [_i] * 5),
+}
+
+# Launches of each kernel by name: those made on a stream, and those
+# recorded into a CUDA graph while its stream was captured, which run
+# nothing until a replay (count_replay adds them then).
+launches: Counter = Counter()
+captured: Counter = Counter()
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p = ctypes.c_void_p
-    i = ctypes.c_int
-    lib.ic_merge_workspace_bytes.argtypes = [i]
+    lib.ic_merge_workspace_bytes.argtypes = [_i]
     lib.ic_merge_workspace_bytes.restype = ctypes.c_longlong
-    lib.ic_cuda_error_string.argtypes = [i]
-    lib.ic_cuda_error_string.restype = ctypes.c_char_p
-    lib.ic_merge_update_argmin.argtypes = [
-        p, p, p, p, p, p, i, i, p, p, p, p, p, p, p, p]
-    lib.ic_merge_update_argmin.restype = i
-    lib.ic_lockstep_workspace_bytes.argtypes = [i, i]
+    lib.ic_lockstep_workspace_bytes.argtypes = [_i, _i]
     lib.ic_lockstep_workspace_bytes.restype = ctypes.c_longlong
-    lib.ic_lockstep_step.argtypes = [
-        p, p, p, p, p, p, i, i, i, i, p, p, p, p, p, p, p, p, p]
-    lib.ic_lockstep_step.restype = i
     lib.ic_merge_loop_whole_max_b.argtypes = []
-    lib.ic_merge_loop_whole_max_b.restype = ctypes.c_int
-    lib.ic_merge_loop_whole.argtypes = [
-        p, p, p, i, i, i, i, p, p, p, p, p, p]
-    lib.ic_merge_loop_whole.restype = ctypes.c_int
-    lib.ic_short_seq_attention.argtypes = [
-        p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
-    lib.ic_short_seq_attention.restype = i
-    lib.ic_pref_topk_block.argtypes = [p, p, p, i, i, i, i, i, i, p, p, p]
-    lib.ic_pref_topk_block.restype = i
-    lib.ic_bn_act.argtypes = [
-        p, p, p, p, p, p, p, p, p, ctypes.c_longlong, i, i, i, i, i, p]
-    lib.ic_bn_act.restype = i
+    lib.ic_merge_loop_whole_max_b.restype = _i
+    lib.ic_cuda_error_string.argtypes = [_i]
+    lib.ic_cuda_error_string.restype = ctypes.c_char_p
+    for symbol, args in KERNELS.values():
+        fn = getattr(lib, symbol)
+        fn.argtypes = [*args, _p]
+        fn.restype = _i
     return lib
 
 
@@ -153,6 +170,33 @@ def load_kernels() -> ctypes.CDLL:
         _info.update(path=str(lib_path), seconds=time.perf_counter() - t0,
                      log=log)
         return _lib
+
+
+def launch(name: str, device, aligned, *args) -> None:
+    """Launches kernel ``name`` (a key of :data:`KERNELS`) with the C
+    arguments ``args`` on ``device``'s current stream, and counts it in
+    :data:`launches`, or in :data:`captured` while that stream is being
+    captured into a CUDA graph. Raises ValueError if a tensor of
+    ``aligned`` is not 16-byte aligned, and RuntimeError if the launch
+    returns a CUDA error."""
+    lib = load_kernels()
+    for t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError("kernel operands must be 16-byte aligned")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, KERNELS[name][0])(*args, stream)
+        capturing = torch.cuda.is_current_stream_capturing()
+    if rc != 0:
+        msg = lib.ic_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
+    (captured if capturing else launches)[name] += 1
+
+
+def count_replay(per_replay: Counter) -> None:
+    """Counts one replay of a CUDA graph whose capture added ``per_replay``
+    to :data:`captured`."""
+    launches.update(per_replay)
 
 
 def build_info() -> dict:

@@ -33,16 +33,14 @@ import math
 import torch
 import torch.nn.functional as F
 
+from imageclust_tpu_torch.ops._build import launch
+
 __all__ = ["attention", "long_seq_attention", "short_seq_attention",
-           "short_seq_attention_plain", "launches"]
+           "short_seq_attention_plain"]
 
 # Sequences at or under this length take K5 on the card (JAX vit.py:40).
 _FUSED_ATTN_MAX_SEQ = 128
 _MAX_DH = 128
-
-# Launches of the CUDA kernel by short_seq_attention (one per call on a CUDA
-# tensor). Plain-twin calls are not counted.
-launches = 0
 
 
 def short_seq_attention_plain(q, k, v):
@@ -88,30 +86,17 @@ def short_seq_attention(q, k, v):
     """K5. q, k, v contiguous (B, T, H, Dh), one dtype (bf16 or f32), one
     device, 1 <= T <= 128, Dh <= 128 with Dh % 8 == 0. Returns o (B, T, H,
     Dh) in q's dtype, without a host synchronisation on CUDA."""
-    global launches
     _check(q, k, v)
     if q.device.type == "cpu":
         return short_seq_attention_plain(q, k, v)
     if q.device.type != "cuda":
         raise ValueError(f"short_seq_attention runs on cuda or cpu, "
                          f"not {q.device}")
-    from imageclust_tpu_torch.ops._build import load_kernels
-    from imageclust_tpu_torch.ops.merge_kernels import _raise_on
-
-    lib = load_kernels()
-    for t in (q, k, v):
-        if t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be 16-byte aligned")
     B, T, H, Dh = q.shape
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ic_short_seq_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T,
-            H, Dh, 1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16),
-            stream)
-    _raise_on(lib, rc, "short_seq_attention")
-    launches += 1
+    launch("short_seq_attention", q.device, (q, k, v), q.data_ptr(),
+           k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H, Dh,
+           1.0 / math.sqrt(Dh), int(q.dtype == torch.bfloat16))
     return out
 
 

@@ -28,15 +28,13 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["batch_norm_act", "bn_act", "bn_act_plain", "launches"]
+from imageclust_tpu_torch.ops._build import launch
+
+__all__ = ["batch_norm_act", "bn_act", "bn_act_plain"]
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _VEC = 8            # channels a kernel thread owns: C % 8 == 0
 _MAX_CHANNELS = 2048
-
-# Launches of the CUDA kernel by bn_act (one per call on a CUDA tensor).
-# Plain-twin calls are not counted.
-launches = 0
 
 
 def _normalize(x, mean, mul, bias, out_dtype):
@@ -113,7 +111,6 @@ def bn_act(x, mean, mul, bias, out_dtype, residual=None,
     synchronisation on CUDA. On a CPU tensor it runs the twin. On CUDA it
     raises where autograd tracks an operand, and launches nothing for an
     empty x."""
-    global launches
     vectors = [mean, mul, bias, *(residual_vectors or ())]
     if residual_vectors is not None and len(residual_vectors) != 3:
         raise ValueError("residual_vectors must be (mean, mul, bias)")
@@ -132,29 +129,17 @@ def bn_act(x, mean, mul, bias, out_dtype, residual=None,
                            memory_format=torch.channels_last)
     if x.numel() == 0:
         return out
-    from imageclust_tpu_torch.ops._build import load_kernels
-    from imageclust_tpu_torch.ops.merge_kernels import _raise_on
-
-    lib = load_kernels()
     operands = [x, out, *vectors]
     if residual is not None:
         operands.append(residual)
-    for t in operands:
-        if t.data_ptr() % 16:
-            raise ValueError("kernel operands must be 16-byte aligned")
     mode = 0 if residual is None else 1 if residual_vectors is None else 2
     rvec = residual_vectors or (None, None, None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     n, c, h, w = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ic_bn_act(
-            ptr(x), ptr(mean), ptr(mul), ptr(bias), ptr(residual),
-            *(ptr(v) for v in rvec), ptr(out), n * h * w, c, mode, int(relu),
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            stream)
-    _raise_on(lib, rc, "bn_act")
-    launches += 1
+    launch("bn_act", x.device, operands, ptr(x), ptr(mean), ptr(mul),
+           ptr(bias), ptr(residual), *(ptr(v) for v in rvec), ptr(out),
+           n * h * w, c, mode, int(relu), int(x.dtype == torch.bfloat16),
+           int(out_dtype == torch.bfloat16))
     return out
 
 

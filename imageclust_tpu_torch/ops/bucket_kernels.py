@@ -36,15 +36,12 @@ from __future__ import annotations
 
 import torch
 
-from imageclust_tpu_torch.ops.merge_kernels import _lexmin, _raise_on
+from imageclust_tpu_torch.ops._build import launch, load_kernels
+from imageclust_tpu_torch.ops.merge_kernels import _lexmin
 
-__all__ = ["merge_loop_whole", "merge_loop_whole_plain", "launches"]
+__all__ = ["merge_loop_whole", "merge_loop_whole_plain"]
 
 _BIG_I32 = 2**31 - 1
-
-# Launches of the CUDA kernel by merge_loop_whole (one per call on a CUDA
-# tensor). Plain-twin calls are not counted.
-launches = 0
 
 
 def merge_loop_whole_plain(D, counts, targets, max_size: int,
@@ -144,7 +141,6 @@ def merge_loop_whole(D, counts, targets, max_size: int, absorb_min: int):
     4096 (its loop state and row-minimum cache live in shared memory, 144
     KB at B = 4096) and raises above.
     Returns (log, step, births, sizes, active) on D's device."""
-    global launches
     if D.dim() != 3 or D.shape[1] != D.shape[2]:
         raise ValueError(f"D must be (C, B, B), got {tuple(D.shape)}")
     C, B, _ = D.shape
@@ -164,10 +160,7 @@ def merge_loop_whole(D, counts, targets, max_size: int, absorb_min: int):
     if D.device.type != "cuda":
         raise ValueError(f"merge_loop_whole runs on cuda or cpu, "
                          f"not {D.device}")
-    from imageclust_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
-    max_b = lib.ic_merge_loop_whole_max_b()
+    max_b = load_kernels().ic_merge_loop_whole_max_b()
     if not 2 <= B <= max_b:
         raise ValueError(f"merge_loop_whole takes 2 <= B <= {max_b} on "
                          f"CUDA, got B = {B}")
@@ -177,13 +170,8 @@ def merge_loop_whole(D, counts, targets, max_size: int, absorb_min: int):
     log = torch.empty((C, B - 1, 3), dtype=torch.int32, device=dev)
     step = torch.empty(C, dtype=torch.int32, device=dev)
     state = torch.empty((3, C, B), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ic_merge_loop_whole(
-            D.data_ptr(), counts.data_ptr(), targets.data_ptr(), C, B,
-            int(max_size), int(absorb_min), log.data_ptr(), step.data_ptr(),
-            state[0].data_ptr(), state[1].data_ptr(), state[2].data_ptr(),
-            stream)
-    _raise_on(lib, rc, "merge_loop_whole")
-    launches += 1
+    launch("merge_loop_whole", dev, (), D.data_ptr(), counts.data_ptr(),
+           targets.data_ptr(), C, B, int(max_size), int(absorb_min),
+           log.data_ptr(), step.data_ptr(), state[0].data_ptr(),
+           state[1].data_ptr(), state[2].data_ptr())
     return log, step, state[0], state[1], state[2] > 0

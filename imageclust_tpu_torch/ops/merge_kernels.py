@@ -45,6 +45,8 @@ from __future__ import annotations
 
 import torch
 
+from imageclust_tpu_torch.ops._build import launch, load_kernels
+
 __all__ = [
     "MergeState",
     "merge_step",
@@ -57,9 +59,6 @@ __all__ = [
     "merge_update_argmin_batched",
     "merge_update_argmin_batched_plain",
     "masked_argmin_pair_plain",
-    "count_replay",
-    "launches",
-    "batched_launches",
 ]
 
 _STRIPE = 128
@@ -78,17 +77,6 @@ CTL_RESCANS = 7       # the kernel's rows rescanned in the running call
 CTL_RESCAN_TOTAL = 8  # rows rescanned by the kernel's cached calls
 CTL_RESCAN_MAX = 9    # most rows rescanned by one cached call
 CTL_LEN = 10
-
-# Launches of the K1 kernel (one per merge_update_argmin or merge_step call
-# on a CUDA tensor, or per step of a replayed CUDA graph: count_replay).
-# Plain-twin calls are not counted.
-launches = 0
-# K1 launches recorded into CUDA graphs while they were captured; a capture
-# runs nothing, so these are not launches until a replay.
-captured_launches = 0
-# The same counts for K3 (merge_update_argmin_batched, lockstep_step).
-batched_launches = 0
-captured_batched_launches = 0
 
 
 def masked_argmin_pair_plain(D, births, sizes, active, max_size,
@@ -255,14 +243,6 @@ def merge_step(st: MergeState) -> None:
             st.pair_f, st.found)
 
 
-def count_replay(k1_launches: int, k3_launches: int = 0) -> None:
-    """Counts the K1 and K3 launches made by one replay of a CUDA graph into
-    which ``k1_launches`` and ``k3_launches`` calls were captured."""
-    global launches, batched_launches
-    launches += int(k1_launches)
-    batched_launches += int(k3_launches)
-
-
 def _check(D, dvec, births, sizes, active, sa, do_update):
     if D.dim() != 2 or D.shape[0] != D.shape[1]:
         raise ValueError(f"D must be square (n, n), got {tuple(D.shape)}")
@@ -295,38 +275,20 @@ def _check(D, dvec, births, sizes, active, sa, do_update):
 
 
 def _workspace(n: int, dev) -> torch.Tensor:
-    from imageclust_tpu_torch.ops._build import load_kernels
-
     nbytes = load_kernels().ic_merge_workspace_bytes(n)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def _launch(D, dvec, births, sizes, active, ctl, max_size, ws, out_d,
             out_pair, log=None, pair=None, pair_f=None, found=None) -> None:
-    """One K1 launch on the current stream; counted as a launch, or as a
-    captured launch while the stream is being captured into a CUDA graph."""
-    global launches, captured_launches
-    from imageclust_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
-    for t in (D, dvec, births, sizes, active):
-        if t.data_ptr() % 16:
-            raise ValueError("kernel inputs must be 16-byte aligned")
+    """One K1 launch on the current stream."""
     loop = [0 if t is None else t.data_ptr()
             for t in (log, pair, pair_f, found)]
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device)
-        rc = lib.ic_merge_update_argmin(
-            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
-            sizes.data_ptr(), active.data_ptr(), ctl.data_ptr(),
-            D.shape[0], int(max_size), ws.data_ptr(), out_d.data_ptr(),
-            out_pair.data_ptr(), *loop, stream.cuda_stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    _raise_on(lib, rc, "merge_update_argmin")
-    if capturing:
-        captured_launches += 1
-    else:
-        launches += 1
+    launch("merge_update_argmin", D.device, (D, dvec, births, sizes, active),
+           D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
+           sizes.data_ptr(), active.data_ptr(), ctl.data_ptr(), D.shape[0],
+           int(max_size), ws.data_ptr(), out_d.data_ptr(),
+           out_pair.data_ptr(), *loop)
 
 
 def merge_update_argmin(D, dvec, sa, do_update, births, sizes, active,
@@ -356,12 +318,6 @@ def merge_update_argmin(D, dvec, sa, do_update, births, sizes, active,
     _launch(D, dvec, births, sizes, active, ctl, max_size,
             _workspace(D.shape[0], dev), out_d, out_pair)
     return D, out_d[0], out_pair[0], out_pair[1]
-
-
-def _raise_on(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.ic_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
 
 
 # -- K3 ---------------------------------------------------------------------
@@ -594,8 +550,6 @@ def _check_batched(D, dvec, births, sizes, active, sa=None, do_update=None):
 
 
 def _batched_workspace(C: int, B: int, dev) -> torch.Tensor:
-    from imageclust_tpu_torch.ops._build import load_kernels
-
     nbytes = load_kernels().ic_lockstep_workspace_bytes(C, B)
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
@@ -603,28 +557,14 @@ def _batched_workspace(C: int, B: int, dev) -> torch.Tensor:
 def _launch_batched(D, dvec, births, sizes, active, ctl, max_size, amin, ws,
                     out_d, out_pair, log=None, pair=None, pair_f=None,
                     proceed=None, flags=None) -> None:
-    """One K3 launch on the current stream; counted as a launch, or as a
-    captured launch while the stream is being captured into a CUDA graph."""
-    global batched_launches, captured_batched_launches
-    from imageclust_tpu_torch.ops._build import load_kernels
-
-    lib = load_kernels()
+    """One K3 launch on the current stream."""
     C, B, _ = D.shape
     loop = [0 if t is None else t.data_ptr()
             for t in (log, pair, pair_f, proceed, flags)]
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream(D.device)
-        rc = lib.ic_lockstep_step(
-            D.data_ptr(), dvec.data_ptr(), births.data_ptr(),
-            sizes.data_ptr(), active.data_ptr(), ctl.data_ptr(), C, B,
-            int(max_size), int(amin), ws.data_ptr(), out_d.data_ptr(),
-            out_pair.data_ptr(), *loop, stream.cuda_stream)
-        capturing = torch.cuda.is_current_stream_capturing()
-    _raise_on(lib, rc, "merge_update_argmin_batched")
-    if capturing:
-        captured_batched_launches += 1
-    else:
-        batched_launches += 1
+    launch("merge_update_argmin_batched", D.device, (), D.data_ptr(),
+           dvec.data_ptr(), births.data_ptr(), sizes.data_ptr(),
+           active.data_ptr(), ctl.data_ptr(), C, B, int(max_size), int(amin),
+           ws.data_ptr(), out_d.data_ptr(), out_pair.data_ptr(), *loop)
 
 
 def merge_update_argmin_batched(D, dvec, sa, do_update, births, sizes,

@@ -42,8 +42,10 @@ from __future__ import annotations
 
 import torch
 
+from imageclust_tpu_torch.ops._build import launch
+
 __all__ = ["pref_topk_block", "pref_topk_block_plain", "row_norms", "gram",
-           "to_grid", "tma_centroids", "launches", "MAX_KK"]
+           "to_grid", "tma_centroids", "MAX_KK"]
 
 MAX_KK = 8
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -51,10 +53,6 @@ _NORM_BLOCK = 1 << 16  # rows per row-norm reduction
 _TILE_BYTES = 3 << 29  # the twin's (rows, k) tile, capped as _kmeans_block's
 _SLAB_BYTES = 128  # the kernel's k-slab; padded centroid rows are multiples
 _TILE_COLS = 128  # the kernel's centroid tile; its norms are read padded
-
-# Launches of the CUDA kernel by pref_topk_block (one per call on a CUDA
-# tensor). Plain-twin calls are not counted.
-launches = 0
 
 
 def to_grid(x: torch.Tensor, scale=1.0) -> torch.Tensor:
@@ -170,33 +168,22 @@ def pref_topk_block(rows, cents, cnorms, kk: int):
     int8), cnorms (k,) float32, all on one device; 1 <= kk <= min(k, 8).
     Returns (idx (n, kk) int32, vals (n, kk) f32), without a host
     synchronisation on CUDA."""
-    global launches
     _check(rows, cents, cnorms, kk)
     if rows.device.type == "cpu":
         return pref_topk_block_plain(rows, cents, cnorms, kk)
     if rows.device.type != "cuda":
         raise ValueError(f"pref_topk_block runs on cuda or cpu, not "
                          f"{rows.device}")
-    from imageclust_tpu_torch.ops._build import load_kernels
-    from imageclust_tpu_torch.ops.merge_kernels import _raise_on
-
     n, d = rows.shape
     k = cents.shape[0]
     idx = torch.empty((n, kk), dtype=torch.int32, device=rows.device)
     vals = torch.empty((n, kk), dtype=torch.float32, device=rows.device)
     if n == 0:
         return idx, vals
-    lib = load_kernels()
     rows = rows.contiguous()
-    cents = cents.contiguous()
-    with torch.cuda.device(rows.device):
-        cents, c_ld = tma_centroids(cents)
-        cnorms = _padded_norms(cnorms)
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
-        rc = lib.ic_pref_topk_block(
-            rows.data_ptr(), cents.data_ptr(), cnorms.data_ptr(),
-            n, k, d, c_ld, kk, _DTYPES[rows.dtype],
-            idx.data_ptr(), vals.data_ptr(), stream)
-    _raise_on(lib, rc, "pref_topk_block")
-    launches += 1
+    cents, c_ld = tma_centroids(cents.contiguous())
+    cnorms = _padded_norms(cnorms)
+    launch("pref_topk_block", rows.device, (), rows.data_ptr(),
+           cents.data_ptr(), cnorms.data_ptr(), n, k, d, c_ld, kk,
+           _DTYPES[rows.dtype], idx.data_ptr(), vals.data_ptr())
     return idx, vals

@@ -17,6 +17,7 @@ import torch
 
 from imageclust_tpu.ops.attention import short_seq_attention as pallas_attention
 from imageclust_tpu_torch.ops import attention as at
+from imageclust_tpu_torch.ops._build import launches
 
 torch.set_num_threads(1)
 
@@ -82,9 +83,10 @@ def test_twin_long_sequence_matches_xla():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_on_cpu_runs_the_twin(dtype):
     _, (q, k, v) = _qkv(2, 50, 3, 64, dtype, seed=1)
-    before = at.launches
+    before = launches["short_seq_attention"]
     got = at.short_seq_attention(q, k, v)
-    assert at.launches == before  # the kernel never runs on the CPU
+    # the kernel never runs on the CPU
+    assert launches["short_seq_attention"] == before
     assert torch.equal(got, at.short_seq_attention_plain(q, k, v))
 
 

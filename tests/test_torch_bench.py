@@ -166,9 +166,9 @@ def test_flops_count_int8_gemms_and_k5_launches(monkeypatch):
     """``torch._int_mm`` counts as a matmul; each K5 launch during the
     count (a ctypes call the counter cannot see) adds 4 * B * T^2 * width."""
     from imageclust_tpu_torch.models.vit import VIT_CONFIGS
-    from imageclust_tpu_torch.ops import attention
+    from imageclust_tpu_torch.ops import _build
 
-    monkeypatch.setattr(attention, "launches", attention.launches)
+    monkeypatch.setattr(_build, "launches", _build.launches.copy())
     a = torch.ones(32, 64, dtype=torch.int8)
     b = torch.ones(64, 16, dtype=torch.int8)
     launch = []
@@ -177,7 +177,7 @@ def test_flops_count_int8_gemms_and_k5_launches(monkeypatch):
         spec = type("spec", (), {"name": "vit_b32"})
 
         def _forward(self, batch):
-            attention.launches += len(launch)
+            _build.launches["short_seq_attention"] += len(launch)
             return torch._int_mm(a, b)
 
     assert bench._flops_per_batch(Tower(), a) == 2 * 32 * 64 * 16

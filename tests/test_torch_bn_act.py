@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from imageclust_tpu_torch.models import resnet50 as rn
 from imageclust_tpu_torch.ops import bn_act as ba
+from imageclust_tpu_torch.ops._build import launches
 
 torch.set_num_threads(1)
 
@@ -161,13 +162,13 @@ def test_wrapper_on_cpu_runs_the_twin():
     x = _channels_last(gen, (2, 128, 4, 4), torch.bfloat16)
     res = _channels_last(gen, (2, 128, 4, 4), torch.bfloat16)
     bn, bp = _bn(gen, 128), _bn(gen, 128)
-    before = ba.launches
+    before = launches["bn_act"]
     with torch.no_grad():
         got = ba.bn_act(x, *bn.vectors(), torch.bfloat16, res, bp.vectors(),
                         relu=True)
         want = ba.bn_act_plain(x, *bn.vectors(), torch.bfloat16, res,
                                bp.vectors(), relu=True)
-    assert ba.launches == before  # the kernel never runs on the CPU
+    assert launches["bn_act"] == before  # the kernel never runs on the CPU
     assert _same_bits(got, want)
 
 
@@ -243,10 +244,10 @@ def test_wrapper_rejects(case, exc):
     elif case == "meta_device":
         args = {k: (t.to("meta") if isinstance(t, torch.Tensor) else t)
                 for k, t in args.items()}
-    before = ba.launches
+    before = launches["bn_act"]
     with pytest.raises(exc):
         ba.bn_act(**args)
-    assert ba.launches == before
+    assert launches["bn_act"] == before
 
 
 def test_wrapper_rejects_mixed_devices():

@@ -23,6 +23,7 @@ from imageclust_tpu.ops.pallas_kernels import (
 from imageclust_tpu_torch.cluster import sharded as tsh
 from imageclust_tpu_torch.ops import bucket_kernels as bk
 from imageclust_tpu_torch.ops import merge_kernels as mk
+from imageclust_tpu_torch.ops._build import launches
 
 torch.set_num_threads(1)
 
@@ -226,11 +227,13 @@ class TestWrapperContracts:
     def test_cpu_runs_the_twins_and_counts_nothing(self, rng):
         feats, bidx, counts, targets = _chunk_inputs(rng, True,
                                                      counts=(10, 7, 0))
-        k2, k3 = bk.launches, mk.batched_launches
+        k2 = launches["merge_loop_whole"]
+        k3 = launches["merge_update_argmin_batched"]
         args = _torch_args(feats, bidx, counts, targets)
         tsh._bucket_chunk_whole(*args)
         tsh._bucket_chunk_fused(*args, update_rule="centroid")
-        assert (bk.launches, mk.batched_launches) == (k2, k3)
+        assert (launches["merge_loop_whole"],
+                launches["merge_update_argmin_batched"]) == (k2, k3)
 
     @pytest.mark.parametrize("bad", ["D_dtype", "D_shape", "int_dtype",
                                      "vec_shape", "device"])

@@ -16,6 +16,7 @@ from imageclust_tpu.ops.pallas_kernels import (
     merge_update_argmin as jax_merge_update_argmin,
 )
 from imageclust_tpu_torch.ops import merge_kernels as mk
+from imageclust_tpu_torch.ops._build import launches
 
 torch.set_num_threads(1)
 
@@ -147,9 +148,9 @@ class TestWrapperContract:
 
     def test_cpu_tensors_take_the_twin_and_count_nothing(self):
         D, vec, ints = self._args()
-        before = mk.launches
+        before = launches["merge_update_argmin"]
         mk.merge_update_argmin(D, vec, 0, 0, ints, ints, ints + 1, 6)
-        assert mk.launches == before
+        assert launches["merge_update_argmin"] == before
 
     @pytest.mark.parametrize("bad", ["dtype", "vec_dtype", "int_dtype",
                                      "square", "multiple", "vec_len"])

@@ -17,6 +17,7 @@ import imageclust_tpu.cluster.sharded as jsh
 from imageclust_tpu.ops.pallas_kernels import pref_topk_block as jax_k4
 from imageclust_tpu_torch.cluster import sharded as tsh
 from imageclust_tpu_torch.ops import pref_kernels as pk
+from imageclust_tpu_torch.ops._build import launches
 
 torch.set_num_threads(1)
 
@@ -148,9 +149,9 @@ def test_wrapper_counts_no_launch_on_cpu_and_checks(rng):
     x = torch.zeros((4, 8))
     c = torch.ones((10, 8))
     cn = pk.row_norms(c)
-    before = pk.launches
+    before = launches["pref_topk_block"]
     idx, vals = pk.pref_topk_block(x, c, cn, 3)
-    assert pk.launches == before
+    assert launches["pref_topk_block"] == before
     assert idx.tolist() == [[0, 1, 2]] * 4 and vals.shape == (4, 3)
     with pytest.raises(ValueError, match="kk"):
         pk.pref_topk_block(x, c, cn, 11)      # kk > k
